@@ -1,0 +1,126 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+At first use, nvcc compiles every source under tpu3dsad_torch/csrc into one
+shared library with a plain C interface,
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/tpu3dsad_torch/libkernels.so csrc/*.cu
+
+which is loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The build is keyed by a hash of the sources and flags, kept next
+to the library; a changed source rebuilds it. Any failure raises: there is
+no fallback to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "tpu3dsad_torch"
+LIB_PATH = BUILD_DIR / "libkernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: name -> argtypes; every one returns a cudaError_t as int
+_SIGNATURES = {
+    # xyz, mask, dist, idx, b, n, m, stream
+    "tpu3dsad_fps": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # xyz, mask, centers, idx, cnt, b, n, m, k, r2, stream
+    "tpu3dsad_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+}
+
+_lib: ctypes.CDLL | None = None
+build_note: str = ""  # how this process got the library: nvcc time or cached
+ptxas_log: str = ""  # nvcc's -Xptxas=-v report (registers, spills, smem)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and PATH); the CUDA "
+        "kernels of tpu3dsad_torch cannot be built")
+
+
+def _build() -> Path:
+    global build_note, ptxas_log
+    sources = _sources()
+    digest = _digest(sources)
+    stamp = LIB_PATH.with_suffix(".sha256")
+    if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
+        build_note = "cached (source hash matches)"
+        return LIB_PATH
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        build_note = f"nvcc {time.perf_counter() - t0:.1f} s"
+        ptxas_log = proc.stdout + proc.stderr
+        os.replace(tmp, LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    stamp.write_text(digest)
+    return LIB_PATH
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tpu3dsad_error_string.argtypes = (ctypes.c_int,)
+        lib.tpu3dsad_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def describe() -> str:
+    """One line on the loaded library: where it is and how it was got."""
+    library()
+    return f"build: {build_note} -> {LIB_PATH}"
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error at launch."""
+    if err != 0:
+        text = library().tpu3dsad_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {text}")
