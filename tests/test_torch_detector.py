@@ -52,9 +52,12 @@ SMALL = ModelConfig(
 
 def to_port(ref):
     """The port's config dataclass holding the same values as the
-    reference's `ref` (a ModelConfig, EvalConfig or Config)."""
+    reference's `ref` (a Config or one of its sections)."""
     if isinstance(ref, Config):
-        return tconfig.Config(model=to_port(ref.model), eval=to_port(ref.eval))
+        return tconfig.Config(model=to_port(ref.model),
+                              data=to_port(ref.data),
+                              train=to_port(ref.train),
+                              eval=to_port(ref.eval))
     cls = getattr(tconfig, type(ref).__name__)
     return cls(**{f.name: getattr(ref, f.name)
                   for f in dataclasses.fields(cls)})
@@ -73,7 +76,7 @@ def pair():
     var = jax.jit(lambda k: jm.init(k, jnp.asarray(pts), mask=jnp.asarray(mask),
                                     train=False))(jax.random.key(0))
     var = randomize(var, seed=7)
-    tm = SizeAdaptiveDetector(to_port(SMALL))
+    tm = SizeAdaptiveDetector(to_port(SMALL), device="cpu")
     load_flax_variables(tm, var)
     return jm, var, tm, pts, mask
 
@@ -203,9 +206,11 @@ def test_nms_aabb_equals_jax(cls_nms):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A5b"):
-        SizeAdaptiveDetector(ModelConfig(proposal_sampling="density"))
+        SizeAdaptiveDetector(ModelConfig(proposal_sampling="density"),
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="A5b"):
-        SizeAdaptiveDetector(ModelConfig(proposal_mode="lineage"))
+        SizeAdaptiveDetector(ModelConfig(proposal_mode="lineage"),
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="A5b"):
         parse_predictions({}, np.ones((4, 3), np.float32), 12,
                           EvalConfig(use_oriented_nms=True))

@@ -74,8 +74,19 @@ def test_masked_batchnorm_eval():
 
 
 def test_masked_batchnorm_train_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        MaskedBatchNorm(4).train()(torch.zeros(2, 4))
+    """Train mode, once left for the training slice, is ported now: the
+    output and the updated running statistics equal flax's (masked cases
+    are in test_torch_train.py)."""
+    x = np.random.default_rng(5).normal(size=(2, 4)).astype(np.float32)
+    jbn = JBN()
+    var = randomize(jbn.init(jax.random.key(0), jnp.asarray(x), train=False))
+    want, upd = jbn.apply(var, jnp.asarray(x), train=True, momentum=0.9,
+                          mutable=["batch_stats"])
+    bn = MaskedBatchNorm(4).train()
+    load_flax_variables(bn, var)
+    _close(bn(_t(x), momentum=0.9), want)
+    _close(bn.running_mean, upd["batch_stats"]["mean"])
+    _close(bn.running_var, upd["batch_stats"]["var"])
 
 
 def test_shared_mlp():

@@ -236,7 +236,8 @@ def test_build_key_follows_sources(tmp_path):
     first = build._digest([a])
     a.write_text("// two")
     assert build._digest([a]) != first
-    assert {p.name for p in build._sources()} >= {"fps.cu", "ball_query.cu"}
+    assert {p.name for p in build._sources()} >= {"fps.cu", "ball_query.cu",
+                                                  "scatter.cu"}
 
 
 def test_cached_build_is_reported(monkeypatch, tmp_path):
@@ -271,8 +272,9 @@ def test_cached_build_is_reported(monkeypatch, tmp_path):
         src.write_text(source)
         monkeypatch.setattr(build, "_lib", None)  # as in a new process
         lines.append(build.describe())
-    assert len(runs) == 2
-    assert lines[0].startswith("build: nvcc ") and " s -> " in lines[0]
+    links = [cmd for cmd in runs if "-shared" in cmd]
+    assert len(links) == 2 and len(runs) == 4  # one compile + one link each
+    assert lines[0].startswith("build: nvcc ") and " -> " in lines[0]
     assert lines[1] == f"build: cached (source hash matches) -> " \
                        f"{tmp_path / 'build' / 'lib.so'}"
     assert lines[2].startswith("build: nvcc ")

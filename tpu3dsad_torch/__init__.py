@@ -6,13 +6,18 @@ names so each counterpart is easy to find. It imports `torch` and never
 the reference's (`config.py`).
 
 Layout: channels-last [B, N, C] tensors with static padded shapes and masks,
-as in the reference. Plain tensor code is PyTorch; the two point kernels on
-the whole-scene inference path (FPS and exact ball query) are hand-written
-CUDA C++ for sm_90a under `csrc/`, built with nvcc at first use
-(`ops/cuda/build.py`). CPU tensors take the kernels' plain PyTorch versions.
+as in the reference. Plain tensor code is PyTorch; the point kernels of the
+inference and training paths (FPS, exact ball query, and the row
+scatter-add that is the gather/group backward) are hand-written CUDA C++
+for sm_90a under `csrc/`, built with nvcc at first use
+(`ops/cuda/build.py`). CPU tensors take the kernels' plain PyTorch
+versions.
 
 fp32 distance math is part of the contract, so TF32 is switched off for
-matmuls and cuDNN when this package is imported.
+matmuls and cuDNN when this package is imported. A training run with
+train.bf16_matmul lets the MLP products run as TF32 on the card
+(`train_lib.apply_runtime_config`); the distance products stay fp32 there
+too (`ops/plain/knn.py`).
 """
 
 import torch

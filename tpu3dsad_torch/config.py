@@ -1,10 +1,11 @@
 """Configuration: frozen dataclasses mirroring tpu3dsad/config.py.
 
-The port keeps its own copy of the fields that whole-scene inference reads,
-with the reference's names and defaults (pinned equal by
-tests/test_torch_detector.py), so neither the port nor a run on the card
-loads any module of the JAX package. A reference `Config` works in its
-place: the port only reads these attributes.
+The port keeps its own copy of the fields that whole-scene inference and
+detector training read, with the reference's names and defaults (pinned
+equal by tests/test_torch_detector.py and tests/test_torch_train.py), so
+neither the port nor a run on the card loads any module of the JAX package.
+A reference `Config` works in its place: the port only reads these
+attributes.
 """
 
 from __future__ import annotations
@@ -35,7 +36,52 @@ class ModelConfig:
     cluster_nsample: int = 16
     proposal_mode: str = "adaptive"  # 'lineage' is not ported (ROADMAP A5b)
     proposal_sampling: str = "fps"  # 'density' is not ported (ROADMAP A5b)
+    # objectness assignment zone and center-chamfer unit (losses.py)
+    assign_near: float = 0.3
+    assign_far: float = 0.6
+    center_loss_norm: float = 1.0
     append_height: bool = True
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    name: str = "scannet"  # only 'synthetic' is ported (ROADMAP A7)
+    num_points: int = 40960
+    max_boxes: int = 64
+    augment: bool = True
+    device_augment: bool = False  # flip/rot/scale inside the train step
+    device_synth: bool = False  # synthetic batches made on the device
+    aug_preset: str = "auto"  # 'auto' | 'custom' | a name in AUG_PRESETS
+    aug_flip_x: bool = True
+    aug_flip_y: bool = True
+    aug_rot_range: float = 0.08726646  # half-range in rad (pi/36)
+    aug_scale_min: float = 1.0
+    aug_scale_max: float = 1.0
+    vote_candidates: int = 3
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8
+    num_epochs: int = 180
+    lr: float = 1e-3
+    lr_decay_steps: tuple[int, ...] = (80, 120, 160)  # epochs
+    lr_decay_rates: tuple[float, ...] = (0.1, 0.1, 0.1)
+    weight_decay: float = 0.0  # > 0 selects AdamW
+    bn_momentum_init: float = 0.5  # torch convention, halved every N epochs
+    bn_momentum_max: float = 0.999  # cap on flax's running-average weight
+    bn_decay_epochs: int = 20
+    grad_clip: float = 0.0  # global-norm clip, 0 = off
+    steps_per_call: int = 1  # only 1 is ported (ROADMAP A7)
+    seed: int = 0
+    ckpt_dir: str = "./ckpt"
+    ckpt_every: int = 1  # epochs; the last epoch always saves
+    log_every: int = 10  # steps
+    eval_every: int = 10  # epochs; evaluate is not ported (ROADMAP A7)
+    mesh_shape: tuple[int, ...] = (-1,)  # one device only (ROADMAP A11)
+    # TF32 for the MLP products on the card; distances stay fp32
+    # (train_lib.apply_runtime_config)
+    bf16_matmul: bool = True
 
 
 @dataclass(frozen=True)
@@ -50,6 +96,8 @@ class EvalConfig:
 @dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
 

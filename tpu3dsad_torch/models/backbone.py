@@ -32,19 +32,22 @@ class PointNet2Backbone(nn.Module):
         self.fp2 = FeaturePropagation(c2 + cfg.fp_channels[0][-1],
                                       cfg.fp_channels[1])
 
-    def forward(self, xyz, features=None, *, mask=None):
+    def forward(self, xyz, features=None, *, mask=None, bn_momentum=0.9):
         """Returns dict with seed_xyz [B,S,3], seed_features [B,S,D],
         seed_inds [B,S], seed_mask [B,S] (S = cfg.sa_npoints[1])."""
         sa_out = []  # (xyz, feats, inds, mask) per level
         cur = (xyz, features, None, mask)
         for i in range(4):
-            cur = getattr(self, f"sa{i + 1}")(cur[0], cur[1], mask=cur[3])
+            cur = getattr(self, f"sa{i + 1}")(cur[0], cur[1], mask=cur[3],
+                                              bn_momentum=bn_momentum)
             sa_out.append(cur)
         x2, f2, i2, m2 = sa_out[1]
         x3, f3, _, m3 = sa_out[2]
         x4, f4, _, m4 = sa_out[3]
-        f3p = self.fp1(x3, f3, x4, f4, sparse_mask=m4)
-        seeds = self.fp2(x2, f2, x3, f3p, sparse_mask=m3)
+        f3p = self.fp1(x3, f3, x4, f4, dense_mask=m3, sparse_mask=m4,
+                       bn_momentum=bn_momentum)
+        seeds = self.fp2(x2, f2, x3, f3p, dense_mask=m2, sparse_mask=m3,
+                         bn_momentum=bn_momentum)
         # seed indices into the ORIGINAL cloud: sa1's picks composed with
         # sa2's (indices into sa1's set)
         seed_inds = torch.gather(sa_out[0][2], 1, i2.long())

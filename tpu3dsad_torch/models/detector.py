@@ -24,13 +24,19 @@ from tpu3dsad_torch.nn.mlp import init_like_flax_
 
 class SizeAdaptiveDetector(nn.Module):
     """cfg: a ModelConfig (the port's or the reference's). mean_sizes
-    [NS,3]: dataset size priors, else the synthetic ones. in_features: raw per-point feature
-    channels (color) besides the height. Weights are drawn as a fresh flax
-    model's would be, from `generator` (a CPU torch.Generator; seed 0 if
-    None), then the module is moved to `device`."""
+    [NS,3]: dataset size priors, else the synthetic ones. in_features: raw
+    per-point feature channels (color) besides the height. Weights are
+    drawn as a fresh flax model's would be, from `generator` (a CPU
+    torch.Generator; seed 0 if None), then the module is moved to `device`:
+    the card unless the caller asks for the CPU. Built for "cuda" where
+    there is no card, it raises.
+
+    In training mode (`model.train()`), BatchNorm uses the masked batch
+    statistics and updates its running averages with `bn_momentum`, and the
+    proposal head blends the radius bank by softmax."""
 
     def __init__(self, cfg: ModelConfig, mean_sizes=None, *,
-                 in_features: int = 0, device=None,
+                 in_features: int = 0, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         if cfg.proposal_mode == "lineage":
@@ -55,10 +61,14 @@ class SizeAdaptiveDetector(nn.Module):
             generator = torch.Generator().manual_seed(0)
         init_like_flax_(self, generator)
         self.eval()
-        if device is not None:
-            self.to(device)
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "SizeAdaptiveDetector(device='cuda'): no CUDA device is "
+                "available; pass device='cpu' to build it on the CPU")
+        self.to(device)
 
-    def forward(self, points, features=None, *, mask=None):
+    def forward(self, points, features=None, *, mask=None, bn_momentum=0.9):
         """points [B,N,3], features [B,N,C] -> end_points dict."""
         parts = [] if features is None else [features]
         if self.cfg.append_height:
@@ -69,14 +79,16 @@ class SizeAdaptiveDetector(nn.Module):
             parts.append(z - floor)
         features = torch.cat(parts, -1) if parts else None
 
-        end_points = dict(self.backbone(points, features, mask=mask))
+        end_points = dict(self.backbone(points, features, mask=mask,
+                                        bn_momentum=bn_momentum))
         vote_xyz, vote_feat, vote_mask = self.voting(
             end_points["seed_xyz"], end_points["seed_features"],
-            mask=end_points["seed_mask"])
+            mask=end_points["seed_mask"], bn_momentum=bn_momentum)
         end_points["vote_xyz"] = vote_xyz
         end_points["vote_features"] = vote_feat
         end_points["vote_mask"] = vote_mask
-        prop = self.proposal(vote_xyz, vote_feat, vote_mask=vote_mask)
+        prop = self.proposal(vote_xyz, vote_feat, vote_mask=vote_mask,
+                             bn_momentum=bn_momentum)
         end_points.update(prop)
         end_points.update(decode_proposals(
             prop["raw_params"], prop["proposal_xyz"], self.mean_sizes,

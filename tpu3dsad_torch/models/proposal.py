@@ -3,9 +3,9 @@ SizeAdaptiveProposal with sampling='fps', :115-228).
 
 Votes are grouped at a static bank of radii; each radius runs its own
 shared MLP + masked max-pool; a scale-selection head gives logits over the
-bank. In eval, the proposal feature is the bank entry of the argmax logit
-(a hard one-hot blend); the soft blend of training waits for the training
-slice.
+bank. The proposal feature blends the bank entries: by the softmax of the
+logits in training (differentiable), by the one-hot of their argmax in
+eval.
 """
 
 from __future__ import annotations
@@ -65,7 +65,8 @@ class SizeAdaptiveProposal(nn.Module):
         out_ch = 2 + 3 + num_heading_bins * 2 + num_classes * 4 + num_classes
         self.head_out = nn.Linear(feat_dim, out_ch)
 
-    def forward(self, vote_xyz, vote_features, *, vote_mask=None):
+    def forward(self, vote_xyz, vote_features, *, vote_mask=None,
+                bn_momentum=0.9):
         """Returns dict with raw proposal params + scale logits."""
         inds = ops.furthest_point_sample(vote_xyz, self.num_proposals,
                                          mask=vote_mask)
@@ -82,19 +83,25 @@ class SizeAdaptiveProposal(nn.Module):
                 normalize_xyz=True,
             )
             gmask = gmask & center_mask[:, :, None]
-            h = getattr(self, f"scale_mlp_{r_i}")(grouped)
+            h = getattr(self, f"scale_mlp_{r_i}")(grouped, mask=gmask,
+                                                  bn_momentum=bn_momentum)
             scale_feats.append(ops.masked_max(h, gmask, 2))  # [B,P,D]
         stacked = torch.stack(scale_feats, 2)  # [B, P, R, D]
 
         B, P, R, D = stacked.shape
-        sel_h = self.scale_sel_mlp(stacked.reshape(B, P, R * D))
+        sel_h = self.scale_sel_mlp(stacked.reshape(B, P, R * D),
+                                   mask=center_mask, bn_momentum=bn_momentum)
         scale_logits = self.scale_sel_out(sel_h)  # [B, P, R]
-        hard = nn.functional.one_hot(scale_logits.argmax(-1), R).to(
-            stacked.dtype)
-        feat = torch.einsum("bprd,bpr->bpd", stacked, hard)
+        if self.training:
+            blend = torch.softmax(scale_logits, -1)
+        else:
+            blend = nn.functional.one_hot(scale_logits.argmax(-1), R).to(
+                stacked.dtype)
+        feat = torch.einsum("bprd,bpr->bpd", stacked, blend)
 
-        x = torch.relu(self.head_bn_0(self.head_0(feat)))
-        x = torch.relu(self.head_bn_1(self.head_1(x)))
+        bn = dict(mask=center_mask, momentum=bn_momentum)
+        x = torch.relu(self.head_bn_0(self.head_0(feat), **bn))
+        x = torch.relu(self.head_bn_1(self.head_1(x), **bn))
         return {
             "proposal_xyz": centers,
             "proposal_inds": inds,

@@ -22,13 +22,14 @@ class VotingModule(nn.Module):
         self.bn_1 = MaskedBatchNorm(feat_dim)
         self.out = nn.Linear(feat_dim, vote_factor * (3 + in_dim))
 
-    def forward(self, seed_xyz, seed_features, *, mask=None):
+    def forward(self, seed_xyz, seed_features, *, mask=None, bn_momentum=0.9):
         """seed_xyz [B,S,3], seed_features [B,S,C] ->
         (vote_xyz [B,S*F,3], vote_features [B,S*F,C], vote_mask [B,S*F])."""
         B, S, C = seed_features.shape
         F = self.vote_factor
-        x = torch.relu(self.bn_0(self.dense_0(seed_features)))
-        x = torch.relu(self.bn_1(self.dense_1(x)))
+        bn = dict(mask=mask, momentum=bn_momentum)
+        x = torch.relu(self.bn_0(self.dense_0(seed_features), **bn))
+        x = torch.relu(self.bn_1(self.dense_1(x), **bn))
         out = self.out(x).reshape(B, S, F, 3 + C)
         vote_xyz = seed_xyz[:, :, None, :] + out[..., :3]
         vote_feat = seed_features[:, :, None, :] + out[..., 3:]

@@ -23,9 +23,9 @@ class FeaturePropagation(nn.Module):
         self.mlp = SharedMLP(in_channels, mlp)
 
     def forward(self, dense_xyz, dense_features, sparse_xyz, sparse_features,
-                *, sparse_mask=None):
+                *, dense_mask=None, sparse_mask=None, bn_momentum=0.9):
         """Interpolate sparse [B,S,C] features onto dense [B,N,3] points ->
-        [B, N, mlp[-1]]."""
+        [B, N, mlp[-1]]. dense_mask gates the BN statistics in training."""
         d2, idx = ops.three_nn(dense_xyz, sparse_xyz, support_mask=sparse_mask)
         # all-invalid support leaves +inf distances; keep the weights finite
         d2 = torch.where(torch.isfinite(d2), d2, 1e10)
@@ -33,4 +33,4 @@ class FeaturePropagation(nn.Module):
                                        ops.interp_weights(d2))
         if dense_features is not None:
             interp = torch.cat([dense_features, interp], -1)
-        return self.mlp(interp)
+        return self.mlp(interp, mask=dense_mask, bn_momentum=bn_momentum)

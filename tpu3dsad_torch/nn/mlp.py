@@ -50,8 +50,11 @@ class SharedMLP(nn.Module):
             self.add_module(f"bn_{i}", MaskedBatchNorm(ch))
             in_channels = ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, mask: torch.Tensor | None = None,
+                bn_momentum: float = 0.9) -> torch.Tensor:
+        """x [..., C]; mask [...] gates the BN statistics in training."""
         for i in range(self.n):
-            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x))
+            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x),
+                                         mask=mask, momentum=bn_momentum)
             x = torch.relu(x)
         return x

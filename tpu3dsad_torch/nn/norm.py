@@ -1,12 +1,20 @@
-"""Masked BatchNorm (tpu3dsad/nn/norm.py), inference form.
+"""Masked BatchNorm with call-time momentum (tpu3dsad/nn/norm.py).
 
 Parameters and buffers carry torch's names (weight, bias, running_mean,
 running_var) so `utils/bridge.py` maps flax's scale/bias/mean/var onto them
 one to one. Fresh modules start as flax's do: scale 1, bias 0, running mean
 0, running variance 1.
 
-Only eval mode is ported: masked batch statistics and the call-time
-momentum belong to the training slice (ROADMAP A7).
+Two conventions differ from torch.nn.BatchNorm and follow the reference:
+
+  * `momentum` is the weight of the OLD running average (flax), passed at
+    call time so the BN-momentum schedule needs no new module;
+  * the variance is the biased one over the valid rows (divided by their
+    count, clamped to >= 1), used both to normalise and to update the
+    running average.
+
+Padded rows (mask False) contribute to neither statistic but are still
+normalised. The running buffers are updated in place by a train-mode call.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ from torch import nn
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over all axes but the last; eval mode."""
+    """BatchNorm over all axes but the last, mask-aware."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -26,11 +34,23 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [..., C] -> (x - mean) * rsqrt(var + eps) * scale + bias."""
+    def forward(self, x: torch.Tensor, *, mask: torch.Tensor | None = None,
+                momentum: float = 0.9) -> torch.Tensor:
+        """x [..., C]; mask [...] bool (True = real row) -> normalised x."""
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm train mode (masked statistics) is not "
-                "ported yet (ROADMAP A7); call model.eval()")
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            rows = x.reshape(-1, x.shape[-1])
+            if mask is None:
+                mean = rows.mean(0)
+                var = rows.var(0, unbiased=False)
+            else:
+                m = mask.reshape(-1, 1).to(x.dtype)
+                cnt = m.sum().clamp_min(1.0)
+                mean = (rows * m).sum(0) / cnt
+                var = (m * (rows - mean) ** 2).sum(0) / cnt
+            with torch.no_grad():
+                self.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+                self.running_var.mul_(momentum).add_((1.0 - momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias

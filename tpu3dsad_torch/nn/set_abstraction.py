@@ -37,7 +37,8 @@ class SetAbstraction(nn.Module):
             self.add_module(f"mlp_{s}", SharedMLP(in_ch, channels))
         self.out_channels = sum(c[-1] for c in mlps)
 
-    def forward(self, xyz, features=None, *, mask=None, inds=None):
+    def forward(self, xyz, features=None, *, mask=None, inds=None,
+                bn_momentum=0.9):
         """xyz [B,N,3], features [B,N,C] -> (new_xyz [B,M,3],
         new_features [B,M,C'], inds [B,M], new_mask [B,M])."""
         if inds is None:
@@ -52,7 +53,8 @@ class SetAbstraction(nn.Module):
                 use_xyz=self.use_xyz, normalize_xyz=self.normalize_xyz,
             )
             gmask = gmask & new_mask[:, :, None]
-            h = getattr(self, f"mlp_{s}")(grouped)
+            h = getattr(self, f"mlp_{s}")(grouped, mask=gmask,
+                                          bn_momentum=bn_momentum)
             pooled.append(ops.masked_max(h, gmask, 2))
         new_features = torch.cat(pooled, -1) if len(pooled) > 1 else pooled[0]
         return new_xyz, new_features, inds, new_mask

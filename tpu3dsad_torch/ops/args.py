@@ -1,4 +1,4 @@
-"""Shape and range checks of the FPS and ball-query arguments.
+"""Shape and range checks of the FPS, ball-query and scatter arguments.
 
 Both implementations, the plain versions and the kernel wrappers, call
 these once on entry, so each path checks its arguments exactly once.
@@ -38,3 +38,15 @@ def check_ball_query(xyz: torch.Tensor, centers: torch.Tensor, nsample: int,
                          f"{xyz.shape[0]}")
     if nsample <= 0:
         raise ValueError(f"nsample must be positive, got {nsample}")
+
+
+def check_scatter(g: torch.Tensor, idx: torch.Tensor, n: int) -> None:
+    if g.dim() != 3:
+        raise ValueError(f"g must be [B, U, C], got {tuple(g.shape)}")
+    if idx.shape != g.shape[:2]:
+        raise ValueError(f"idx must be [B, U] = {tuple(g.shape[:2])}, "
+                         f"got {tuple(idx.shape)}")
+    if idx.is_floating_point():
+        raise TypeError(f"idx must be an integer tensor, got {idx.dtype}")
+    if n <= 0:
+        raise ValueError(f"n must be positive, got {n}")

@@ -1,4 +1,5 @@
-"""3D box geometry for axis-aligned NMS (tpu3dsad/ops/boxes.py:35-91).
+"""3D box geometry for the heading bins and axis-aligned NMS
+(tpu3dsad/ops/boxes.py:35-91).
 
 Convention: Z-up, heading is a counter-clockwise rotation about +Z, size is
 (l, w, h) full extents. The oriented BEV IoU of the reference waits for
@@ -31,6 +32,26 @@ def angle_from_bin(bin_cls: torch.Tensor, residual: torch.Tensor,
     """(bin index, residual) -> heading angle, wrapped to [-π, π)."""
     angle = bin_cls.float() * (2.0 * np.pi / num_bins) + residual
     return torch.where(angle > np.pi, angle - 2.0 * np.pi, angle)
+
+
+def mod(x: torch.Tensor, y: float) -> torch.Tensor:
+    """x mod y with the sign of y, as jnp.mod computes it: the exact fmod,
+    plus y where the signs differ (torch.remainder rounds x - floor(x/y)*y
+    instead, an ulp of y away near multiples of y)."""
+    r = torch.fmod(x, y)
+    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+
+
+def angle_to_bin(angle: torch.Tensor, num_bins: int):
+    """heading angle -> (bin index int32, residual). Inverse of
+    angle_from_bin (tpu3dsad/ops/boxes.py:46-54)."""
+    two_pi = 2.0 * np.pi
+    angle = mod(angle, two_pi)
+    bin_width = two_pi / num_bins
+    shifted = mod(angle + bin_width / 2.0, two_pi)
+    bin_cls = torch.floor(shifted / bin_width).int()
+    residual = shifted - (bin_cls.float() * bin_width + bin_width / 2.0)
+    return bin_cls, residual
 
 
 def box_corners(center: torch.Tensor, size: torch.Tensor,

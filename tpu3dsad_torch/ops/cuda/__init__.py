@@ -5,6 +5,6 @@ Importing this package builds nothing: nvcc runs at the first launch
 anything else; each counts its launches in its module's `launches`.
 """
 
-from tpu3dsad_torch.ops.cuda import ball_query, build, fps
+from tpu3dsad_torch.ops.cuda import ball_query, build, fps, scatter
 
-__all__ = ["ball_query", "build", "fps"]
+__all__ = ["ball_query", "build", "fps", "scatter"]

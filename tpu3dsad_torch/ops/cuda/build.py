@@ -1,15 +1,17 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-At first use, nvcc compiles every source under tpu3dsad_torch/csrc into one
-shared library with a plain C interface,
+At first use, nvcc compiles each source under tpu3dsad_torch/csrc to an
+object, all sources at once in parallel,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/tpu3dsad_torch/libkernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c -o <obj> csrc/<name>.cu
 
-which is loaded with ctypes (no PyTorch headers, so the build takes
-seconds). The build is keyed by a hash of the sources and flags, kept next
-to the library; a changed source rebuilds it. Any failure raises: there is
-no fallback to the plain versions.
+then links the objects into one shared library with a plain C interface
+(`nvcc ... -shared -o build/tpu3dsad_torch/libkernels.so <objs>`), which is
+loaded with ctypes (no PyTorch headers, so the build takes seconds). The
+build is keyed by a hash of the sources and flags, kept next to the
+library; a changed source rebuilds it. Any failure raises: there is no
+fallback to the plain versions.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -29,7 +32,7 @@ BUILD_DIR = _PKG.parent / "build" / "tpu3dsad_torch"
 LIB_PATH = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -39,6 +42,8 @@ _SIGNATURES = {
     "tpu3dsad_fps": (_P, _P, _P, _P, _I, _I, _I, _P),
     # xyz, mask, centers, idx, cnt, b, n, m, k, r2, stream
     "tpu3dsad_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # g, idx, out, b, u, c, n, stream
+    "tpu3dsad_scatter_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -68,6 +73,15 @@ def _nvcc() -> str:
         "kernels of tpu3dsad_torch cannot be built")
 
 
+def _nvcc_run(cmd: list[str]) -> str:
+    """Run one nvcc command; its output, or raise with it."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def _build() -> Path:
     global build_note, ptxas_log
     sources = _sources()
@@ -78,22 +92,19 @@ def _build() -> Path:
         return LIB_PATH
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        build_note = f"nvcc {time.perf_counter() - t0:.1f} s"
-        ptxas_log = proc.stdout + proc.stderr
-        os.replace(tmp, LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+            logs = list(pool.map(
+                _nvcc_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                            for src, obj in zip(sources, objs)]))
+        lib = str(Path(tmp) / "libkernels.so")
+        _nvcc_run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])
+        build_note = (f"nvcc {time.perf_counter() - t0:.1f} s "
+                      f"({len(sources)} sources in parallel)")
+        ptxas_log = "".join(logs)
+        os.replace(lib, LIB_PATH)
     stamp.write_text(digest)
     return LIB_PATH
 

@@ -1,7 +1,8 @@
-"""Gather / group — plain PyTorch (counterpart of tpu3dsad/ops/xla/group.py).
+"""Gather and the grouping epilogue — plain PyTorch (counterpart of
+tpu3dsad/ops/xla/group.py).
 
-In the reference these are XLA gathers outside any Pallas kernel, so here
-they stay torch indexing.
+The gather is torch indexing, as the reference's is an XLA gather; the ops
+API wraps it with the scatter_rows backward (ops.gather / ops.group).
 """
 
 from __future__ import annotations
@@ -13,12 +14,6 @@ def gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points [B,N,C], idx [B,M] -> [B,M,C]."""
     C = points.shape[-1]
     return torch.gather(points, 1, idx.long()[..., None].expand(-1, -1, C))
-
-
-def group(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """points [B,N,C], idx [B,M,K] -> [B,M,K,C]."""
-    B, M, K = idx.shape
-    return gather(points, idx.reshape(B, M * K)).reshape(B, M, K, -1)
 
 
 def group_epilogue(gathered, centers, cnt, radius, nsample, *,

@@ -1,6 +1,9 @@
 """three_nn — plain PyTorch (counterpart of tpu3dsad/ops/xla/knn.py).
 
-Squared distances in the |a|² + |b|² − 2ab form in fp32, clamped at 0;
+Squared distances in the |a|² + |b|² − 2ab form in fp32, clamped at 0.
+The cross term is a matrix product pinned to full fp32 in both directions
+(TF32 off inside it, whatever train.bf16_matmul set for the MLPs), as the
+reference pins it at Precision.HIGHEST (ops/xla/common.py);
 masked supports sit at +inf; the 3 nearest come from a stable sort, so
 distance ties go to the lower support index as `lax.top_k` gives them.
 The main path's largest call is [32, 1024, 512], so the [B, M, N] matrix
@@ -10,7 +13,36 @@ needed at these shapes).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Run a block with TF32 off for CUDA matrix products, then restore."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+class _Fp32Cross(torch.autograd.Function):
+    """a [B,M,3] @ b [B,N,3]^T with fp32 products forward and backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with fp32_matmul():
+            return torch.bmm(a, b.transpose(-1, -2))
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        with fp32_matmul():
+            return torch.bmm(grad, b), torch.bmm(grad.transpose(-1, -2), a)
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -18,7 +50,7 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.float(), b.float()
     a2 = (a * a).sum(-1, keepdim=True)
     b2 = (b * b).sum(-1, keepdim=True)
-    d2 = a2 + b2.transpose(-1, -2) - 2.0 * torch.bmm(a, b.transpose(-1, -2))
+    d2 = a2 + b2.transpose(-1, -2) - 2.0 * _Fp32Cross.apply(a, b)
     return d2.clamp_min(0.0)
 
 
