@@ -40,15 +40,42 @@ Phases, in order; any failure raises and the script exits nonzero:
     training precision as in full fp32, and one step from one saved state
     and batch must give the same loss on the kernel path and the plain
     path, with gradients within the tolerance the scatter's atomic order
-    allows.
+    allows;
+ 7. the large-cloud FPS kernel (B2, one thread-block cluster per cloud)
+    against its plain version: on the cropped, bucketed config-#4 scene
+    that phase 1's batch loading gave it (122880 raw points, 16384 picks),
+    N just above 65536, N = 786432 (slices past shared memory), a masked
+    tail, an all-masked cloud and duplicated points (ties across the
+    cluster's slices): picks exactly equal; beside each, B1's time on the
+    same B = 1 input and the cluster size;
+ 8. the sorted ball query (B4: Z-order glue around the B3 kernel) against
+    the same glue around the plain version, on config #4's recorded SA1
+    input and the SA1 shapes of configs #5 and #3: idx and cnt exactly
+    equal; counts equal to the exact tier's, the chosen set equal to it
+    where a ball holds fewer than K points, and K distinct in-ball points
+    where it is full;
+ 9. config #4 evaluation: eval_detector.run_eval (preset=outdoor,
+    data.device_preproc=true, batch 8) over 12 val scenes of 122880 points
+    with a checkpoint of seeded random weights, twice. First sweep: 12 B2
+    launches (one per scene), 5 FPS and 7 ball-query launches per batch,
+    2 batches (the second padded by scene_mask), finite metrics with
+    0 <= mAP <= 1, the FPS caches written. Second sweep, with
+    ops_fast_grouping=true ops_fast_mode=sorted: no B2 launch (cache
+    hits), one sorted ball query per batch at SA1 beside 6 exact ones.
+    One batch rerun with the plain ops gives the same keep in both modes.
+
+Phase 1 also records the inputs of every kernel launch of one config-#4
+eval batch (after loading the batch, which runs B2 once per scene) for
+phases 2, 3 and 8.
 
 Both sides of each comparison run on the same card; a differing pick is
 printed, never hidden by a tolerance. Kernel times are CUDA-event means
 over repeated launches; bound_ms is the least time the card could take for
 the same work at NVIDIA's published H100 SXM peaks (3.35 TB/s; 67 TFLOP/s
 fp32 outside the tensor cores). The line before the last is a JSON summary
-of the kernels: times summed over one request and one training step, and
-each path's own under by_path; the last line names the device.
+of the kernels: times summed over one request, one training step, one
+config-#4 eval batch (one scene for B2), and each path's own under
+by_path; the last line names the device.
 """
 
 from __future__ import annotations
@@ -56,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,11 +94,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpu3dsad_torch import ops, train_lib
-from tpu3dsad_torch.config import Config, DataConfig, ModelConfig, TrainConfig
-from tpu3dsad_torch.data import get_dataset
+from tpu3dsad_torch import eval_detector, ops, train_detector, train_lib
+from tpu3dsad_torch.config import (
+    Config,
+    DataConfig,
+    ModelConfig,
+    TrainConfig,
+    parse_cli,
+)
+from tpu3dsad_torch.data import get_dataset, kitti
 from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
+from tpu3dsad_torch.data.synthetic_outdoor import write_dataset
+from tpu3dsad_torch.eval.ap import APCalculator
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
+from tpu3dsad_torch.ops import sorted as sorted_bq
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import build
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
@@ -78,6 +115,7 @@ from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.ops.plain import scatter_rows as plain_scatter
+from tpu3dsad_torch.ops.plain.ball_query import radius_sq
 from tpu3dsad_torch.serving import build_inference_fn
 from tpu3dsad_torch.train_detector import build_detector, run_detector
 
@@ -94,6 +132,13 @@ BQ_SHAPES = [("sa1", N, 2048, 0.2, 64), ("sa2", 2048, 1024, 0.4, 32),
              ("bank_0.6", 1024, 256, 0.6, 16)]
 # config #3 training: 8 scenes x 40960 points, 8 steps (one epoch)
 TRAIN_B, TRAIN_N, TRAIN_STEPS = 8, 40960, 8
+# config #4 evaluation: KITTI-style scenes of 122880 raw points (BASELINE
+# config #4 "~120k pts"), cropped and sampled to 16384 by B2, batch 8;
+# 12 val scenes make two batches, the second half padding
+EVAL_SCENES, EVAL_RAW_N, EVAL_B, EVAL_N = 12, 122880, 8, 16384
+EVAL_ARGS = ["preset=outdoor", "data.device_preproc=true",
+             f"train.batch_size={EVAL_B}"]
+SORTED_ARGS = ["ops_fast_grouping=true", "ops_fast_mode=sorted"]
 # NVIDIA's published H100 SXM peaks: HBM bytes/s, fp32 FLOP/s (no tensor
 # cores)
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -139,12 +184,32 @@ class Tally:
 
 
 def counts() -> dict:
-    return {"fps": cuda_fps.launches, "ball_query": cuda_bq.launches,
+    return {"fps": cuda_fps.launches, "fps_flat": cuda_fps.flat_launches,
+            "ball_query": cuda_bq.launches, "sorted": sorted_bq.launches,
             "scatter": cuda_scatter.launches}
 
 
 def reset_counts() -> None:
-    cuda_fps.launches = cuda_bq.launches = cuda_scatter.launches = 0
+    cuda_fps.launches = cuda_fps.flat_launches = cuda_bq.launches = 0
+    sorted_bq.launches = cuda_scatter.launches = 0
+
+
+def launches(**given) -> dict:
+    """A counts() dict with the given launches and 0 elsewhere."""
+    return {k: given.pop(k, 0) for k in counts()} | given
+
+
+def once_ms(fn):
+    """(fn(), its ms by CUDA events), one call with no warm-up: for plain
+    versions that take seconds."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -248,14 +313,66 @@ def capture_train_step(gen) -> dict:
     return calls
 
 
-def phase_fps(gen, train_calls) -> dict:
+def eval_config(root: str, ckpt_dir: str, *extra: str) -> Config:
+    """Config #4 evaluation through the CLI's own parser: preset=outdoor,
+    FPS on the card, batch 8, the scenes under `root`."""
+    return parse_cli([*EVAL_ARGS, f"data.root={root}",
+                      f"train.ckpt_dir={ckpt_dir}", *extra])
+
+
+def prepare_outdoor(work: Path) -> dict:
+    """Two copies of one synthetic outdoor dataset (12 val and 2 train
+    scenes of 122880 points; each side writes its own FPS caches) and a
+    checkpoint of the outdoor detector with seeded random weights, saved
+    by train_lib.save_checkpoint."""
+    roots = {}
+    for name in ("capture", "sweep"):
+        roots[name] = str(work / name)
+        write_dataset(roots[name], scenes=2, val_scenes=EVAL_SCENES,
+                      num_points=EVAL_RAW_N, seed=0)
+    ckpt = str(work / "ckpt")
+    cfg = eval_config(roots["sweep"], ckpt)
+    model = build_detector(cfg, kitti.KITTI_MEAN_SIZES)
+    optimizer = train_lib.make_optimizer(cfg.train, 1, model.parameters())
+    train_lib.save_checkpoint(ckpt, model, optimizer, 1)
+    return {**roots, "ckpt": ckpt}
+
+
+def capture_eval_batch(outdoor: dict) -> tuple[dict, dict]:
+    """The kernel inputs of one config-#4 eval batch: loading the first
+    val batch (crop, B2 FPS per scene, pad), recorded apart, then the eval
+    step of the checkpointed outdoor detector on it."""
+    print("== recording the kernel inputs of one config-#4 eval batch")
+    cfg = eval_config(outdoor["capture"], outdoor["ckpt"])
+    train_lib.apply_runtime_config(cfg)
+    dataset = get_dataset(cfg)
+    with recording() as loads:
+        batch = next(dataset.val_batches(np.random.default_rng(0), EVAL_B))
+    model = build_detector(cfg, dataset.mean_sizes)
+    train_lib.restore_checkpoint(cfg.train.ckpt_dir, model, None,
+                                 for_eval=True)
+    step = train_lib.make_detector_eval_step(model, cfg)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    with recording() as calls:
+        step(batch)
+    found = {k: len(v) for k, v in calls.items()}
+    print(f"  loading: {len(loads['fps'])} FPS calls on one cloud each; "
+          f"eval step calls: {found}")
+    if found != {"fps": 5, "ball_query": 7, "scatter": 0, "three_nn": 2}:
+        raise AssertionError(f"one eval batch made {found} calls, not 5 FPS, "
+                             "7 ball query, 0 scatter and 2 three_nn")
+    return loads, calls
+
+
+def phase_fps(gen, train_calls, eval_calls) -> dict:
     print("== FPS kernel vs plain (exact picks)")
     tally = Tally()
     names = [name for name, _, _ in FPS_SHAPES]
     cases = [("serve", name, cloud(gen, B, n), m, None)
              for name, n, m in FPS_SHAPES]
-    cases += [("train", name, args[0], args[1], kw.get("mask"))
-              for name, (args, kw) in zip(names, train_calls["fps"])]
+    cases += [(path, name, args[0], args[1], kw.get("mask"))
+              for path, calls in (("train", train_calls), ("eval4", eval_calls))
+              for name, (args, kw) in zip(names, calls["fps"])]
     for path, name, xyz, m, mask in cases:
         b, n = xyz.shape[:2]
         got = cuda_fps.furthest_point_sample(xyz, m, mask=mask)
@@ -286,7 +403,7 @@ def phase_fps(gen, train_calls) -> dict:
     return tally.summary()
 
 
-def phase_ball_query(gen, train_calls) -> dict:
+def phase_ball_query(gen, train_calls, eval_calls) -> dict:
     print("== ball-query kernel vs plain (exact idx and cnt)")
     tally = Tally()
     cases = []
@@ -294,8 +411,9 @@ def phase_ball_query(gen, train_calls) -> dict:
         xyz = cloud(gen, B, n)
         cases.append(("serve", name, xyz, xyz[:, :m].contiguous(), r, k, None))
     names = [name for name, *_ in BQ_SHAPES]
-    cases += [("train", name, *args, kw.get("mask"))
-              for name, (args, kw) in zip(names, train_calls["ball_query"])]
+    cases += [(path, name, *args, kw.get("mask"))
+              for path, calls in (("train", train_calls), ("eval4", eval_calls))
+              for name, (args, kw) in zip(names, calls["ball_query"])]
     for path, name, xyz, centers, r, k, mask in cases:
         (b, n), m = xyz.shape[:2], centers.shape[1]
         gi, gc = cuda_bq.ball_query(xyz, centers, r, k, mask=mask)
@@ -379,8 +497,7 @@ def phase_serve(card: str) -> dict:
         outs.append(out)
     served = counts()
     print(f"  launches: {served}")
-    if served != {"fps": 5 * REQUESTS, "ball_query": 7 * REQUESTS,
-                  "scatter": 0}:
+    if served != launches(fps=5 * REQUESTS, ball_query=7 * REQUESTS):
         raise AssertionError(f"launch counts {served} != 5, 7 and 0 per "
                              "request")
 
@@ -536,8 +653,8 @@ def phase_train(card: str, gen, nn_calls) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     print(f"  launches: {trained}")
-    if trained != {"fps": 5 * TRAIN_STEPS, "ball_query": 7 * TRAIN_STEPS,
-                   "scatter": 9 * TRAIN_STEPS}:
+    if trained != launches(fps=5 * TRAIN_STEPS, ball_query=7 * TRAIN_STEPS,
+                           scatter=9 * TRAIN_STEPS):
         raise AssertionError(f"launch counts {trained} != 5, 7 and 9 per "
                              "step")
     losses = [h["loss"] for h in result.history]
@@ -582,8 +699,8 @@ def phase_train(card: str, gen, nn_calls) -> dict:
     one_step = counts()
     with ops.use_impl("plain"):
         lp, gp = grads_of(model, cfg, state, batch, bn_m)
-    if counts() != one_step or one_step != {"fps": 5, "ball_query": 7,
-                                            "scatter": 9}:
+    if counts() != one_step or one_step != launches(fps=5, ball_query=7,
+                                                    scatter=9):
         raise AssertionError(f"launches {one_step} then {counts()}")
     if not torch.equal(lk, lp):
         raise AssertionError(f"loss: kernel path {lk.item()!r} vs plain "
@@ -615,23 +732,305 @@ def phase_train(card: str, gen, nn_calls) -> dict:
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 
 
+def phase_fps_flat(gen, scene_call) -> dict:
+    print("== large-cloud FPS kernel (B2, cluster) vs plain (exact picks)")
+    tally = Tally()
+    (xyz, m), kw = scene_call
+    n = 100000
+    tail = torch.ones(1, n, dtype=torch.bool, device="cuda")
+    tail[0, 90000:] = False
+    tail[0, ::7] = False
+    grid = torch.randint(-6, 7, (1, 8192, 3), device="cuda",
+                         generator=gen).float()
+    cases = [
+        ("eval4 scene", xyz, m, kw.get("mask")),
+        ("N=65537", cloud(gen, 1, 65537, -30.0, 30.0), 2048, None),
+        ("N=786432", cloud(gen, 1, 786432, -30.0, 30.0), 64, None),
+        ("masked tail", cloud(gen, 1, n, -30.0, 30.0), 1024, tail),
+        ("all masked", cloud(gen, 1, 70000), 16,
+         torch.zeros(1, 70000, dtype=torch.bool, device="cuda")),
+        ("duplicates", grid.repeat(1, 10, 1).contiguous(), 1024, None),
+    ]
+    for label, x, m, mask in cases:
+        n = x.shape[1]
+        got = cuda_fps.fps_flat(x, m, mask)
+        cluster = cuda_fps.last_cluster
+        want, p = once_ms(lambda: plain_fps(x, m, mask=mask))
+        require_equal(f"fps_flat {label}", got, want)
+        b1, b1_ms = once_ms(lambda: cuda_fps.fps_batched(x, m, mask))
+        require_equal(f"fps B1 at B=1 {label}", b1, want)
+        k = cuda_ms(lambda: cuda_fps.fps_flat(x, m, mask),
+                    5 if label.startswith("eval4") else 3)
+        # phase 2's count: 10 fp32 operations a point in each of the m - 1
+        # rounds; xyz (and mask) read once, idx written once
+        nbytes, nops = n * (12 + (mask is not None)) + m * 4, 10.0 * n * (m - 1)
+        if label.startswith("eval4"):
+            bound = tally.add("eval4", nbytes, nops, k, p)
+        else:
+            bound = max(nbytes / HBM_BPS, nops / FP32_FLOPS) * 1e3
+        print(f"  {label:12s} [1,{n}]->{m}: kernel {k:.3f} ms "
+              f"({k * 1e3 / max(m - 1, 1):.3f} us/round, cluster {cluster})"
+              f"  B1 {b1_ms:.3f} ms  plain {p:.3f} ms  bound {bound:.3f} ms"
+              "  equal")
+    return tally.summary()
+
+
+def in_ball_check(label, xyz, centers, r, k, mask, idx, cnt, exact_idx,
+                  exact_cnt) -> None:
+    """The sorted tier against the exact one: equal counts; where a ball
+    holds fewer than K points the same set; where it is full, K distinct
+    valid points strictly inside."""
+    require_equal(f"{label} cnt vs exact", cnt, exact_cnt)
+    K = idx.shape[-1]
+    slot = torch.arange(K, device=idx.device)
+    live = slot < cnt[..., None]
+    n = xyz.shape[1]
+    few = cnt < K
+    a = torch.where(live, idx, n).sort(-1).values
+    b = torch.where(live, exact_idx, n).sort(-1).values
+    if not torch.equal(a[few], b[few]):
+        raise AssertionError(f"{label}: the sorted tier chose another set "
+                             "than the exact tier in a ball of < K points")
+    full = a[~few]
+    if (full[:, 1:] == full[:, :-1]).any():
+        raise AssertionError(f"{label}: a full ball repeats a point")
+    B, M, _ = idx.shape
+    pts = torch.gather(xyz, 1, idx.reshape(B, M * K, 1).long().expand(
+        B, M * K, 3)).reshape(B, M, K, 3)
+    d = pts - centers[:, :, None, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    ok = d2 < radius_sq(r)
+    if mask is not None:
+        ok &= torch.gather(mask.bool(), 1, idx.reshape(B, M * K).long()
+                           ).reshape(B, M, K)
+    if not ok[live].all():
+        raise AssertionError(f"{label}: a chosen point is not in its ball")
+
+
+def phase_sorted(gen, eval_calls, train_sa1) -> dict:
+    print("== sorted ball query (B4: Z-order glue + B3) vs glue + plain "
+          "(exact idx and cnt)")
+    tally = Tally()
+    (args, kw) = eval_calls["ball_query"][0]
+    serve = cloud(gen, B, N)
+    cases = [("eval4", "config #4 SA1", *args, kw.get("mask")),
+             ("serve", "config #5 SA1", serve, serve[:, :2048].contiguous(),
+              0.2, 64, None),
+             ("train", "config #3 SA1", *train_sa1[0],
+              train_sa1[1].get("mask"))]
+    for path, label, xyz, centers, r, k, mask in cases:
+        (b, n), m = xyz.shape[:2], centers.shape[1]
+        if not sorted_bq.applies(n, k):
+            raise AssertionError(f"{label}: N={n} K={k} is below the gate")
+        gi, gc = sorted_bq.sorted_ball_query(xyz, centers, r, k, mask=mask)
+        with ops.use_impl("plain"):
+            pi, pc = sorted_bq.sorted_ball_query(xyz, centers, r, k,
+                                                 mask=mask)
+        require_equal(f"sorted {label} idx", gi, pi)
+        require_equal(f"sorted {label} cnt", gc, pc)
+        ei, ec = cuda_bq.ball_query(xyz, centers, r, k, mask=mask)
+        in_ball_check(f"sorted {label}", xyz, centers, r, k, mask, gi, gc,
+                      ei, ec)
+        t = cuda_ms(lambda: sorted_bq.sorted_ball_query(xyz, centers, r, k,
+                                                        mask=mask), 10)
+        with ops.use_impl("plain"):
+            p = cuda_ms(lambda: sorted_bq.sorted_ball_query(
+                xyz, centers, r, k, mask=mask), 2)
+        xs, cs, perm, inv_c = sorted_bq.sorted_views(xyz, centers, mask)
+        si, sc = cuda_bq.ball_query(xs, cs, r, k)
+        kern = cuda_ms(lambda: cuda_bq.ball_query(xs, cs, r, k), 10)
+        glue = cuda_ms(lambda: sorted_bq.map_back(
+            si, sc, *sorted_bq.sorted_views(xyz, centers, mask)[2:]), 10)
+        # phase 3's count on the sorted views: each center scans up to its
+        # K-th hit (all n if it has fewer), 9 operations a point; xyz (and
+        # mask) and centers read once, idx and cnt written once
+        scanned = torch.where(sc == k, si[..., -1].long() + 1, n).sum().item()
+        nbytes = (b * n * (12 + (mask is not None)) + b * m * 12
+                  + b * m * (k + 1) * 4)
+        if path == "eval4":
+            bound = tally.add(path, nbytes, 9.0 * scanned, t, p)
+        else:
+            bound = max(nbytes / HBM_BPS, 9.0 * scanned / FP32_FLOPS) * 1e3
+        exact_ms = cuda_ms(lambda: cuda_bq.ball_query(xyz, centers, r, k,
+                                                      mask=mask), 10)
+        print(f"  {label} [{b},{n}] M={m} r={r:g} K={k}: sorted {t:.3f} ms "
+              f"(glue {glue:.3f}, kernel on sorted views {kern:.3f}; exact "
+              f"kernel {exact_ms:.3f})  plain {p:.3f} ms  bound {bound:.3f} "
+              f"ms  equal; points scanned per center {scanned / (b * m):.0f}"
+              f" sorted vs {scanned_exact(ei, ec, k, n) / (b * m):.0f} exact;"
+              f" mean cnt {gc.float().mean():.2f}")
+    return tally.summary()
+
+
+def scanned_exact(idx, cnt, k, n) -> int:
+    """Points the exact kernel scans: up to each center's K-th hit in index
+    order, or all n."""
+    return torch.where(cnt == k, idx[..., -1].long() + 1, n).sum().item()
+
+
+@contextlib.contextmanager
+def stage_clock(stages: dict):
+    """Time calls by stage on the host clock, the card synchronised at
+    each call's end: stages = {label: [(owner, attribute), ...]}. Yields
+    {label: [seconds per call]}; the eval steps that run_eval builds are
+    timed under "forward+parse" too, and keep each batch's scene_mask
+    count under "scenes"."""
+    seen = {label: [] for label in stages}
+    seen["scenes"] = []
+    originals = []
+    for label, targets in stages.items():
+        for owner, attr in targets:
+            fn = getattr(owner, attr)
+            originals.append((owner, attr, fn))
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                seen[_label].append(time.perf_counter() - t0)
+                return out
+            setattr(owner, attr, timed)
+    make_step = train_lib.make_detector_eval_step
+
+    def counted_step(model, cfg):
+        step = make_step(model, cfg)
+
+        def run(batch):
+            seen["scenes"].append(int(batch["scene_mask"].sum()))
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            seen["forward+parse"].append(time.perf_counter() - t0)
+            return out
+        return run
+    train_lib.make_detector_eval_step = counted_step
+    try:
+        yield seen
+    finally:
+        train_lib.make_detector_eval_step = make_step
+        for owner, attr, fn in originals:
+            setattr(owner, attr, fn)
+
+
+def plain_keep(cfg, label: str) -> None:
+    """One val batch through the eval step and parse on the kernel path,
+    then with the plain ops on the same CUDA tensors: the same keep."""
+    dataset = get_dataset(cfg)
+    batch = next(dataset.val_batches(np.random.default_rng(0), EVAL_B))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    model = build_detector(cfg, dataset.mean_sizes)
+    train_lib.restore_checkpoint(cfg.train.ckpt_dir, model, None,
+                                 for_eval=True)
+    step = train_lib.make_detector_eval_step(model, cfg)
+    keeps = []
+    for impl in ("auto", "plain"):
+        before = counts()
+        with ops.use_impl(impl):
+            ep, _ = step(batch)
+            keeps.append(eval_detector.parse_predictions(
+                ep, model.mean_sizes, cfg.model.num_heading_bins,
+                cfg.eval)["keep"])
+        if (counts() == before) != (impl == "plain"):
+            raise AssertionError(f"{label}: impl {impl} launched "
+                                 f"{counts()} from {before}")
+    require_equal(f"keep {label} (kernel path vs plain path)", *keeps)
+    print(f"  {label}: one batch on the plain ops gives the same keep "
+          f"({int(keeps[0].sum())} boxes kept)")
+
+
+def phase_eval(card: str, outdoor: dict) -> dict:
+    print(f"== config #4 evaluation: run_eval over {EVAL_SCENES} scenes x "
+          f"{EVAL_RAW_N} points, batch {EVAL_B}, twice")
+    val = Path(outdoor["sweep"]) / "val"
+    batches = -(-EVAL_SCENES // EVAL_B)
+    sweeps = {}
+    for sweep, extra, want in (
+            ("exact", [], launches(fps=5 * batches, fps_flat=EVAL_SCENES,
+                                   ball_query=7 * batches)),
+            ("sorted", SORTED_ARGS, launches(fps=5 * batches,
+                                             ball_query=7 * batches,
+                                             sorted=batches))):
+        cfg = eval_config(outdoor["sweep"], outdoor["ckpt"], *extra)
+        stages = {"crop+fps": [(kitti, "range_crop"), (kitti, "device_fps")],
+                  "forward+parse": [(eval_detector, "parse_predictions")],
+                  "ap": [(train_detector, "predictions_to_lists"),
+                         (train_detector, "parse_groundtruths"),
+                         (APCalculator, "step"),
+                         (APCalculator, "compute_metrics")]}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with stage_clock(stages) as t:
+            t0 = time.perf_counter()
+            out = eval_detector.run_eval(cfg)
+            wall = time.perf_counter() - t0
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {sweep} sweep launches: {got}")
+        if got != want:
+            raise AssertionError(f"{sweep} sweep: launches {got} != {want}")
+        if t["scenes"] != [EVAL_B, EVAL_SCENES - EVAL_B]:
+            raise AssertionError(f"{sweep} sweep: batches of scenes "
+                                 f"{t['scenes']}, not [8, 4] with padding")
+        for thresh in cfg.eval.ap_iou_threshs:
+            for key in (f"mAP@{thresh}", f"AR@{thresh}"):
+                if not 0.0 <= out[key] <= 1.0:
+                    raise AssertionError(f"{sweep} sweep: {key} {out[key]}")
+        if out["ckpt_step"] != 1 or not np.isfinite(out["val_loss"]):
+            raise AssertionError(f"{sweep} sweep: {out}")
+        caches = sorted(val.glob(f"*_fpscache_{EVAL_N}.npy"))
+        if len(caches) != EVAL_SCENES:
+            raise AssertionError(f"{len(caches)} FPS caches written, not "
+                                 f"{EVAL_SCENES}")
+        # forward+parse: the eval step (forward and loss) and the parse
+        crop = sum(t["crop+fps"]) / EVAL_SCENES
+        fwd = sum(t["forward+parse"]) / batches
+        ap = sum(t["ap"]) / batches
+        sweeps[sweep] = {"counts": got, "scenes_per_s": EVAL_SCENES / wall,
+                         "peak_bytes": peak}
+        print(f"  {sweep} sweep: {EVAL_SCENES / wall:.3f} scenes/s ({wall:.3f}"
+              f" s); crop + FPS {crop * 1e3:.3f} ms per scene; forward + parse "
+              f"{fwd * 1e3:.3f} ms per batch; host AP "
+              f"{ap * 1e3:.3f} ms per batch; peak memory allocated "
+              f"{peak / 2**30:.3f} GiB on {card}")
+    for sweep, extra in (("exact", []), ("sorted", SORTED_ARGS)):
+        cfg = eval_config(outdoor["sweep"], outdoor["ckpt"], *extra)
+        train_lib.apply_runtime_config(cfg)
+        plain_keep(cfg, sweep)
+    train_lib.apply_runtime_config(Config())
+    return sweeps
+
+
 def main() -> None:
     card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    train_calls = capture_train_step(gen)
-    fps_t = phase_fps(gen, train_calls)
-    bq_t = phase_ball_query(gen, train_calls)
-    served = phase_serve(card)
-    scatter_t = phase_scatter(gen, train_calls)
-    nn_calls = train_calls["three_nn"]
-    del train_calls  # keep the recorded tensors out of training's peak
-    trained = phase_train(card, gen, nn_calls)
+    work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_outdoor_"))
+    try:
+        outdoor = prepare_outdoor(work)
+        train_calls = capture_train_step(gen)
+        eval_loads, eval_calls = capture_eval_batch(outdoor)
+        fps_t = phase_fps(gen, train_calls, eval_calls)
+        bq_t = phase_ball_query(gen, train_calls, eval_calls)
+        served = phase_serve(card)
+        scatter_t = phase_scatter(gen, train_calls)
+        nn_calls = train_calls["three_nn"]
+        train_sa1 = train_calls["ball_query"][0]
+        del train_calls  # keep the recorded tensors out of training's peak
+        trained = phase_train(card, gen, nn_calls)
+        flat_t = phase_fps_flat(gen, eval_loads["fps"][0])
+        del eval_loads
+        sorted_t = phase_sorted(gen, eval_calls, train_sa1)
+        evaluated = phase_eval(card, outdoor)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "tpu3dsad")]
     if jax_side:
         raise AssertionError(f"the port imported JAX or its package: "
                              f"{jax_side}")
-    paths = {"serve": served["counts"], "train": trained["counts"]}
+    paths = {"serve": served["counts"], "train": trained["counts"],
+             "eval4": {**evaluated["exact"]["counts"],
+                       "sorted": evaluated["sorted"]["counts"]["sorted"]}}
 
     def entry(name, counter, source, replaces, times):
         for path, t in times["by_path"].items():
@@ -643,16 +1042,25 @@ def main() -> None:
     kernels = [
         entry("fps", "fps", "tpu3dsad_torch/csrc/fps.cu",
               "tpu3dsad/ops/pallas/fps.py:44", fps_t),
+        entry("fps_flat", "fps_flat", "tpu3dsad_torch/csrc/fps.cu",
+              "tpu3dsad/ops/pallas/fps.py:142", flat_t),
         entry("ball_query", "ball_query", "tpu3dsad_torch/csrc/ball_query.cu",
               "tpu3dsad/ops/pallas/ball_query.py:54", bq_t),
+        entry("sorted_ball_query", "sorted",
+              "tpu3dsad_torch/ops/sorted.py + tpu3dsad_torch/csrc/"
+              "ball_query.cu", "tpu3dsad/ops/pallas/ball_query.py:282",
+              sorted_t),
         entry("scatter_rows", "scatter", "tpu3dsad_torch/csrc/scatter.cu",
               "tpu3dsad/ops/pallas/scatter.py:92", scatter_t),
     ]
     print("kernel ms / plain_ms / library_ms / bound_ms: summed over the "
-          "main-path shapes of one served request (32 x 20480) and one "
-          "config-#3 training step (8 x 40960), each path's own under "
-          f"by_path; launches: the {REQUESTS} served requests and the "
-          f"{TRAIN_STEPS} training steps")
+          "main-path shapes of one served request (32 x 20480), one "
+          "config-#3 training step (8 x 40960) and one config-#4 eval batch "
+          "(8 x 16384; fps_flat: one scene), each path's own under by_path;"
+          f" launches: the {REQUESTS} served requests, the {TRAIN_STEPS} "
+          "training steps and one config-#4 sweep of "
+          f"{EVAL_SCENES} scenes (exact grouping; sorted_ball_query: the "
+          "sweep with ops_fast_mode=sorted)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

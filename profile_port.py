@@ -4,6 +4,7 @@ CUDA port, on one GPU.
 
     python3 profile_port.py [--trace PATH]          # serving, config #5
     python3 profile_port.py --train [--trace PATH]  # training, config #3
+    python3 profile_port.py --eval [--trace PATH]   # evaluation, config #4
 
 Serving drives the program of chip_smoke.py (BASELINE config #5: 32 scenes
 x 20480 points, seeded random weights, served through
@@ -29,28 +30,43 @@ the forward's stages), backward and optimizer, as CUDA-event medians over
 REQUESTS steps after WARMUP; then torch.profiler over PROFILED steps, the
 busy share, and the kernels by device time with the GEMM kernels listed
 apart, so their names show which precision cuBLAS ran.
+
+--eval does it for one batch of chip_smoke.py's phase 9 (config #4:
+preset=outdoor, 8 scenes of 122880 raw points cropped and sampled to
+16384 by the cluster FPS, seeded random weights): the eval step (forward
+and loss) with the forward's stages, and the parse, as CUDA-event medians
+over REQUESTS batches after WARMUP, then torch.profiler over PROFILED
+batches. Loading the batch (crop, FPS, votes) is the host's and is timed
+by the smoke.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
+    EVAL_B,
     TRAIN_B,
     TRAIN_N,
     build_server,
+    eval_config,
     make_requests,
     phase_device,
+    prepare_outdoor,
     train_config,
 )
 from tpu3dsad_torch import train_lib
+from tpu3dsad_torch.data import get_dataset
+from tpu3dsad_torch.eval.parse import parse_predictions
 from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
 from tpu3dsad_torch.train_detector import build_detector
 
@@ -268,15 +284,95 @@ def profile_train(card: str, trace_path: Path) -> None:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:160]}")
 
 
+def profile_eval(card: str, trace_path: Path) -> None:
+    work = trace_path.parent / "outdoor"
+    shutil.rmtree(work, ignore_errors=True)
+    outdoor = prepare_outdoor(work)
+    cfg = eval_config(outdoor["sweep"], outdoor["ckpt"])
+    train_lib.apply_runtime_config(cfg)
+    dataset = get_dataset(cfg)
+    batch = next(dataset.val_batches(np.random.default_rng(0), EVAL_B))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    model = build_detector(cfg, dataset.mean_sizes)
+    train_lib.restore_checkpoint(cfg.train.ckpt_dir, model, None,
+                                 for_eval=True)
+    eval_step = train_lib.make_detector_eval_step(model, cfg)
+
+    def run(marks=None):
+        """One batch's eval step and parse, with CUDA events at the seams
+        if `marks` is a list."""
+        def mark():
+            if marks is not None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append(ev)
+        mark()
+        ep, _ = eval_step(batch)
+        mark()
+        parse_predictions(ep, model.mean_sizes, cfg.model.num_heading_bins,
+                          cfg.eval)
+        mark()
+
+    for _ in range(WARMUP):
+        run()
+    torch.cuda.synchronize()
+    events, handles = hook_events(stage_modules(model))
+    walls, per_stage = [], {}
+    for _ in range(REQUESTS):
+        events.clear()
+        marks: list = []
+        t0 = time.perf_counter()
+        run(marks)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ms = {name: s.elapsed_time(e) for name, (s, e) in events.items()}
+        for name, (a, b) in {"eval step": (0, 1), "parse+nms": (1, 2),
+                             "batch": (0, 2)}.items():
+            ms[name] = marks[a].elapsed_time(marks[b])
+        for name, t in ms.items():
+            per_stage.setdefault(name, []).append(t)
+    for h in handles:
+        h.remove()
+    print(f"host wall per eval batch ms: {[round(t, 3) for t in walls]}")
+    print(f"stage (event ms, median of {REQUESTS}; forward stages are "
+          f"inside the eval step):")
+    for name, ts in per_stage.items():
+        print(f"  {name:26s} {statistics.median(ts):9.3f}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    print(f"profiled window: {PROFILED} eval batches, host wall "
+          f"{wall:.3f} ms")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=25))
+    trace = print_trace(prof, trace_path, card, f"{PROFILED} eval batches")
+    kernels = kernel_times(trace)
+    print(f"kernels by device time over {PROFILED} batches "
+          f"({sum(us for _, us, _ in kernels) / 1e3:.3f} ms):")
+    for name, us, n in kernels[:20]:
+        print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:110]}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--train", action="store_true",
-                    help="profile the config-#3 train step instead")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile the config-#3 train step instead")
+    mode.add_argument("--eval", action="store_true",
+                      help="profile a config-#4 eval batch instead")
     ap.add_argument("--trace", type=Path, default=None)
     args = ap.parse_args()
     card = phase_device()
     if args.train:
         profile_train(card, args.trace or Path("build/profile/train_trace.json"))
+    elif args.eval:
+        profile_eval(card, args.trace or Path("build/profile/eval_trace.json"))
     else:
         profile_serve(card,
                       args.trace or Path("build/profile/request_trace.json"))

@@ -7,11 +7,12 @@ the reference's (`config.py`).
 
 Layout: channels-last [B, N, C] tensors with static padded shapes and masks,
 as in the reference. Plain tensor code is PyTorch; the point kernels of the
-inference and training paths (FPS, exact ball query, and the row
-scatter-add that is the gather/group backward) are hand-written CUDA C++
-for sm_90a under `csrc/`, built with nvcc at first use
-(`ops/cuda/build.py`). CPU tensors take the kernels' plain PyTorch
-versions.
+inference, training and evaluation paths (batched FPS, one-cloud FPS over
+a thread-block cluster, exact ball query, and the row scatter-add that is
+the gather/group backward) are hand-written CUDA C++ for sm_90a under
+`csrc/`, built with nvcc at first use (`ops/cuda/build.py`); the sorted
+grouping tier is torch glue around the ball-query kernel
+(`ops/sorted.py`). CPU tensors take the kernels' plain PyTorch versions.
 
 fp32 distance math is part of the contract, so TF32 is switched off for
 matmuls and cuDNN when this package is imported. A training run with

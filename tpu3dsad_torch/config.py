@@ -1,16 +1,27 @@
-"""Configuration: frozen dataclasses mirroring tpu3dsad/config.py.
+"""Configuration: frozen dataclasses mirroring tpu3dsad/config.py, with
+key=value CLI overrides.
 
-The port keeps its own copy of the fields that whole-scene inference and
-detector training read, with the reference's names and defaults (pinned
-equal by tests/test_torch_detector.py and tests/test_torch_train.py), so
-neither the port nor a run on the card loads any module of the JAX package.
-A reference `Config` works in its place: the port only reads these
+The port keeps its own copy of the fields that whole-scene inference,
+detector training and evaluation read, with the reference's names and
+defaults (pinned equal by tests/test_torch_detector.py,
+tests/test_torch_train.py and tests/test_torch_outdoor.py), so neither the
+port nor a run on the card loads any module of the JAX package. A
+reference `Config` works in its place: the port only reads these
 attributes.
+
+One default differs: `ops_fast_grouping` is False here (True in the
+reference). The reference's default fast tier is lax.approx_max_k, which
+exists only on the TPU; the port groups exactly unless asked for the
+sorted tier (ops_fast_grouping=true ops_fast_mode=sorted, ops/sorted.py).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import ast
+import dataclasses
+import typing
+from dataclasses import dataclass, field, fields, replace
+from typing import Any
 
 import numpy as np
 
@@ -45,10 +56,13 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    name: str = "scannet"  # only 'synthetic' is ported (ROADMAP A7)
+    name: str = "scannet"  # 'synthetic' and 'kitti' are ported (ROADMAP A7)
+    root: str = ""
     num_points: int = 40960
     max_boxes: int = 64
     augment: bool = True
+    # large-cloud preprocessing FPS (KITTI crop -> budget) on the card (B2)
+    device_preproc: bool = False
     device_augment: bool = False  # flip/rot/scale inside the train step
     device_synth: bool = False  # synthetic batches made on the device
     aug_preset: str = "auto"  # 'auto' | 'custom' | a name in AUG_PRESETS
@@ -58,6 +72,9 @@ class DataConfig:
     aug_scale_min: float = 1.0
     aug_scale_max: float = 1.0
     vote_candidates: int = 3
+    # int8 vote owners decoded in the step; not ported for KITTI
+    # (ROADMAP A7.5)
+    compact_votes: bool = False
 
 
 @dataclass(frozen=True)
@@ -77,7 +94,7 @@ class TrainConfig:
     ckpt_dir: str = "./ckpt"
     ckpt_every: int = 1  # epochs; the last epoch always saves
     log_every: int = 10  # steps
-    eval_every: int = 10  # epochs; evaluate is not ported (ROADMAP A7)
+    eval_every: int = 10  # epochs; evaluating in training waits (A7.2)
     mesh_shape: tuple[int, ...] = (-1,)  # one device only (ROADMAP A11)
     # TF32 for the MLP products on the card; distances stay fp32
     # (train_lib.apply_runtime_config)
@@ -88,9 +105,14 @@ class TrainConfig:
 class EvalConfig:
     nms_iou: float = 0.25
     objectness_thresh: float = 0.05
+    ap_iou_threshs: tuple[float, ...] = (0.25, 0.5)
     use_3d_nms: bool = True
     cls_nms: bool = True
     use_oriented_nms: bool = False  # not ported (ROADMAP A5b)
+    per_class_proposal: bool = True
+    conf_thresh: float = 0.05
+    # the best-mAP snapshot is not written yet (ROADMAP A7.6)
+    use_best: bool = False
 
 
 @dataclass(frozen=True)
@@ -99,6 +121,92 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    # exact grouping unless set: the reference's default fast tier
+    # (approx_max_k) is the TPU's (module docstring)
+    ops_fast_grouping: bool = False
+    # 'sorted' (exact kernel on Z-order-sorted views, ops/sorted.py) |
+    # 'approx' (refused: TPU only)
+    ops_fast_mode: str = "approx"
+
+
+def _coerce_obj(obj: Any, typ: Any):
+    """Coerce a value parsed by ast.literal_eval onto the annotated config
+    type, recursing through nested tuples."""
+    if typing.get_origin(typ) is tuple:
+        args = typing.get_args(typ)
+        elem = args[0] if args else str
+        if not isinstance(obj, (list, tuple)):
+            obj = (obj,)  # '(80)' evaluates to a scalar: promote
+        return tuple(_coerce_obj(o, elem) for o in obj)
+    if typ is bool:
+        return bool(obj)
+    if typ is int:
+        return int(obj)
+    if typ is float:
+        return float(obj)
+    if not isinstance(obj, str):
+        raise ValueError(
+            f"expected a string for this config field, got {obj!r} "
+            f"({type(obj).__name__}) — quote it if it is meant as a name")
+    return obj
+
+
+def _coerce(val: str, typ: Any):
+    """One override's text -> the field's type. Tuples, nested ones too,
+    parse as Python literals; unquoted names fall back to a flat split."""
+    if typing.get_origin(typ) is tuple:
+        args = typing.get_args(typ)
+        elem = args[0] if args else str
+        s = val.strip()
+        if s in ("()", ""):
+            return ()
+        try:
+            obj = ast.literal_eval(s)
+        except (ValueError, SyntaxError):
+            parts = [p for p in s.strip("()[] ").split(",") if p.strip()]
+            return tuple(_coerce(p.strip(), elem) for p in parts)
+        return _coerce_obj(obj, typ)
+    if typ is bool:
+        return val.lower() in ("1", "true", "yes", "on")
+    if typ is int:
+        return int(val)
+    if typ is float:
+        return float(val)
+    return val
+
+
+def _set_path(obj, path, val):
+    name = path[0]
+    if name not in {f.name for f in fields(obj)}:
+        valid = [f.name for f in fields(obj)]
+        raise ValueError(f"unknown config key {name!r}; valid: {valid}")
+    if len(path) == 1:
+        typ = typing.get_type_hints(type(obj))[name]
+        return replace(obj, **{name: _coerce(val, typ)})
+    return replace(obj, **{name: _set_path(getattr(obj, name), path[1:], val)})
+
+
+def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
+    """Apply 'section.key=value' (or 'key=value' for top-level) overrides."""
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        key, val = ov.split("=", 1)
+        cfg = _set_path(cfg, key.split("."), val)
+    return cfg
+
+
+def parse_cli(argv: list[str]) -> Config:
+    """The Config of a command line: presets expanded, then overrides."""
+    from tpu3dsad_torch.presets import expand
+
+    return apply_overrides(Config(), expand([a for a in argv if "=" in a]))
+
+
+def describe(cfg: Config) -> str:
+    return "\n".join(
+        f"{sec.name}: {getattr(cfg, sec.name)}" for sec in dataclasses.fields(cfg)
+    )
 
 
 def class_mean_sizes(num_classes: int) -> np.ndarray:

@@ -1,0 +1,190 @@
+"""KITTI-style outdoor dataset, benchmark config #4 (tpu3dsad/data/kitti.py):
+~120k-point LiDAR scenes cropped to the front range box and sampled down
+to the point budget (16384) by FPS.
+
+On-disk contract under `<root>/<split>/`:
+
+  <idx>_pc.npy    float32 [N, 4]  xyz + intensity (velodyne frame, Z-up)
+  <idx>_bbox.npy  float32 [G, 8]  cx cy cz dx dy dz heading cls (cls 0..2:
+                                  car, pedestrian, cyclist)
+
+Per scene: crop -> FPS to the budget -> pad -> vote targets. The FPS runs
+on the card (`device_fps`, data.device_preproc=true: one cloud of ~120k
+points, the cluster kernel B2) or as the plain version on the CPU
+(`host_fps`). Its picks are cached next to the scene as
+`<idx>_fpscache_<n>.npy`, row 0 holding the cropped count, the
+reference's format.
+
+Not ported yet (ROADMAP A7.5, config-#4 training): host augmentation
+(augment_scene) and the compact-votes format; both raise.
+"""
+
+from __future__ import annotations
+
+import os
+from glob import glob
+
+import numpy as np
+import torch
+
+from tpu3dsad_torch import ops
+from tpu3dsad_torch.data import host
+from tpu3dsad_torch.data.pipeline import iter_val_batches, pad_boxes
+
+KITTI_CLASS_NAMES = ("car", "pedestrian", "cyclist")
+KITTI_MEAN_SIZES = np.array(
+    [[3.88, 1.63, 1.53], [0.84, 0.66, 1.74], [1.76, 0.60, 1.73]], np.float32
+)
+# front-camera range crop (meters): x forward, y lateral, z up
+RANGE_MIN = np.array([0.0, -40.0, -3.0], np.float32)
+RANGE_MAX = np.array([70.4, 40.0, 1.0], np.float32)
+
+
+def range_crop(points: np.ndarray) -> np.ndarray:
+    """Indices of the points inside the front range box."""
+    return host.range_crop(points, RANGE_MIN, RANGE_MAX)
+
+
+def host_fps(points: np.ndarray, m: int) -> np.ndarray:
+    """FPS of m of the points on the CPU (the plain version; seed 0, ties
+    to the lowest index, as ops.furthest_point_sample)."""
+    n = points.shape[0]
+    if n <= m:
+        return np.arange(n)
+    xyz = torch.from_numpy(np.ascontiguousarray(points[:, :3], np.float32))
+    return ops.furthest_point_sample(xyz[None], m)[0].numpy()
+
+
+def device_fps(points: np.ndarray, m: int, bucket: int = 4096, *,
+               device="cuda") -> np.ndarray:
+    """FPS of m of the points on `device`, the card unless the caller asks
+    for the CPU. The cloud is padded to a multiple of `bucket` with a mask,
+    as the reference pads it; one cloud of more than 65536 points runs the
+    cluster kernel (B2)."""
+    n = points.shape[0]
+    budget = -(-n // bucket) * bucket
+    xyz = np.zeros((1, budget, 3), np.float32)
+    xyz[0, :n] = points[:, :3]
+    mask = np.zeros((1, budget), bool)
+    mask[0, :n] = True
+    idx = ops.furthest_point_sample(torch.from_numpy(xyz).to(device), m,
+                                    mask=torch.from_numpy(mask).to(device))
+    return idx[0].cpu().numpy()
+
+
+class KittiDetectionDataset:
+    num_classes = len(KITTI_CLASS_NAMES)
+    class_names = KITTI_CLASS_NAMES
+    mean_sizes = KITTI_MEAN_SIZES
+
+    def __init__(self, cfg, *, device="cuda"):
+        """cfg: a Config. `device` runs the FPS when data.device_preproc
+        is set: the card unless the caller asks for the CPU."""
+        if cfg.data.compact_votes:
+            raise NotImplementedError(
+                "data.compact_votes=true for KITTI is not ported yet "
+                "(ROADMAP A7.5, config-#4 training)")
+        self.cfg = cfg
+        self.device = device
+        self.root = cfg.data.root
+        if not self.root or not os.path.isdir(self.root):
+            raise FileNotFoundError(
+                f"data.root={self.root!r} not found — point it at the "
+                "extracted KITTI .npy directory (see module docstring)")
+        self.train_items = self._items("train")
+        self.val_items = self._items("val")
+
+    def _items(self, split):
+        d = os.path.join(self.root, split)
+        idxs = sorted(os.path.basename(p)[: -len("_pc.npy")]
+                      for p in glob(os.path.join(d, "*_pc.npy")))
+        return [(d, i) for i in idxs]
+
+    def steps_per_epoch(self, batch_size: int) -> int:
+        return max(1, len(self.train_items) // batch_size)
+
+    def _fps(self, points: np.ndarray, m: int) -> np.ndarray:
+        if self.cfg.data.device_preproc:
+            return device_fps(points, m, device=self.device)
+        return host_fps(points, m)
+
+    def _load_scene(self, d, idx, rng, augment):
+        if augment and self.cfg.data.augment:
+            raise NotImplementedError(
+                "host augmentation of KITTI scenes (augment_scene) is not "
+                "ported yet (ROADMAP A7.5, config-#4 training); set "
+                "data.augment=false")
+        pc = np.load(os.path.join(d, f"{idx}_pc.npy"))
+        bboxes = np.load(os.path.join(d, f"{idx}_bbox.npy")).reshape(-1, 8)
+        centers = bboxes[:, :3].astype(np.float32)
+        sizes = bboxes[:, 3:6].astype(np.float32)
+        headings = bboxes[:, 6].astype(np.float32)
+        classes = bboxes[:, 7].astype(np.int32)
+
+        # crop -> FPS -> pad; the picks are cached next to the scene (row 0
+        # holds the cropped count, so a scene cropped anew is not served
+        # stale picks); a read-only root skips the cache
+        pc = pc[range_crop(pc)]
+        n_budget = self.cfg.data.num_points
+        if pc.shape[0] > n_budget:
+            cache = os.path.join(d, f"{idx}_fpscache_{n_budget}.npy")
+            sel = None
+            if os.path.exists(cache):
+                cached = np.load(cache)
+                if cached[0] == pc.shape[0]:
+                    sel = cached[1:]
+            if sel is None:
+                sel = np.asarray(self._fps(pc[:, :3], n_budget), np.int64)
+                try:
+                    np.save(cache, np.concatenate([[pc.shape[0]], sel]))
+                except OSError:
+                    pass
+            pc = pc[sel]
+        n = pc.shape[0]
+        points = np.zeros((n_budget, 3), np.float32)
+        points[:n] = pc[:n, :3]
+        pmask = np.zeros(n_budget, bool)
+        pmask[:n] = True
+
+        votes = np.zeros((n_budget, 3), np.float32)
+        vmask = np.zeros(n_budget, bool)
+        if len(centers):
+            boxes8 = np.concatenate(
+                [centers, sizes, headings[:, None],
+                 classes[:, None].astype(np.float32)], axis=1)
+            votes[:n], vmask[:n] = host.vote_targets(points[:n], boxes8)
+        V = max(1, self.cfg.data.vote_candidates)
+        if V > 1:
+            # outdoor boxes never overlap, so every candidate slot copies
+            # the single owner's offset
+            votes = np.repeat(votes[:, None, :], V, axis=1)
+        max_boxes = self.cfg.data.max_boxes
+        c, bm = pad_boxes(centers, max_boxes)
+        s, _ = pad_boxes(sizes, max_boxes)
+        h, _ = pad_boxes(headings, max_boxes)
+        k, _ = pad_boxes(classes, max_boxes)
+        return {
+            "points": points,
+            "point_mask": pmask,
+            "vote_targets": votes,
+            "vote_mask": vmask,
+            "gt_centers": c,
+            "gt_sizes": s,
+            "gt_headings": h,
+            "gt_classes": k,
+            "gt_mask": bm,
+        }
+
+    def _batch(self, items, rng, batch_size, augment):
+        picks = rng.choice(len(items), batch_size,
+                           replace=len(items) < batch_size)
+        out = [self._load_scene(*items[p], rng, augment) for p in picks]
+        return {k: np.stack([it[k] for it in out]) for k in out[0]}
+
+    def train_batch(self, rng, batch_size):
+        return self._batch(self.train_items, rng, batch_size, augment=True)
+
+    def val_batches(self, rng, batch_size):
+        items = self.val_items or self.train_items
+        yield from iter_val_batches(
+            items, lambda it: self._load_scene(*it, rng, False), batch_size)

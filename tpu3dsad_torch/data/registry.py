@@ -1,10 +1,12 @@
-"""Dataset registry (tpu3dsad/data/registry.py), synthetic only.
+"""Dataset registry (tpu3dsad/data/registry.py): 'synthetic' and 'kitti'.
 
 A dataset exposes mean_sizes [NC,3], class_names, num_classes and
-steps_per_epoch(batch_size). The port trains on synthetic batches made on
-the card (`data.device_synth`, device_pipeline.synthetic_detection_batch),
-so the host numpy `train_batch` / `val_batches` and the real datasets
-(ScanNet, SUN RGB-D, KITTI, packed) wait for ROADMAP A7.
+steps_per_epoch(batch_size); KITTI also train_batch(rng, bs) and
+val_batches(rng, bs), padded numpy dicts. The synthetic dataset trains on
+batches made on the card (`data.device_synth`,
+device_pipeline.synthetic_detection_batch); its host train and val batches
+and the other real datasets (ScanNet, SUN RGB-D, packed) wait for
+ROADMAP A7.2.
 """
 
 from __future__ import annotations
@@ -25,9 +27,15 @@ class SyntheticDetectionDataset:
         return max(1, 64 // batch_size)
 
 
-def get_dataset(cfg):
+def get_dataset(cfg, *, device="cuda"):
+    """The dataset of cfg.data.name; `device` is where a dataset that
+    preprocesses on the device does so (KITTI's device_fps)."""
     if cfg.data.name == "synthetic":
         return SyntheticDetectionDataset(cfg)
+    if cfg.data.name == "kitti":
+        from tpu3dsad_torch.data.kitti import KittiDetectionDataset
+
+        return KittiDetectionDataset(cfg, device=device)
     raise NotImplementedError(
-        f"data.name={cfg.data.name!r}: host-fed datasets are not ported yet "
-        "(ROADMAP A7); only 'synthetic' is")
+        f"data.name={cfg.data.name!r}: ScanNet, SUN RGB-D and packed scenes "
+        "are not ported yet (ROADMAP A7.2); 'synthetic' and 'kitti' are")

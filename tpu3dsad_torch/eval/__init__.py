@@ -1,5 +1,12 @@
-"""Evaluation: on-device prediction parsing (decode + NMS)."""
+"""Evaluation: prediction parsing (decode + NMS on the device, per-scene
+lists on the host) and average precision."""
 
-from tpu3dsad_torch.eval.parse import parse_predictions
+from tpu3dsad_torch.eval.ap import APCalculator
+from tpu3dsad_torch.eval.parse import (
+    parse_groundtruths,
+    parse_predictions,
+    predictions_to_lists,
+)
 
-__all__ = ["parse_predictions"]
+__all__ = ["APCalculator", "parse_groundtruths", "parse_predictions",
+           "predictions_to_lists"]

@@ -1,13 +1,16 @@
-"""Prediction parsing: decode -> threshold -> NMS, on the device
-(tpu3dsad/eval/parse.py:20-67)."""
+"""Prediction parsing (tpu3dsad/eval/parse.py): decode -> threshold ->
+NMS on the device (`parse_predictions`), then on the host the per-scene
+lists that AP scores (`predictions_to_lists`, `parse_groundtruths`), in
+numpy."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpu3dsad_torch.config import EvalConfig
 from tpu3dsad_torch.models.decode import predicted_boxes
-from tpu3dsad_torch.ops.boxes import box_corners, corners_to_aabb
+from tpu3dsad_torch.ops.boxes import _CORNER_SIGNS, box_corners, corners_to_aabb
 from tpu3dsad_torch.ops.nms import nms_aabb
 
 
@@ -39,3 +42,58 @@ def parse_predictions(end_points, mean_sizes, num_heading_bins: int,
         "corners": corners,
         "keep": keep,
     }
+
+
+def predictions_to_lists(parsed, eval_cfg: EvalConfig, num_classes: int):
+    """Host side: parsed fields (numpy) -> per scene a list of
+    (class, corners [8,3], score) tuples.
+
+    The conf_thresh gate is on obj_prob alone. With per_class_proposal every
+    class of a kept proposal is emitted at score sem_prob[c] * obj_prob,
+    class-major then proposal-minor; without it one entry per kept proposal
+    at its obj_prob."""
+    keep = np.asarray(parsed["keep"])
+    corners = np.asarray(parsed["corners"])
+    obj = np.asarray(parsed["obj_prob"])
+    semp = np.asarray(parsed["sem_prob"])
+    sem = np.asarray(parsed["sem_cls"])
+    B, P = keep.shape
+    gate = keep & (obj > eval_cfg.conf_thresh)  # [B,P]
+    if eval_cfg.per_class_proposal:
+        scores = obj[:, :, None] * semp[..., :num_classes]  # [B,P,C]
+        b_i, c_i, p_i = np.nonzero(
+            np.broadcast_to(gate[:, None, :], (B, num_classes, P)))
+        s_i = scores[b_i, p_i, c_i]
+    else:
+        b_i, p_i = np.nonzero(gate)
+        c_i = sem[b_i, p_i]
+        s_i = obj[b_i, p_i]
+    out = [[] for _ in range(B)]
+    for b, p, c, s in zip(b_i, p_i, c_i, s_i):
+        out[b].append((int(c), corners[b, p], float(s)))
+    return out
+
+
+def _box_corners_np(center, size, heading):
+    """numpy twin of ops.boxes.box_corners (same math, same corner order)
+    for the host's ground-truth corners."""
+    signs = np.asarray(_CORNER_SIGNS, np.float32)
+    ext = size[..., None, :] * signs  # [..., 8, 3]
+    c, s = np.cos(heading), np.sin(heading)
+    x = ext[..., 0] * c[..., None] - ext[..., 1] * s[..., None]
+    y = ext[..., 0] * s[..., None] + ext[..., 1] * c[..., None]
+    rot = np.stack([x, y, ext[..., 2]], axis=-1)
+    return (rot + center[..., None, :]).astype(np.float32)
+
+
+def parse_groundtruths(batch):
+    """Host side: padded ground-truth arrays (numpy) -> per scene a list of
+    (class, corners [8,3])."""
+    classes = np.asarray(batch["gt_classes"])
+    mask = np.asarray(batch["gt_mask"])
+    corners = _box_corners_np(np.asarray(batch["gt_centers"]),
+                              np.asarray(batch["gt_sizes"]),
+                              np.asarray(batch["gt_headings"]))
+    return [[(int(classes[b, g]), corners[b, g])
+             for g in range(mask.shape[1]) if mask[b, g]]
+            for b in range(mask.shape[0])]

@@ -1,0 +1,56 @@
+"""Evaluation entry point: restore a checkpoint, run the val sweep, print
+AP (the detector branch of the reference's eval.py).
+
+    python -m tpu3dsad_torch.eval_detector preset=outdoor data.root=DIR \\
+        data.device_preproc=true train.ckpt_dir=DIR [key=value ...]
+
+Runs on the card unless the caller asks for the CPU (`run_eval(...,
+device="cpu")`). Prints one JSON line {"ckpt_step": ..., **metrics}. The
+classifier branch waits for ROADMAP A8.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+from tpu3dsad_torch import train_lib
+from tpu3dsad_torch.config import describe, parse_cli
+from tpu3dsad_torch.data import get_dataset
+from tpu3dsad_torch.eval.parse import parse_predictions
+from tpu3dsad_torch.train_detector import build_detector, evaluate
+
+
+def run_eval(cfg, *, device="cuda") -> dict:
+    """Evaluate the newest checkpoint under cfg.train.ckpt_dir (one written
+    by train_lib.save_checkpoint) on the val split of cfg.data; random
+    weights, with a warning on stderr, where there is none."""
+    train_lib.apply_runtime_config(cfg)
+    dataset = get_dataset(cfg, device=device)
+    model = build_detector(cfg, dataset.mean_sizes, device=device)
+    step = train_lib.restore_checkpoint(cfg.train.ckpt_dir, model, None,
+                                        for_eval=True,
+                                        use_best=cfg.eval.use_best)
+    if step == 0:
+        print("WARNING: no checkpoint found — evaluating random weights",
+              file=sys.stderr)
+    eval_step = train_lib.make_detector_eval_step(model, cfg)
+
+    def parse(end_points):
+        return parse_predictions(end_points, model.mean_sizes,
+                                 cfg.model.num_heading_bins, cfg.eval)
+
+    out = {"ckpt_step": step,
+           **evaluate(cfg, model, dataset, eval_step, parse)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main(argv) -> dict:
+    cfg = parse_cli(argv)
+    print(describe(cfg), file=sys.stderr)
+    return run_eval(cfg)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -17,6 +17,21 @@ _make_take_rows with the 'pallas' scatter), so every gather/group/
 three_interpolate whose source needs a gradient runs the scatter kernel in
 a backward pass on the card. three_nn is plain PyTorch, outside any Pallas
 kernel in the reference.
+
+Grouping is exact (first K in index order) unless fast grouping is on
+(`set_fast_grouping`, or `exact=False` per call), as in the reference's
+tpu3dsad/ops/__init__.py:23-57, with its two fast modes:
+
+  * 'sorted' runs `ops.sorted.sorted_ball_query` (the exact tier on
+    Z-order-sorted views: exact membership and counts, spatial slot order)
+    where the reference's Pallas tier would: N >= sorted.SORTED_MIN_N,
+    K % 8 == 0, K <= N. Below that gate the reference falls to its
+    approx_max_k tier; the port groups exactly there;
+  * 'approx' (lax.approx_max_k, the reference's default) exists only on
+    the TPU and raises NotImplementedError; it never quietly groups
+    exactly instead.
+
+The port's default is exact grouping (Config.ops_fast_grouping=False).
 """
 
 from __future__ import annotations
@@ -26,6 +41,7 @@ import contextlib
 import torch
 
 from tpu3dsad_torch.ops import plain as _plain
+from tpu3dsad_torch.ops import sorted as _sorted
 from tpu3dsad_torch.ops.cuda import ball_query as _cuda_bq
 from tpu3dsad_torch.ops.cuda import fps as _cuda_fps
 from tpu3dsad_torch.ops.cuda import scatter as _cuda_scatter
@@ -34,6 +50,33 @@ from tpu3dsad_torch.ops.plain import interp_weights, three_nn
 
 _VALID_IMPLS = ("auto", "plain")
 _impl = "auto"
+_VALID_FAST_MODES = ("approx", "sorted")
+_exact_grouping = True
+_fast_mode = "approx"
+
+
+def set_fast_grouping(fast: bool) -> None:
+    """Group with the fast tier of get_fast_mode() where exact is not
+    asked for per call (module docstring)."""
+    global _exact_grouping
+    _exact_grouping = not fast
+
+
+def get_fast_grouping() -> bool:
+    return not _exact_grouping
+
+
+def set_fast_mode(mode: str) -> None:
+    """'sorted' (ops/sorted.py) or 'approx' (TPU only, refused at use)."""
+    global _fast_mode
+    if mode not in _VALID_FAST_MODES:
+        raise ValueError(
+            f"fast mode must be one of {_VALID_FAST_MODES}, got {mode!r}")
+    _fast_mode = mode
+
+
+def get_fast_mode() -> str:
+    return _fast_mode
 
 
 @contextlib.contextmanager
@@ -66,10 +109,27 @@ def furthest_point_sample(xyz, npoint, *, mask=None):
     return _plain.furthest_point_sample(xyz, npoint, mask=mask)
 
 
-def ball_query(xyz, centers, radius, nsample, *, mask=None):
-    """-> (idx [B,M,K] int32, cnt [B,M] int32); pad-with-first-hit, exact.
-    Both are integers outside the autograd graph."""
+def _sorted_tier(xyz, nsample, exact) -> bool:
+    """Whether this call takes the sorted tier; raises for 'approx'."""
+    if _exact_grouping if exact is None else exact:
+        return False
+    if _fast_mode == "approx":
+        raise NotImplementedError(
+            "fast grouping with ops_fast_mode='approx' is lax.approx_max_k, "
+            "which is specific to the TPU and not ported; use "
+            "ops_fast_mode='sorted' or exact grouping")
+    return _sorted.applies(xyz.shape[1], nsample)
+
+
+def ball_query(xyz, centers, radius, nsample, *, mask=None, exact=None):
+    """-> (idx [B,M,K] int32, cnt [B,M] int32); pad-with-first-hit. Exact
+    first-K in index order, or the sorted tier under fast grouping
+    (module docstring; exact=None follows set_fast_grouping). Both are
+    integers outside the autograd graph."""
     xyz, centers = xyz.detach(), centers.detach()
+    if _sorted_tier(xyz, nsample, exact):
+        return _sorted.sorted_ball_query(xyz, centers, radius, nsample,
+                                         mask=mask)
     if _use_kernel(xyz):
         return _cuda_bq.ball_query(xyz, centers, radius, nsample, mask=mask)
     return _plain.ball_query(xyz, centers, radius, nsample, mask=mask)
@@ -116,13 +176,15 @@ def three_interpolate(feats, idx, weight):
 
 
 def query_and_group(xyz, centers, radius, nsample, *, features=None,
-                    mask=None, use_xyz=True, normalize_xyz=False):
+                    mask=None, use_xyz=True, normalize_xyz=False, exact=None):
     """Ball query, then one gather of xyz (+features) around each center.
 
     Returns (grouped [B,M,K,3+C or C or 3], idx [B,M,K], group_mask [B,M,K]);
     grouped xyz is center-relative, divided by the radius if
-    `normalize_xyz`; group_mask marks slots < cnt."""
-    idx, cnt = ball_query(xyz, centers, radius, nsample, mask=mask)
+    `normalize_xyz`; group_mask marks slots < cnt. `exact` as in
+    ball_query."""
+    idx, cnt = ball_query(xyz, centers, radius, nsample, mask=mask,
+                          exact=exact)
     src = xyz if features is None else torch.cat([xyz, features], -1)
     grouped, group_mask = _plain.group_epilogue(
         group(src, idx), centers, cnt, radius, nsample,
@@ -136,11 +198,15 @@ __all__ = [
     "ball_query",
     "furthest_point_sample",
     "gather",
+    "get_fast_grouping",
+    "get_fast_mode",
     "group",
     "interp_weights",
     "masked_max",
     "query_and_group",
     "scatter_rows",
+    "set_fast_grouping",
+    "set_fast_mode",
     "three_interpolate",
     "three_nn",
     "use_impl",

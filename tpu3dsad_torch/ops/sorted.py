@@ -1,0 +1,119 @@
+"""Sorted ball query: the fast grouping tier (fast_mode='sorted'), the
+counterpart of tpu3dsad/ops/pallas/ball_query.py::sorted_ball_query
+(with _morton_codes and _spread_bits).
+
+Exact ball query run on Z-order (Morton) sorted views of the points and
+the centers, its indices mapped back to the caller's order. Membership and
+counts are exact; only which K of more than K in-ball points fill the slots
+differs from the first-K-in-index-order rule: the scan order is the sorted,
+spatial one. Bitwise the reference's arithmetic:
+
+  * invalid points move to 1e9 and get code 1 << 30 (they sort last);
+  * the 256^3 grid is anchored to the bounding box of the valid points,
+    inv_cell = 256 / max(max - min, 1e-6) in fp32; cells are clipped to
+    [0, 255] before the int32 cast; bits spread in int32;
+  * both sorts are stable; the inverse of the center permutation is a
+    scatter of arange;
+  * the exact tier runs on the sorted views with no mask (the 1e9 points
+    can join no ball); indices map back through the permutation, empty
+    balls give 0, rows return to the caller's center order.
+
+This is plain torch glue on any device around the exact tier
+(`ops.ball_query(..., exact=True)`): on the card it launches the B3
+kernel (csrc/ball_query.cu), on the CPU its plain version. It adds no
+kernel body. The reference sorts so that its kernel's AABB tile skip can
+leave most point tiles out; the port's B3 kernel has no such skip, so the
+sorted views do not shorten its scans yet (PERF.md).
+
+`launches` counts the calls that launched the B3 kernel on sorted views.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu3dsad_torch.ops.args import check_ball_query
+
+# the reference engages the sorted tier only at support sizes >= 8192
+# (_SORTED_MIN_N) and for K a multiple of its kernel's slot width 8 with
+# K <= N (supported()); the port keeps the same gate, so both group the
+# same layers this way
+SORTED_MIN_N = 8192
+SLOT_WIDTH = 8
+_GRID = 256
+_INVALID_CODE = 1 << 30
+
+launches = 0
+
+
+def applies(n: int, nsample: int) -> bool:
+    """Whether a support of n points and K = nsample takes the sorted
+    tier (fast grouping, mode 'sorted')."""
+    return n >= SORTED_MIN_N and nsample % SLOT_WIDTH == 0 and nsample <= n
+
+
+def _spread_bits(v: torch.Tensor) -> torch.Tensor:
+    """int32 in [0, 256): bit i moves to bit 3i (one Morton component)."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def _morton_codes(pts, mn, inv_cell) -> torch.Tensor:
+    """[..., 3] fp32 -> int32 Z-order codes on the grid anchored at mn."""
+    q = torch.clamp((pts - mn) * inv_cell, 0.0, 255.0).to(torch.int32)
+    return (_spread_bits(q[..., 0]) | (_spread_bits(q[..., 1]) << 1)
+            | (_spread_bits(q[..., 2]) << 2))
+
+
+def sorted_views(xyz, centers, mask=None):
+    """-> (xs [B,N,3], cs [B,M,3], perm [B,N], inv_c [B,M]): the points
+    (invalid ones at 1e9) and centers in Z order; xs[b, k] is point
+    perm[b, k], and center j sits at sorted row inv_c[b, j]."""
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    valid = (torch.ones(B, N, dtype=torch.bool, device=xyz.device)
+             if mask is None else mask.bool())
+    x = torch.where(valid[..., None], xyz.float(), 1e9)
+    c = centers.float()
+    mn = torch.where(valid[..., None], x, 3e38).amin(1, keepdim=True)
+    mx = torch.where(valid[..., None], x, -3e38).amax(1, keepdim=True)
+    # a true division (python's 256.0 / t is 256 * reciprocal(t) in torch)
+    inv_cell = torch.div(torch.full_like(mx, _GRID),
+                         torch.clamp_min(mx - mn, 1e-6))
+    codes_x = torch.where(valid, _morton_codes(x, mn, inv_cell),
+                          _INVALID_CODE)
+    perm = torch.sort(codes_x, dim=1, stable=True).indices
+    xs = torch.gather(x, 1, perm[..., None].expand(B, N, 3))
+    perm_c = torch.sort(_morton_codes(c, mn, inv_cell), dim=1,
+                        stable=True).indices
+    cs = torch.gather(c, 1, perm_c[..., None].expand(B, M, 3))
+    rows = torch.arange(M, device=xyz.device).expand(B, M)
+    inv_c = torch.empty_like(perm_c).scatter_(1, perm_c, rows)
+    return xs.contiguous(), cs.contiguous(), perm, inv_c
+
+
+def map_back(idx_s, cnt_s, perm, inv_c):
+    """Results on sorted views -> (idx [B,M,K] int32, cnt [B,M] int32) in
+    the caller's point indices and center order; empty balls give 0."""
+    B, M, K = idx_s.shape
+    mapped = torch.gather(perm, 1, idx_s.reshape(B, M * K).long())
+    mapped = torch.where(cnt_s[..., None] > 0, mapped.reshape(B, M, K), 0)
+    idx = torch.gather(mapped, 1, inv_c[..., None].expand(B, M, K))
+    return idx.int(), torch.gather(cnt_s, 1, inv_c).int()
+
+
+def sorted_ball_query(xyz, centers, radius, nsample, *, mask=None):
+    """xyz [B,N,3], centers [B,M,3] -> (idx [B,M,K] int32, cnt [B,M] int32)
+    with exact membership and counts, slots in Z order."""
+    from tpu3dsad_torch import ops  # the exact tier's device dispatch
+
+    global launches
+    check_ball_query(xyz, centers, nsample, mask)
+    xs, cs, perm, inv_c = sorted_views(xyz, centers, mask)
+    kernel = ops._use_kernel(xs)
+    idx_s, cnt_s = ops.ball_query(xs, cs, radius, nsample, exact=True)
+    if kernel:
+        launches += 1
+    return map_back(idx_s, cnt_s, perm, inv_c)

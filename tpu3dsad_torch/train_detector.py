@@ -1,13 +1,19 @@
-"""Detector training loop (tpu3dsad/train_detector.py::run_detector).
+"""Detector training loop and val sweep (tpu3dsad/train_detector.py:
+run_detector, evaluate).
 
-One train step per batch on one device; synthetic batches made on the card
-(`data.name=synthetic`, `data.device_synth=true`); JSON log lines at the
-`log_every` steps and at each epoch's end; checkpoints with auto-resume.
+run_detector: one train step per batch on one device; synthetic batches
+made on the card (`data.name=synthetic`, `data.device_synth=true`); JSON
+log lines at the `log_every` steps and at each epoch's end; checkpoints
+with auto-resume.
+
+evaluate: the val sweep of a dataset with host val batches (KITTI,
+config #4) -> AP table, on one device.
 
 Not ported yet, and refused with NotImplementedError before any step:
-`evaluate` and AP with the best-mAP checkpoint, host-fed datasets
-(Batcher, device_prefetch, packed), `steps_per_call > 1` (ROADMAP A7),
-and a device mesh (ROADMAP A11).
+evaluating inside training (the synthetic dataset's host val batches,
+ROADMAP A7.2), host-fed training batches (Batcher, device_prefetch,
+ROADMAP A7.2 / A7.5), `steps_per_call > 1` (ROADMAP A7.3), and a device
+mesh (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -17,11 +23,14 @@ import sys
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from tpu3dsad_torch import train_lib
 from tpu3dsad_torch.data import get_dataset
 from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
+from tpu3dsad_torch.eval.ap import APCalculator
+from tpu3dsad_torch.eval.parse import parse_groundtruths, predictions_to_lists
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
 from tpu3dsad_torch.utils.metrics import MetricsLogger
 
@@ -55,16 +64,17 @@ def _refuse_unported(cfg, k: int) -> None:
     if not cfg.data.device_synth:
         raise NotImplementedError(
             "host-fed batches (Batcher, device_prefetch) are not ported yet "
-            "(ROADMAP A7); set data.device_synth=true")
+            "(ROADMAP A7.2, A7.5); set data.device_synth=true")
     if k > 1:
         raise NotImplementedError(
             f"train.steps_per_call={cfg.train.steps_per_call}: fused k-step "
-            "blocks are not ported yet (ROADMAP A7)")
+            "blocks are not ported yet (ROADMAP A7.3)")
     if cfg.train.eval_every <= cfg.train.num_epochs:
         raise NotImplementedError(
             f"train.eval_every={cfg.train.eval_every} would evaluate within "
-            f"{cfg.train.num_epochs} epochs: evaluate / AP is not ported yet "
-            "(ROADMAP A7); set eval_every above num_epochs")
+            f"{cfg.train.num_epochs} epochs: the synthetic dataset's host val "
+            "batches are not ported yet (ROADMAP A7.2); set eval_every above "
+            "num_epochs")
 
 
 def run_detector(cfg, *, device="cuda") -> TrainResult:
@@ -128,3 +138,49 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
             train_lib.save_checkpoint(cfg.train.ckpt_dir, model, optimizer,
                                       result.step)
     return result
+
+
+def evaluate(cfg, model, dataset, eval_step, parse, num_batches=None):
+    """Val sweep -> AP table, on the model's device (the reference's
+    evaluate with one device and no mesh).
+
+    Each val batch goes to the device with its scene_mask, which marks the
+    tail batch's padding scenes: the eval step's loss leaves them out and
+    AP never scores them. parse(end_points) gives the parsed fields; their
+    per-scene lists and the ground truth are scored on the host.
+
+    Returns {"val_loss", "mAP@t", "AR@t", "per_class@t": {name: AP}} for
+    every t in cfg.eval.ap_iou_threshs, rounded to 4 places."""
+    device = next(model.parameters()).device
+    calc = {t: APCalculator(iou_thresh=t, class_names=dataset.class_names)
+            for t in cfg.eval.ap_iou_threshs}
+    rng = np.random.default_rng(12345)
+    losses, loss_weights = [], []
+    for i, batch_np in enumerate(dataset.val_batches(rng,
+                                                     cfg.train.batch_size)):
+        if num_batches is not None and i >= num_batches:
+            break
+        scene_mask = np.asarray(batch_np.pop(
+            "scene_mask", np.ones(cfg.train.batch_size, bool)))
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in batch_np.items()}
+        batch["scene_mask"] = torch.from_numpy(scene_mask).to(device)
+        end_points, metrics = eval_step(batch)
+        losses.append(float(metrics["loss"]))
+        loss_weights.append(float(scene_mask.mean()))
+        parsed = {k: v.cpu().numpy() for k, v in parse(end_points).items()}
+        preds = predictions_to_lists(parsed, cfg.eval, cfg.model.num_classes)
+        gts = parse_groundtruths(batch_np)
+        preds = [p for p, v in zip(preds, scene_mask) if v]
+        gts = [g for g, v in zip(gts, scene_mask) if v]
+        for c in calc.values():
+            c.step(preds, gts)
+    out = {"val_loss": round(float(np.average(losses, weights=loss_weights)),
+                             4) if losses else None}
+    for t, c in calc.items():
+        m = c.compute_metrics()
+        out[f"mAP@{t}"] = round(m["mAP"], 4)
+        out[f"AR@{t}"] = round(m["AR"], 4)
+        out[f"per_class@{t}"] = {k[: -len(" AP")]: round(v, 4)
+                                 for k, v in m.items() if k.endswith(" AP")}
+    return out

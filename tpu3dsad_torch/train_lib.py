@@ -1,5 +1,6 @@
-"""Training library (tpu3dsad/train_lib.py): runtime precision, schedules,
-the optimizer, the detector train step, checkpoints.
+"""Training library (tpu3dsad/train_lib.py): runtime knobs (grouping,
+precision), schedules, the optimizer, the detector train and eval steps,
+checkpoints.
 
 The optimizer follows optax's formulas, which differ from torch's helpers
 in two places: the learning rate of update k (0-based) is the schedule at
@@ -19,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpu3dsad_torch import ops
 from tpu3dsad_torch.data.device_pipeline import (
     augment_batch,
     decode_compact_votes,
@@ -28,11 +30,18 @@ from tpu3dsad_torch.losses import detection_loss
 
 
 def apply_runtime_config(cfg) -> None:
-    """Set the matmul precision a Config asks for, process-wide, both ways:
-    train.bf16_matmul=True lets CUDA fp32 matrix products run as TF32 (the
-    MLPs, the proposal blend, three_interpolate); False keeps full fp32.
-    Distances stay fp32 either way (ops/plain/knn.py pins them). The CPU
-    is not affected."""
+    """Set the process-wide knobs a Config carries, every one on every
+    call, so a second Config in one process never inherits the first's:
+
+      * grouping: ops_fast_grouping and ops_fast_mode (ops/__init__.py);
+      * matmul precision: train.bf16_matmul=True lets CUDA fp32 matrix
+        products run as TF32 (the MLPs, the proposal blend,
+        three_interpolate); False keeps full fp32. Distances stay fp32
+        either way (ops/plain/knn.py pins them). The CPU is not affected.
+
+    Unlike the reference, no environment variable takes part."""
+    ops.set_fast_grouping(bool(cfg.ops_fast_grouping))
+    ops.set_fast_mode(cfg.ops_fast_mode)
     torch.backends.cuda.matmul.allow_tf32 = bool(cfg.train.bf16_matmul)
 
 
@@ -156,8 +165,7 @@ def make_detector_steps(model, optimizer: Optimizer, cfg):
     0-d tensors). It decodes compact votes, augments on the card when
     data.device_augment and data.augment are set (draws from `generator`),
     runs forward, loss and backward in train mode, and updates the
-    parameters and the BN running averages in place. The eval step waits
-    with `evaluate` (ROADMAP A7)."""
+    parameters and the BN running averages in place."""
     device_aug = cfg.data.device_augment and cfg.data.augment
     aug = resolve_aug(cfg.data, cfg.data.name) if device_aug else None
 
@@ -171,6 +179,28 @@ def make_detector_steps(model, optimizer: Optimizer, cfg):
         loss.backward()
         optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_detector_eval_step(model, cfg):
+    """The detector's eval step: step(batch) -> (end_points, metrics). It
+    decodes compact votes and runs the model in eval mode without
+    gradients, then the detection loss, which leaves out the scenes that
+    batch["scene_mask"] marks as padding (tpu3dsad/train_lib.py:271-285)."""
+    ms = model.mean_sizes
+
+    @torch.no_grad()
+    def step(batch: dict):
+        batch = decode_compact_votes(batch, cfg.data.vote_candidates)
+        model.eval()
+        end_points = model(batch["points"], batch.get("point_features"),
+                           mask=batch["point_mask"])
+        _, metrics = detection_loss(
+            end_points, batch, ms, cfg.model.num_heading_bins,
+            tuple(cfg.model.cluster_radius_bank), near=cfg.model.assign_near,
+            far=cfg.model.assign_far, center_norm=cfg.model.center_loss_norm)
+        return end_points, metrics
 
     return step
 
@@ -202,9 +232,18 @@ def save_checkpoint(ckpt_dir: str, model, optimizer: Optimizer, step: int,
     return target
 
 
-def restore_checkpoint(ckpt_dir: str, model, optimizer: Optimizer) -> int:
+def restore_checkpoint(ckpt_dir: str, model, optimizer: Optimizer | None,
+                       *, for_eval: bool = False,
+                       use_best: bool = False) -> int:
     """Load the newest checkpoint under ckpt_dir into the model and the
-    optimizer (auto-resume); returns its step, or 0 if there is none."""
+    optimizer (auto-resume); returns its step, or 0 if there is none.
+    for_eval=True loads the model alone: evaluation needs no optimizer.
+    use_best (the best-mAP snapshot) is not ported: training does not
+    write that snapshot yet."""
+    if use_best:
+        raise NotImplementedError(
+            "eval.use_best: the best-mAP snapshot is not written by the "
+            "port's training yet (ROADMAP A7.6)")
     ckpts = _checkpoints(Path(ckpt_dir).absolute())
     if not ckpts:
         return 0
@@ -212,5 +251,6 @@ def restore_checkpoint(ckpt_dir: str, model, optimizer: Optimizer) -> int:
     state = torch.load(ckpts[max(ckpts)], map_location=device,
                        weights_only=True)
     model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
+    if not for_eval:
+        optimizer.load_state_dict(state["optimizer"])
     return int(state["step"])
