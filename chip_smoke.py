@@ -7,13 +7,20 @@ Phases, in order; any failure raises and the script exits nonzero:
 
  1. device and build: the card's name and power limit (nvidia-smi), then
     nvcc builds the kernels from tpu3dsad_torch/csrc, one process per
-    source, all at once; then one forward + backward of the config-#3
-    training step, recording the inputs of each of its kernel launches
-    (and three_nn calls) for the phases below;
+    source, all at once, and where this run built them, each FPS kernel
+    template's registers and spills from ptxas (a register tier must not
+    spill); then one forward + backward of the config-#3 training step,
+    recording the inputs of each of its kernel launches (and three_nn
+    calls) for the phases below;
  2. the FPS kernel against its plain PyTorch version on the card, at the 5
     shapes of a served request and on the 5 recorded inputs of the
-    training step, plus masked, all-masked and tied clouds: picks must be
-    exactly equal;
+    training step and of the config-#4 eval batch, plus masked,
+    all-masked and tied clouds, a grid repeated along N (ties across the
+    CTAs' slices, B > 1), N not a multiple of C*T, slices wholly masked,
+    forced plans that leave CTAs with no point (register and memory
+    tiers), and B = 1 at N = 65536: picks must be exactly equal; beside
+    each, the launch plan (cluster size, threads, points a thread, tier)
+    and the us a round;
  3. the ball-query kernel against its plain version, at the 7 shapes of a
     request and on the 7 recorded inputs of the training step, plus masked
     points, empty balls and saturated balls: idx and cnt must be exactly
@@ -41,13 +48,14 @@ Phases, in order; any failure raises and the script exits nonzero:
     and batch must give the same loss on the kernel path and the plain
     path, with gradients within the tolerance the scatter's atomic order
     allows;
- 7. the large-cloud FPS kernel (B2, one thread-block cluster per cloud)
+ 7. the large-cloud FPS entry (B2, one thread-block cluster per cloud)
     against its plain version: on the cropped, bucketed config-#4 scene
-    that phase 1's batch loading gave it (122880 raw points, 16384 picks),
-    N just above 65536, N = 786432 (slices past shared memory), a masked
+    that phase 1's batch loading gave it (122880 raw points, 16384 picks;
+    compared 3 times, since a missed memory fence shows as a rare wrong
+    pick), N just above 65536, N = 786432 (the memory tier), a masked
     tail, an all-masked cloud and duplicated points (ties across the
-    cluster's slices): picks exactly equal; beside each, B1's time on the
-    same B = 1 input and the cluster size;
+    cluster's slices): picks exactly equal; beside each, the plan, the us
+    a round, and the B1 entry's time on the same B = 1 input;
  8. the sorted ball query (B4: Z-order glue around the B3 kernel) against
     the same glue around the plain version, on config #4's recorded SA1
     input and the SA1 shapes of configs #5 and #3: idx and cnt exactly
@@ -83,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -257,9 +266,38 @@ def phase_device() -> str:
           f"device {torch.cuda.get_device_name(0)}")
     print(build.describe())
     for line in build.ptxas_log.splitlines():
-        if "entry function" in line or "registers" in line:
+        if any(k in line for k in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
+    if build.ptxas_log:
+        report = fps_templates(build.ptxas_log)
+        for points, (regs, spill) in sorted(report.items()):
+            print(f"  fps_cluster_kernel<{points}>: {regs} registers, "
+                  f"{spill} spill bytes")
+        spilled = {p: s for p, (_, s) in report.items()
+                   if s and p in cuda_fps.REGISTER_TIERS}
+        if set(report) != {0, *cuda_fps.REGISTER_TIERS} or spilled:
+            raise AssertionError(f"FPS templates {sorted(report)}, spill "
+                                 f"bytes {spilled}")
     return card
+
+
+def fps_templates(log: str) -> dict:
+    """{points a thread: (registers, spill store + load bytes)} of each
+    instance of the FPS kernel template in nvcc's -Xptxas=-v log."""
+    report, points = {}, None
+    for line in log.splitlines():
+        if "entry function" in line:
+            found = re.search(r"fps_cluster_kernelILi(\d+)E", line)
+            points = int(found[1]) if found else None
+            if points is not None:
+                report[points] = [0, 0]
+        elif points is not None:
+            if found := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", line):
+                report[points][1] = int(found[1]) + int(found[2])
+            elif found := re.search(r"Used (\d+) registers", line):
+                report[points][0] = int(found[1])
+    return {p: tuple(v) for p, v in report.items()}
 
 
 @contextlib.contextmanager
@@ -376,6 +414,7 @@ def phase_fps(gen, train_calls, eval_calls) -> dict:
     for path, name, xyz, m, mask in cases:
         b, n = xyz.shape[:2]
         got = cuda_fps.furthest_point_sample(xyz, m, mask=mask)
+        used = cuda_fps.last_plan
         require_equal(f"fps {path} {name}", got,
                       plain_fps(xyz, m, mask=mask))
         k = cuda_ms(lambda: cuda_fps.furthest_point_sample(xyz, m, mask=mask),
@@ -385,9 +424,15 @@ def phase_fps(gen, train_calls, eval_calls) -> dict:
         # point; xyz (and mask) read once, idx written once
         bound = tally.add(path, b * n * (12 + (mask is not None)) + b * m * 4,
                           10.0 * b * n * (m - 1), k, p)
-        print(f"  {path} {name:9s} [{b},{n}]->{m}: kernel {k:.3f} ms  plain "
+        print(f"  {path} {name:9s} [{b},{n}]->{m}: kernel {k:.3f} ms "
+              f"({k * 1e3 / (m - 1):.3f} us/round; {plan_text(used)})  plain "
               f"{p:.3f} ms  bound {bound:.3f} ms  equal")
-    # masked tail, an all-masked cloud, and exact distance ties on a grid
+    Plan = cuda_fps.Plan
+    # masked tail, an all-masked cloud, exact distance ties on a grid (in
+    # place, and a grid repeated along N so that ties straddle the slices of
+    # the CTAs at B > 1), N not a multiple of C*T, slices wholly masked, and
+    # B = 1 at N = 65536; forced plans put CTAs past N (no point at all) in
+    # the register and the memory tier
     xyz = cloud(gen, 4, N)
     mask = torch.ones(4, N, dtype=torch.bool, device="cuda")
     mask[0, N // 3:] = False
@@ -395,12 +440,38 @@ def phase_fps(gen, train_calls, eval_calls) -> dict:
     mask[2, ::2] = False
     tied = torch.randint(-4, 5, (4, 4096, 3), device="cuda",
                          generator=gen).float()
-    for label, (x, mk, m) in {"masked": (xyz, mask, 2048),
-                              "ties": (tied, None, 512)}.items():
-        got = cuda_fps.furthest_point_sample(x, m, mask=mk)
+    grid = torch.randint(-4, 5, (4, 1500, 3), device="cuda",
+                         generator=gen).float().repeat(1, 20, 1).contiguous()
+    holes = torch.ones(4, EVAL_N, dtype=torch.bool, device="cuda")
+    holes[1, 2048:4096] = False  # slice 1 of 8 x 2048
+    holes[2, EVAL_N - 2048:] = False  # the last slice
+    holes[3, :2048] = False  # the first slice, index 0's
+    small = cloud(gen, 2, 3000)
+    cases = {"masked": (xyz, mask, 2048, None),
+             "ties": (tied, None, 512, None),
+             "ties across slices": (grid, None, 1024, None),
+             "N=20001": (cloud(gen, 3, 20001), None, 2048, None),
+             "masked slices": (cloud(gen, 4, EVAL_N), holes, 2048, None),
+             "empty CTA": (small, None, 512, [Plan(4, 1024, 1)]),
+             "empty CTAs": (small, None, 512, [Plan(8, 256, 2)]),
+             "memory tier": (small, None, 512, [Plan(16, 32, 0)]),
+             "memory tier, empty CTAs": (small[:, :40].contiguous(), None,
+                                         40, [Plan(16, 32, 0)]),
+             "B=1 N=65536": (cloud(gen, 1, 65536, -30.0, 30.0), None, 2048,
+                             None)}
+    for label, (x, mk, m, plans) in cases.items():
+        got = cuda_fps.fps_batched(x, m, mk, plans)
+        used = cuda_fps.last_plan
         require_equal(f"fps {label}", got, plain_fps(x, m, mask=mk))
-        print(f"  {label}: equal")
+        k = cuda_ms(lambda: cuda_fps.fps_batched(x, m, mk, plans), 3)
+        print(f"  {label} [{x.shape[0]},{x.shape[1]}]->{m}: equal; {k:.3f} "
+              f"ms ({k * 1e3 / (m - 1):.3f} us/round; {plan_text(used)})")
     return tally.summary()
+
+
+def plan_text(plan) -> str:
+    return (f"cluster {plan.cluster} x {plan.threads} threads, "
+            f"{plan.tier}")
 
 
 def phase_ball_query(gen, train_calls, eval_calls) -> dict:
@@ -753,10 +824,12 @@ def phase_fps_flat(gen, scene_call) -> dict:
     ]
     for label, x, m, mask in cases:
         n = x.shape[1]
-        got = cuda_fps.fps_flat(x, m, mask)
-        cluster = cuda_fps.last_cluster
         want, p = once_ms(lambda: plain_fps(x, m, mask=mask))
-        require_equal(f"fps_flat {label}", got, want)
+        # the scene three times: a missed fence shows as a rare wrong pick
+        for _ in range(3 if label.startswith("eval4") else 1):
+            got = cuda_fps.fps_flat(x, m, mask)
+            require_equal(f"fps_flat {label}", got, want)
+        used, cluster = cuda_fps.last_plan, cuda_fps.last_cluster
         b1, b1_ms = once_ms(lambda: cuda_fps.fps_batched(x, m, mask))
         require_equal(f"fps B1 at B=1 {label}", b1, want)
         k = cuda_ms(lambda: cuda_fps.fps_flat(x, m, mask),
@@ -769,9 +842,9 @@ def phase_fps_flat(gen, scene_call) -> dict:
         else:
             bound = max(nbytes / HBM_BPS, nops / FP32_FLOPS) * 1e3
         print(f"  {label:12s} [1,{n}]->{m}: kernel {k:.3f} ms "
-              f"({k * 1e3 / max(m - 1, 1):.3f} us/round, cluster {cluster})"
-              f"  B1 {b1_ms:.3f} ms  plain {p:.3f} ms  bound {bound:.3f} ms"
-              "  equal")
+              f"({k * 1e3 / max(m - 1, 1):.3f} us/round; cluster {cluster}, "
+              f"{plan_text(used)})  B1 entry {b1_ms:.3f} ms  plain {p:.3f} "
+              f"ms  bound {bound:.3f} ms  equal")
     return tally.summary()
 
 

@@ -5,6 +5,7 @@ CUDA port, on one GPU.
     python3 profile_port.py [--trace PATH]          # serving, config #5
     python3 profile_port.py --train [--trace PATH]  # training, config #3
     python3 profile_port.py --eval [--trace PATH]   # evaluation, config #4
+    python3 profile_port.py --fps                   # FPS per call and plan
 
 Serving drives the program of chip_smoke.py (BASELINE config #5: 32 scenes
 x 20480 points, seeded random weights, served through
@@ -38,6 +39,13 @@ and loss) with the forward's stages, and the parse, as CUDA-event medians
 over REQUESTS batches after WARMUP, then torch.profiler over PROFILED
 batches. Loading the batch (crop, FPS, votes) is the host's and is timed
 by the smoke.
+
+--fps times the FPS kernel (csrc/fps.cu) at each main-path FPS call (the 5
+of a request, a train step and an eval batch, and one config-#4 scene),
+on seeded clouds, at the plan that ops/cuda/fps.py chooses and then at
+each cluster size that fits the card in each register tier: each launch
+is first held equal to the plain version, then timed by CUDA events (ms
+and us a round).
 """
 
 from __future__ import annotations
@@ -55,20 +63,32 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
     EVAL_B,
+    EVAL_N,
+    FPS_SHAPES,
     TRAIN_B,
     TRAIN_N,
+    B,
+    N,
     build_server,
+    cuda_ms,
     eval_config,
     make_requests,
     phase_device,
+    plan_text,
     prepare_outdoor,
+    require_equal,
     train_config,
 )
 from tpu3dsad_torch import train_lib
 from tpu3dsad_torch.data import get_dataset
 from tpu3dsad_torch.eval.parse import parse_predictions
 from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
+from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.train_detector import build_detector
+
+# the bucketed crop of a config-#4 scene of 122880 raw points (4096s)
+SCENE_N = 118784
 
 REQUESTS, WARMUP, PROFILED = 5, 3, 3
 
@@ -359,6 +379,63 @@ def profile_eval(card: str, trace_path: Path) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+def fps_cases() -> list[tuple[str, str, int, int, int]]:
+    """(path, call, B, N, M) of the FPS calls of one request, train step and
+    eval batch, then one config-#4 scene's B2 call."""
+    cases = [(path, name, b, n1 if name == "sa1" else n, m)
+             for path, b, n1 in (("serve", B, N), ("train", TRAIN_B, TRAIN_N),
+                                 ("eval4", EVAL_B, EVAL_N))
+             for name, n, m in FPS_SHAPES]
+    return cases + [("eval4", "scene", 1, SCENE_N, EVAL_N)]
+
+
+def fps_shapes(b: int, n: int, sms: int) -> list:
+    """Every launch shape worth timing for b clouds of n points: at each
+    cluster size of 1, 2, 4, 8, 12, 16 that fits the card, each register
+    tier with the fewest threads that cover n, or the memory tier where
+    none does."""
+    shapes = []
+    for c in sorted({1, 2, 4, 8, 12, 16} & set(range(1, sms // b + 1)),
+                    reverse=True):
+        per_cta = -(-n // c)
+        tiers = [cuda_fps.Plan(c, 32 * -(-per_cta // (32 * p)), p)
+                 for p in cuda_fps.REGISTER_TIERS]
+        tiers = [t for t in tiers
+                 if t.threads <= cuda_fps.REGISTER_TIERS[t.points]]
+        shapes += tiers or [cuda_fps.Plan(c, cuda_fps.MAX_THREADS, 0)]
+    return shapes
+
+
+def profile_fps(card: str) -> None:
+    """Each main-path FPS call on seeded uniform clouds (the scene with a
+    masked tail, as the loader pads it), launched as plan() chooses (the C
+    entry may step down its candidates) and then forced to each shape of
+    fps_shapes(): exact against the plain version, then ms and us a round
+    by CUDA events."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for path, name, b, n, m in fps_cases():
+        xyz = torch.empty(b, n, 3, device="cuda").uniform_(-3.0, 3.0,
+                                                           generator=gen)
+        mask = None
+        if name == "scene":
+            mask = torch.ones(b, n, dtype=torch.bool, device="cuda")
+            mask[:, n - 2000:] = False
+        want = plain_fps(xyz, m, mask=mask)
+        chosen = cuda_fps.plan(b, n, sms)
+        print(f"{path} {name} [{b},{n}]->{m}: plan() {chosen[0]} "
+              f"({len(chosen)} candidates)")
+        for plans in [None] + [[s] for s in fps_shapes(b, n, sms)]:
+            require_equal(f"fps {path} {name} {plans}",
+                          cuda_fps.fps_batched(xyz, m, mask, plans), want)
+            used = cuda_fps.last_plan
+            ms = cuda_ms(lambda: cuda_fps.fps_batched(xyz, m, mask, plans), 5)
+            print(f"  {plan_text(used):40s} {ms:9.3f} ms "
+                  f"{ms * 1e3 / (m - 1):7.3f} us/round  equal"
+                  f"{'  <- plan(), as launched' if plans is None else ''}")
+    print(f"on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -366,10 +443,15 @@ def main() -> None:
                       help="profile the config-#3 train step instead")
     mode.add_argument("--eval", action="store_true",
                       help="profile a config-#4 eval batch instead")
+    mode.add_argument("--fps", action="store_true",
+                      help="time the FPS kernel per main-path call and "
+                           "cluster size instead")
     ap.add_argument("--trace", type=Path, default=None)
     args = ap.parse_args()
     card = phase_device()
-    if args.train:
+    if args.fps:
+        profile_fps(card)
+    elif args.train:
         profile_train(card, args.trace or Path("build/profile/train_trace.json"))
     elif args.eval:
         profile_eval(card, args.trace or Path("build/profile/eval_trace.json"))

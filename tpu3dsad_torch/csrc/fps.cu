@@ -1,7 +1,12 @@
-// Furthest point sampling, batched, for sm_90a.
+// Furthest point sampling for sm_90a: one kernel template for every cloud,
+// launched as B thread-block clusters of C CTAs, one cluster per cloud.
 //
-// Replaces the Pallas TPU kernel tpu3dsad/ops/pallas/fps.py::_fps_kernel
-// (launched by _fps_call_grid / _fps_call; entry furthest_point_sample).
+// It replaces two Pallas TPU kernels of tpu3dsad/ops/pallas/fps.py:
+//   * _fps_kernel (B1, batched clouds; launched by _fps_call /
+//     _fps_call_grid, entry furthest_point_sample), through the C entry
+//     tpu3dsad_fps;
+//   * _fps_kernel_flat (B2, one cloud of more than 65536 points; launched
+//     by _fps_call_flat / _fps_flat_single), through tpu3dsad_fps_flat.
 // Semantics, equal to the plain version tpu3dsad_torch/ops/plain/fps.py:
 //   * the first pick is index 0;
 //   * each round updates the running min of the fp32 elementwise
@@ -9,52 +14,78 @@
 //     ties to the lowest index;
 //   * masked points start at -inf and are never picked (min keeps -inf);
 //     an all-masked cloud picks index 0 every round, like argmax over -inf.
-//
-// What bounds it: the chain of M dependent rounds. Each round is a pass
-// over the cloud and a block-wide argmax, and the next round needs the
-// winner. At N = 20480 the cloud (x, y, z) and the running distance take
-// 327 KB, more than one block's 227 KB of shared memory, so the running
-// distance lives in a [B, N] fp32 scratch the wrapper allocates and the
-// points are read from global memory; both stay in L1/L2 (10 MB for the
-// whole batch), which is what each round actually reads.
-//
-// Design: one block of up to 1024 threads per cloud, each thread owning a
-// strided slice of points. The TPU kernel needed two reductions per round
-// (max distance, then min index among the maxima) in its 32-bit lanes; here
-// one 64-bit key does both: (order-preserving bits of the distance) << 32 |
-// (0xFFFFFFFF - index), reduced with warp shuffles and one shared-memory
-// pass. -inf maps below +0.0, so a pad never beats a valid point.
-//
 // Products and sums use the _rn intrinsics so nvcc cannot contract them
 // into FMAs: the plain version rounds every operation, and one ulp moves
 // picks on near-ties.
 //
-// Left for later: at B = 32 only 32 of the 132 SMs work.
+// What bounds it: the chain of M - 1 dependent rounds. A round updates the
+// running distance of every point to the last pick and takes the argmax,
+// and the next round needs that winner, so rounds cannot overlap. The
+// bytes (xyz read once) and the operations (10 a point a round) would take
+// the card a fraction of a microsecond a round; what a round costs is its
+// latency: the pass over the cloud's slice, then a reduction across warps,
+// CTAs and the cluster, and the winner's coordinates back to every thread.
+// The design cuts each piece of that latency:
 //
-// The same file holds the large single-cloud FPS (fps_flat_kernel below,
-// entry tpu3dsad_fps_flat), which replaces the Pallas TPU kernel
-// tpu3dsad/ops/pallas/fps.py::_fps_kernel_flat (launched by _fps_call_flat /
-// _fps_flat_single for B == 1, N > 65536). Same semantics as above.
+//  * Points live in registers. CTA r of a cluster owns the contiguous
+//    slice [r*S, (r+1)*S) of its cloud, S = T*P, so a point's global index
+//    stays its key; thread t holds points r*S + k*T + t, k < P (P a
+//    template parameter, the loop unrolled), as x, y, z and running
+//    distance in registers. A round's pass touches no memory. Points at or
+//    past N are pads: -inf like masked points, at indices >= N, so a real
+//    point (index 0 at least) always outranks them and a CTA with no real
+//    point never wins. A copy of the slice's xyz in shared memory serves
+//    only to look up the CTA winner's coordinates once a round.
+//  * Warp stage with redux.sync, no 64-bit shuffles. The order is the
+//    distance first, then the lowest index: __reduce_max_sync of the
+//    order-preserving distance bits, then __reduce_min_sync of the index
+//    among the lanes that hold that max.
+//  * CTA stage: each warp writes its (bits, index) to a shared slot,
+//    double-buffered by round parity; one __syncthreads; warp 0 reduces
+//    the <= 32 entries the same way and looks up the winner's xyz.
+//  * Cluster stage, one message and no cluster barrier: warp 0 pushes the
+//    CTA's partial (bits, index, xyz: 20 bytes) into slot [parity][rank] of
+//    every CTA of the cluster, lane j into CTA j, with
+//    st.async.shared::cluster.mbarrier::complete_tx::bytes: the store
+//    itself counts its bytes on CTA j's barrier [parity], with release
+//    semantics at cluster scope, so the sender issues no fence. Thread 0 of
+//    each CTA arms its barrier [parity] once a round with an
+//    arrive.expect_tx of C * 20 bytes (one arrival a phase), and the phase
+//    completes when all C partials have landed. Every thread waits on its
+//    own CTA's barrier (try_wait.parity.acquire.cluster) and reduces the C
+//    partials itself, so every CTA gets the same winner and its xyz with no
+//    global load and no cluster.sync() in the round. C = 1 takes the same
+//    path through its own shared memory. (A remote st.shared::cluster
+//    followed by mbarrier.arrive.release.cluster computes the same and was
+//    measured ~0.25 us a round slower: PERF.md.)
 //
-// What bounds it: the same chain of M dependent rounds, now over one cloud
-// of ~120k points (config #4: crop, then 16384 picks). One block per cloud
-// would run each round's pass over all N points on one SM. Instead one
-// thread-block cluster of C CTAs (16 where the card allows a non-portable
-// cluster, else 8) shares the cloud: CTA r owns the contiguous slice
-// [r*S, (r+1)*S), S = ceil(N / C), so a point's global index stays its key.
-// Where 16 B per point fit in shared memory (x, y, z and the running
-// distance; ~123 KB per CTA at N = 123k, C = 16) the slice lives there for
-// the whole run; larger clouds read from global memory as B1 does.
+// Why parity double-buffering is safe. Round i uses slots and barrier
+// [i & 1]. CTA k writes slot [p][k] of CTA j in round i + 2 only after its
+// own wait in round i + 1 saw the round-(i + 1) partial of every CTA, j's
+// among them; j sends that partial only after all of its threads passed
+// round i + 1's __syncthreads, that is after they finished reading round
+// i's slots [p] (and after they waited on round i's phase of barrier [p],
+// so no barrier runs two phases ahead of its waiters). Thread 0 arms barrier
+// [p] for round i + 2 after its own wait saw round i's phase complete; a
+// partial that lands before the arm only takes the transaction count below
+// zero, and the arm's arrival, which the phase also waits for, comes after
+// it. Inside a CTA, warp w
+// rewrites its warp slot [p] in round i + 2 only after round i + 1's
+// __syncthreads, which warp 0 reaches after reading round i's warp slots.
+// Outside the round loop: one cluster.sync() after the barriers' init
+// (with fence.mbarrier_init.release.cluster), and a final one that keeps
+// every CTA resident while the others may still write to it.
 //
-// One round: each CTA updates its slice and reduces it to one partial
-// 64-bit key, written to a shared slot double-buffered by round parity;
-// one cluster.sync(); then every warp reads the C partials through
-// distributed shared memory (map_shared_rank) and reduces them to the same
-// winner, with no trip through global memory. The parity buffer makes one
-// barrier per round enough: a CTA can only overwrite slot p in round i + 2
-// after every CTA passed round i + 1's barrier, i.e. finished reading
-// round i's slot p. A last cluster.sync() keeps every CTA resident until
-// the others have read its slots.
+// Clouds too large for the register tiers (C*T*P < N at P = 16) take the
+// memory tier, P = 0: the same stages, but the pass reads the points from
+// xyz and keeps the running distance in a [B, N] scratch in global memory,
+// and the CTA winner's xyz comes from xyz. No main path runs it.
+//
+// The plan (C, T, P) is chosen by the wrapper (ops/cuda/fps.py, plan()) and
+// passed as candidates in order of preference; the entry launches the
+// first whose B clusters the card places in one wave
+// (cudaOccupancyMaxActiveClusters), else the first it can place at all,
+// and reports which it launched.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,25 +97,29 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kFlatThreads = 1024;
-// static shared memory of fps_flat_kernel (warp partials, parity slots),
-// rounded up; the dynamic slice must fit beside it
-constexpr size_t kFlatStaticSmem = 1024;
+constexpr int kMaxCluster = 16;
 
-__device__ __forceinline__ unsigned long long pack_key(float d, int i) {
-  unsigned int u = __float_as_uint(d);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);  // total order on floats
-  return (static_cast<unsigned long long>(u) << 32) |
-         (0xFFFFFFFFu - static_cast<unsigned int>(i));
-}
+// The most threads a CTA of the P-point template may have: 1024 leaves a
+// thread 64 registers, enough for P <= 8 (4 * P hold the points); P = 16
+// takes 512 threads and 128 registers.
+constexpr int max_threads(int points) { return points > 8 ? 512 : 1024; }
 
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    unsigned long long w = __shfl_xor_sync(0xFFFFFFFFu, v, o);
-    v = w > v ? w : v;
-  }
-  return v;
+constexpr unsigned kAll = 0xFFFFFFFFu;   // every lane of a warp
+constexpr unsigned kNone = 0xFFFFFFFFu;  // the index of an empty partial
+
+// What CTAs exchange, in static shared memory; round parity p picks a half.
+struct Exchange {
+  uint2 warp_key[2][kMaxThreads / 32];  // (bits, index) of each warp
+  uint4 head[2][kMaxCluster];           // (bits, index, x, y) of each CTA
+  float tail[2][kMaxCluster];           // and its winner's z
+  unsigned long long bar[2];            // C partials complete a round
+};
+
+// Order-preserving bits of a float (-inf below +0.0); 0 ranks below the
+// bits of every float, so it marks an empty partial.
+__device__ __forceinline__ unsigned ordered(float d) {
+  const unsigned u = __float_as_uint(d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 __device__ __forceinline__ float sqdist(float x, float y, float z, float lx,
@@ -96,226 +131,301 @@ __device__ __forceinline__ float sqdist(float x, float y, float z, float lx,
                    __fmul_rn(dz, dz));
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-    fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
-               float* __restrict__ dist, int* __restrict__ idx, int n, int m) {
-  __shared__ unsigned long long warp_best[kMaxThreads / 32];
-  __shared__ int winner;
-
-  const int b = blockIdx.x;
-  const float* p = xyz + static_cast<size_t>(b) * n * 3;
-  float* d = dist + static_cast<size_t>(b) * n;
-  int* out = idx + static_cast<size_t>(b) * m;
-  const uint8_t* valid = mask ? mask + static_cast<size_t>(b) * n : nullptr;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  // each thread initialises and later updates only its own slice, so the
-  // scratch needs no barrier
-  for (int j = threadIdx.x; j < n; j += blockDim.x)
-    d[j] = (valid == nullptr || valid[j]) ? INFINITY : -INFINITY;
-  if (threadIdx.x == 0) out[0] = 0;
-
-  int last = 0;
-  for (int i = 1; i < m; ++i) {
-    const float lx = p[3 * last], ly = p[3 * last + 1], lz = p[3 * last + 2];
-    unsigned long long best = 0;  // below every real key
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const float nd =
-          fminf(d[j], sqdist(p[3 * j], p[3 * j + 1], p[3 * j + 2], lx, ly, lz));
-      d[j] = nd;
-      const unsigned long long key = pack_key(nd, j);
-      best = key > best ? key : best;
-    }
-    best = warp_max(best);
-    if (lane == 0) warp_best[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      unsigned long long v = lane < nwarps ? warp_best[lane] : 0ull;
-      v = warp_max(v);
-      if (lane == 0) {
-        winner = static_cast<int>(0xFFFFFFFFu -
-                                  static_cast<unsigned int>(v & 0xFFFFFFFFull));
-        out[i] = winner;
-      }
-    }
-    __syncthreads();
-    last = winner;
-  }
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ int key_index(unsigned long long key) {
-  return static_cast<int>(0xFFFFFFFFu -
-                          static_cast<unsigned int>(key & 0xFFFFFFFFull));
+// The shared::cluster address of the same variable in CTA `rank`.
+__device__ __forceinline__ unsigned in_cta(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
 }
 
-// One cloud over one cluster. kShared: the slice (x, y, z, running
-// distance as four planes of `slice` floats) lives in dynamic shared
-// memory; else points come from xyz and distances from the [N] scratch.
-template <bool kShared>
-__global__ void __launch_bounds__(kFlatThreads)
-    fps_flat_kernel(const float* __restrict__ xyz,
-                    const uint8_t* __restrict__ mask, float* __restrict__ dist,
-                    int* __restrict__ idx, int n, int m, int slice) {
-  extern __shared__ float planes[];
-  __shared__ unsigned long long warp_best[kFlatThreads / 32];
-  __shared__ unsigned long long partial[2];
+// Store one partial into another CTA's slots; each store counts its bytes
+// on that CTA's barrier when it lands.
+constexpr unsigned kPartialBytes = 20;
+__device__ __forceinline__ void push(unsigned head, unsigned tail, unsigned bar,
+                                     uint2 k, float4 w) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];"
+      :: "r"(head), "r"(k.x), "r"(k.y), "r"(__float_as_uint(w.x)),
+         "r"(__float_as_uint(w.y)), "r"(bar) : "memory");
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];"
+      :: "r"(tail), "r"(__float_as_uint(w.z)), "r"(bar) : "memory");
+}
+
+// Whether the barrier finished the phase of the given parity; the acquire
+// makes the pushed slots visible.
+__device__ __forceinline__ bool phase_done(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// One cloud per cluster; P points a thread in registers, or P = 0 for the
+// memory tier (dist is a [B, N] scratch there and unused otherwise).
+template <int P>
+__global__ void __launch_bounds__(max_threads(P))
+    fps_cluster_kernel(const float* __restrict__ xyz,
+                       const uint8_t* __restrict__ mask,
+                       float* __restrict__ dist, int* __restrict__ idx, int n,
+                       int m) {
+  extern __shared__ float4 slice_xyz[];  // register tier: the slice's xyz
+  __shared__ Exchange ex;
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int csize = static_cast<int>(cluster.num_blocks());
-  const int lo = rank * slice;
-  const int count = max(0, min(n, lo + slice) - lo);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float* sx = planes;
-  float* sy = planes + slice;
-  float* sz = planes + 2 * slice;
-  float* sd = planes + 3 * slice;
-  const bool leader = rank == 0 && threadIdx.x == 0;
+  const unsigned rank = cluster.block_rank();
+  const unsigned csize = cluster.num_blocks();
+  const int b = blockIdx.x / csize;
+  const float* p = xyz + static_cast<size_t>(b) * n * 3;
+  const uint8_t* valid = mask ? mask + static_cast<size_t>(b) * n : nullptr;
+  int* out = idx + static_cast<size_t>(b) * m;
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int nwarps = T >> 5;
+  const int slice = P > 0 ? T * P : (n + csize - 1) / csize;
+  const int lo = static_cast<int>(rank) * slice;
+  const bool leader = rank == 0 && t == 0;
 
-  // each thread initialises and later updates only its own points, so the
-  // slice needs no barrier
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
-    const int g = lo + j;
-    const float d0 = (mask == nullptr || mask[g]) ? INFINITY : -INFINITY;
-    if (kShared) {
-      sx[j] = xyz[3 * g];
-      sy[j] = xyz[3 * g + 1];
-      sz[j] = xyz[3 * g + 2];
-      sd[j] = d0;
-    } else {
-      dist[g] = d0;
-    }
-  }
-  if (leader) idx[0] = 0;
-
-  int last = 0;
-  for (int i = 1; i < m; ++i) {
-    const float lx = __ldg(xyz + 3 * last), ly = __ldg(xyz + 3 * last + 1),
-                lz = __ldg(xyz + 3 * last + 2);
-    unsigned long long best = 0;  // below every real key
-    for (int j = threadIdx.x; j < count; j += blockDim.x) {
-      float nd;
-      if (kShared) {
-        nd = fminf(sd[j], sqdist(sx[j], sy[j], sz[j], lx, ly, lz));
-        sd[j] = nd;
-      } else {
-        const int g = lo + j;
-        nd = fminf(dist[g],
-                   sqdist(xyz[3 * g], xyz[3 * g + 1], xyz[3 * g + 2], lx, ly,
-                          lz));
-        dist[g] = nd;
+  float px[P > 0 ? P : 1], py[P > 0 ? P : 1], pz[P > 0 ? P : 1],
+      pd[P > 0 ? P : 1];
+  float* d = nullptr;
+  if constexpr (P > 0) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int j = k * T + t;
+      const int g = lo + j;
+      float x = 0.f, y = 0.f, z = 0.f, d0 = -INFINITY;  // a pad
+      if (g < n) {
+        x = p[3 * g];
+        y = p[3 * g + 1];
+        z = p[3 * g + 2];
+        d0 = (valid == nullptr || valid[g]) ? INFINITY : -INFINITY;
       }
-      const unsigned long long key = pack_key(nd, lo + j);
-      best = key > best ? key : best;
+      px[k] = x;
+      py[k] = y;
+      pz[k] = z;
+      pd[k] = d0;
+      slice_xyz[j] = make_float4(x, y, z, 0.f);
     }
-    best = warp_max(best);
-    if (lane == 0) warp_best[warp] = best;
+  } else {
+    // each thread initialises and later updates only its own points
+    d = dist + static_cast<size_t>(b) * n;
+    for (int j = t; j < slice && lo + j < n; j += T)
+      d[lo + j] = (valid == nullptr || valid[lo + j]) ? INFINITY : -INFINITY;
+  }
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem(&ex.bar[0])), "r"(1) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem(&ex.bar[1])), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (leader) out[0] = 0;
+  cluster.sync();
+
+  float lx = __ldg(p), ly = __ldg(p + 1), lz = __ldg(p + 2);
+  for (int i = 1; i < m; ++i) {
+    const int par = (i - 1) & 1;
+    const unsigned phase = ((i - 1) >> 1) & 1;
+    if (t == 0)  // arm this round's barrier for the C partials
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(smem(&ex.bar[par])), "r"(csize * kPartialBytes)
+                   : "memory");
+
+    // the pass: this thread's best (bits, index), lowest index on ties
+    unsigned bu = 0, bg = kNone;
+    if constexpr (P > 0) {
+      float bd = 0.f;
+      int bk = 0;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float nd = fminf(pd[k], sqdist(px[k], py[k], pz[k], lx, ly, lz));
+        pd[k] = nd;
+        if (k == 0 || nd > bd) {
+          bd = nd;
+          bk = k;
+        }
+      }
+      bu = ordered(bd);
+      bg = static_cast<unsigned>(lo + bk * T + t);
+    } else {
+      for (int j = t; j < slice && lo + j < n; j += T) {
+        const int g = lo + j;
+        const float nd =
+            fminf(d[g], sqdist(p[3 * g], p[3 * g + 1], p[3 * g + 2], lx, ly,
+                               lz));
+        d[g] = nd;
+        const unsigned u = ordered(nd);
+        if (u > bu) {
+          bu = u;
+          bg = static_cast<unsigned>(g);
+        }
+      }
+    }
+
+    // warp stage
+    const unsigned wu = __reduce_max_sync(kAll, bu);
+    const unsigned wg = __reduce_min_sync(kAll, bu == wu ? bg : kNone);
+    if (lane == 0) ex.warp_key[par][warp] = make_uint2(wu, wg);
     __syncthreads();
+
+    // CTA stage, then the push to every CTA of the cluster
     if (warp == 0) {
-      unsigned long long v = lane < nwarps ? warp_best[lane] : 0ull;
-      v = warp_max(v);
-      if (lane == 0) partial[i & 1] = v;
+      const uint2 e =
+          lane < nwarps ? ex.warp_key[par][lane] : make_uint2(0u, kNone);
+      const unsigned cu = __reduce_max_sync(kAll, e.x);
+      const unsigned cw = __reduce_min_sync(kAll, e.x == cu ? e.y : kNone);
+      if (lane < static_cast<int>(csize)) {
+        float4 w;
+        if constexpr (P > 0) {
+          w = slice_xyz[cw - lo];  // pads have slots too
+        } else {
+          w = cw < static_cast<unsigned>(n)
+                  ? make_float4(__ldg(p + 3 * cw), __ldg(p + 3 * cw + 1),
+                                __ldg(p + 3 * cw + 2), 0.f)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        push(in_cta(smem(&ex.head[par][rank]), lane),
+             in_cta(smem(&ex.tail[par][rank]), lane),
+             in_cta(smem(&ex.bar[par]), lane), make_uint2(cu, cw), w);
+      }
     }
-    cluster.sync();
-    unsigned long long v =
-        lane < csize ? *cluster.map_shared_rank(&partial[i & 1], lane) : 0ull;
-    last = key_index(warp_max(v));
-    if (leader) idx[i] = last;
+
+    // cluster stage: every thread reduces the C partials
+    const unsigned bar = smem(&ex.bar[par]);
+    while (!phase_done(bar, phase)) {
+    }
+    const bool mine = lane < static_cast<int>(csize);
+    const uint2 e = mine ? make_uint2(ex.head[par][lane].x,
+                                      ex.head[par][lane].y)
+                         : make_uint2(0u, kNone);
+    const unsigned gu = __reduce_max_sync(kAll, e.x);
+    const unsigned win = __reduce_min_sync(kAll, e.x == gu ? e.y : kNone);
+    const int src = __ffs(__ballot_sync(kAll, mine && e.y == win)) - 1;
+    const uint4 w = ex.head[par][src];
+    lx = __uint_as_float(w.z);
+    ly = __uint_as_float(w.w);
+    lz = ex.tail[par][src];
+    if (leader) out[i] = static_cast<int>(win);
   }
   cluster.sync();
 }
 
-// Launch fps_flat_kernel over one cluster of c CTAs with `smem` bytes of
-// dynamic shared memory each, if the card can place such a cluster
-// (*placed says whether it could; a refusal is not an error).
-template <bool kShared>
-cudaError_t launch_flat(const float* xyz, const uint8_t* mask, float* dist,
-                        int* idx, int n, int m, int c, size_t smem,
-                        cudaStream_t stream, bool* placed) {
-  auto kernel = fps_flat_kernel<kShared>;
-  *placed = false;
+using Kernel = void (*)(const float*, const uint8_t*, float*, int*, int, int);
+
+Kernel kernel_for(int points) {
+  switch (points) {
+    case 0: return fps_cluster_kernel<0>;
+    case 1: return fps_cluster_kernel<1>;
+    case 2: return fps_cluster_kernel<2>;
+    case 8: return fps_cluster_kernel<8>;
+    case 16: return fps_cluster_kernel<16>;
+    default: return nullptr;
+  }
+}
+
+// Set the kernel's attributes for candidate (c, t, points) and fill the
+// launch configuration of b clusters of c CTAs.
+cudaError_t configure(Kernel kernel, int b, int c, int t, int points,
+                      cudaStream_t stream, cudaLaunchAttribute* attr,
+                      cudaLaunchConfig_t* config) {
+  const size_t smem_bytes = sizeof(float4) * static_cast<size_t>(points) * t;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  if (c > 8) {
+      static_cast<int>(smem_bytes));
+  if (err == cudaSuccess && c > 8)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = c;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(c, 1, 1);
-  config.blockDim = dim3(kFlatThreads, 1, 1);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  if (err != cudaSuccess || clusters < 1) {
-    cudaGetLastError();  // a refused size is not a fault: try a smaller one
-    return cudaSuccess;
-  }
-  *placed = true;
-  const int slice = (n + c - 1) / c;
-  err = cudaLaunchKernelEx(&config, kernel, xyz, mask, dist, idx, n, m, slice);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  *config = {};
+  config->gridDim = dim3(b * c, 1, 1);
+  config->blockDim = dim3(t, 1, 1);
+  config->dynamicSmemBytes = smem_bytes;
+  config->stream = stream;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  return err;
 }
 
 }  // namespace
 
-// One cloud: xyz [N, 3] f32, mask [N] u8 or null, dist [N] f32 scratch
-// (used when the slices do not fit in shared memory), idx [M] i32.
-// Launches on `stream`; *cluster_out gets the cluster size used (0 if none
-// could be placed, with cudaErrorInvalidConfiguration). Returns
+// xyz [B, N, 3] f32, mask [B, N] u8 or null, dist [B, N] f32 scratch (the
+// memory tier only; may be null otherwise), idx [B, M] i32. plans: `count`
+// candidates (cluster size, threads, points a thread; 0 = memory tier) as
+// 3 * count ints, in order of preference. Launches the first that the card
+// places as B clusters in one wave, else the first it places at all, on
+// `stream`; *used gets its position (-1 if none launched). Returns
+// cudaErrorInvalidValue for a malformed candidate,
+// cudaErrorInvalidConfiguration if none can be placed, else
 // cudaGetLastError().
-extern "C" int tpu3dsad_fps_flat(const float* xyz, const uint8_t* mask,
-                                 float* dist, int* idx, int n, int m,
-                                 int* cluster_out, void* stream) {
-  *cluster_out = 0;
-  if (n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+extern "C" int tpu3dsad_fps(const float* xyz, const uint8_t* mask,
+                            float* dist, int* idx, int b, int n, int m,
+                            const int* plans, int count, int* used,
+                            void* stream) {
+  *used = -1;
+  if (b <= 0 || n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int sizes[] = {16, 8, 4, 2, 1};
-  for (int c : sizes) {
-    const size_t smem = 16 * static_cast<size_t>((n + c - 1) / c);
-    bool placed = false;
-    if (smem + kFlatStaticSmem <= static_cast<size_t>(optin))
-      err = launch_flat<true>(xyz, mask, dist, idx, n, m, c, smem, s, &placed);
-    else
-      err = launch_flat<false>(xyz, mask, dist, idx, n, m, c, 0, s, &placed);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (placed) {
-      *cluster_out = c;
-      return static_cast<int>(cudaSuccess);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t config;
+  int fallback = -1;
+  for (int i = 0; i < count; ++i) {
+    const int c = plans[3 * i], t = plans[3 * i + 1], points = plans[3 * i + 2];
+    const Kernel kernel = kernel_for(points);
+    if (kernel == nullptr || c < 1 || c > kMaxCluster || t < 32 ||
+        t > max_threads(points) || t % 32 != 0 ||
+        (points > 0 && static_cast<long long>(c) * t * points < n) ||
+        (points == 0 && dist == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = configure(kernel, b, c, t, points, s, attr, &config);
+    int clusters = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // a size the card refuses is not a fault
+      continue;
     }
+    if (clusters >= b) {
+      *used = i;
+      break;
+    }
+    if (clusters >= 1 && fallback < 0) fallback = i;
   }
-  return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (*used < 0) {
+    if (fallback < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    *used = fallback;
+  }
+  const int* chosen = plans + 3 * *used;
+  const Kernel kernel = kernel_for(chosen[2]);
+  cudaError_t err =
+      configure(kernel, b, chosen[0], chosen[1], chosen[2], s, attr, &config);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&config, kernel, xyz, mask, dist, idx, n, m);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// xyz [B, N, 3] f32, mask [B, N] u8 or null, dist [B, N] f32 scratch,
-// idx [B, M] i32. Launches on `stream`; returns cudaGetLastError().
-extern "C" int tpu3dsad_fps(const float* xyz, const uint8_t* mask, float* dist,
-                            int* idx, int b, int n, int m, void* stream) {
-  if (b <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
-  int threads = ((n + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-  fps_kernel<<<b, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xyz, mask, dist, idx, n, m);
-  return static_cast<int>(cudaGetLastError());
+// One cloud of xyz [N, 3] (B2's entry): tpu3dsad_fps at B = 1.
+extern "C" int tpu3dsad_fps_flat(const float* xyz, const uint8_t* mask,
+                                 float* dist, int* idx, int n, int m,
+                                 const int* plans, int count, int* used,
+                                 void* stream) {
+  return tpu3dsad_fps(xyz, mask, dist, idx, 1, n, m, plans, count, used,
+                      stream);
 }

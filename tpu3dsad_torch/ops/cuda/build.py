@@ -39,10 +39,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PI = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes; every one returns a cudaError_t as int
 _SIGNATURES = {
-    # xyz, mask, dist, idx, b, n, m, stream
-    "tpu3dsad_fps": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # xyz, mask, dist, idx, n, m, cluster size out (host int), stream
-    "tpu3dsad_fps_flat": (_P, _P, _P, _P, _I, _I, _PI, _P),
+    # xyz, mask, dist, idx, b, n, m, candidate plans (3 host ints each:
+    # cluster, threads, points a thread), their count, position of the one
+    # launched (host int out), stream
+    "tpu3dsad_fps": (_P, _P, _P, _P, _I, _I, _I, _PI, _I, _PI, _P),
+    # the same for one cloud, without b
+    "tpu3dsad_fps_flat": (_P, _P, _P, _P, _I, _I, _PI, _I, _PI, _P),
     # xyz, mask, centers, idx, cnt, b, n, m, k, r2, stream
     "tpu3dsad_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # g, idx, out, b, u, c, n, stream
