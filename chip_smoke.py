@@ -21,10 +21,16 @@ Phases, in order; any failure raises and the script exits nonzero:
     tiers), and B = 1 at N = 65536: picks must be exactly equal; beside
     each, the launch plan (cluster size, threads, points a thread, tier)
     and the us a round;
- 3. the ball-query kernel against its plain version, at the 7 shapes of a
-    request and on the 7 recorded inputs of the training step, plus masked
-    points, empty balls and saturated balls: idx and cnt must be exactly
-    equal;
+ 3. the ball-query kernel (B3) against its plain version on the 7
+    recorded inputs of a served request, of the training step and of the
+    config-#4 eval batch (each launch compared 3 times: idx and cnt
+    exactly equal), beside each its plan, time, the share of tiles its box
+    test skips (computed in torch from the inputs) and its bound; then the
+    7 request shapes on uniform clouds and the edge cases (ties, points at
+    d2 == r2 and one ulp inside, centers at a tile box's faces +- r, masked
+    tiles and an all-masked cloud, N % 32 != 0, K > N, empty and saturated
+    balls, a spatially sorted cloud where most tiles skip) at every
+    template instance of the scan, 3 times each;
  4. serving: SizeAdaptiveDetector(ModelConfig(num_classes=10)) with seeded
     random weights answers requests of 32 scenes x 20480 points through
     serving.build_inference_fn: one warm-up request, then the counted and
@@ -56,12 +62,16 @@ Phases, in order; any failure raises and the script exits nonzero:
     tail, an all-masked cloud and duplicated points (ties across the
     cluster's slices): picks exactly equal; beside each, the plan, the us
     a round, and the B1 entry's time on the same B = 1 input;
- 8. the sorted ball query (B4: Z-order glue around the B3 kernel) against
-    the same glue around the plain version, on config #4's recorded SA1
-    input and the SA1 shapes of configs #5 and #3: idx and cnt exactly
-    equal; counts equal to the exact tier's, the chosen set equal to it
-    where a ball holds fewer than K points, and K distinct in-ball points
-    where it is full;
+ 8. the sorted ball query (B4: the Morton-code kernel, two torch sorts,
+    then B3 on the permutations with the map-back in its epilogue) against
+    the same glue around the plain version (sorted_views, plain, map_back),
+    on the recorded SA1 inputs of configs #4, #5 and #3 and on masked junk
+    and an all-masked cloud, 3 times each: idx and cnt exactly equal, the
+    kernel's codes equal to the plain ones; counts equal to the exact
+    tier's, the chosen set equal to it where a ball holds fewer than K
+    points, and K distinct in-ball points where it is full; beside each,
+    the time of the codes and sorts, of the scan, of the exact kernel on
+    the same input, and the share of tiles skipped in either order;
  9. config #4 evaluation: eval_detector.run_eval (preset=outdoor,
     data.device_preproc=true, batch 8) over 12 val scenes of 122880 points
     with a checkpoint of seeded random weights, twice. First sweep: 12 B2
@@ -72,9 +82,9 @@ Phases, in order; any failure raises and the script exits nonzero:
     hits), one sorted ball query per batch at SA1 beside 6 exact ones.
     One batch rerun with the plain ops gives the same keep in both modes.
 
-Phase 1 also records the inputs of every kernel launch of one config-#4
-eval batch (after loading the batch, which runs B2 once per scene) for
-phases 2, 3 and 8.
+Phase 1 also records the inputs of every kernel launch of one served
+request and of one config-#4 eval batch (after loading the batch, which
+runs B2 once per scene) for phases 2, 3 and 8.
 
 Both sides of each comparison run on the same card; a differing pick is
 printed, never hidden by a tolerance. Kernel times are CUDA-event means
@@ -351,6 +361,26 @@ def capture_train_step(gen) -> dict:
     return calls
 
 
+def capture_request() -> dict:
+    """The kernel inputs of one served config-#5 request (the server of
+    phase 4 on a request of its kind), recorded call by call."""
+    print("== recording the kernel inputs of one config-#5 request")
+    _, _, infer = build_server()
+    (pts, mask), = make_requests(1, seed=REQUESTS + 1)
+    with recording() as calls:
+        infer(pts, mask)
+    found = {k: len(v) for k, v in calls.items()}
+    print(f"  calls: {found}")
+    if (found["fps"], found["ball_query"], found["scatter"]) != (5, 7, 0):
+        raise AssertionError(f"one request made {found} calls, not 5 FPS, "
+                             "7 ball query and 0 scatter")
+    # recorded under inference_mode: plain tensors for the phases below
+    return {kind: [([a.clone() if torch.is_tensor(a) else a for a in args],
+                    {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in kw.items()}) for args, kw in found_calls]
+            for kind, found_calls in calls.items()}
+
+
 def eval_config(root: str, ckpt_dir: str, *extra: str) -> Config:
     """Config #4 evaluation through the CLI's own parser: preset=outdoor,
     FPS on the card, batch 8, the scenes under `root`."""
@@ -474,52 +504,165 @@ def plan_text(plan) -> str:
             f"{plan.tier}")
 
 
-def phase_ball_query(gen, train_calls, eval_calls) -> dict:
-    print("== ball-query kernel vs plain (exact idx and cnt)")
-    tally = Tally()
-    cases = []
-    for name, n, m, r, k in BQ_SHAPES:
-        xyz = cloud(gen, B, n)
-        cases.append(("serve", name, xyz, xyz[:, :m].contiguous(), r, k, None))
-    names = [name for name, *_ in BQ_SHAPES]
-    cases += [(path, name, *args, kw.get("mask"))
-              for path, calls in (("train", train_calls), ("eval4", eval_calls))
-              for name, (args, kw) in zip(names, calls["ball_query"])]
-    for path, name, xyz, centers, r, k, mask in cases:
-        (b, n), m = xyz.shape[:2], centers.shape[1]
-        gi, gc = cuda_bq.ball_query(xyz, centers, r, k, mask=mask)
-        pi, pc = plain_bq(xyz, centers, r, k, mask=mask)
-        require_equal(f"ball_query {path} {name} idx", gi, pi)
-        require_equal(f"ball_query {path} {name} cnt", gc, pc)
-        t = cuda_ms(lambda: cuda_bq.ball_query(xyz, centers, r, k, mask=mask),
-                    10)
-        p = cuda_ms(lambda: plain_bq(xyz, centers, r, k, mask=mask), 2)
-        # this data's work: each center scans points in order up to its
-        # K-th hit (all n if it has fewer), 3 sub + 3 mul + 2 add + compare
-        # per point; xyz (and mask) and centers read once, idx and cnt
-        # written once
-        scanned = torch.where(gc == k, gi[..., -1].long() + 1, n).sum()
-        bound = tally.add(
-            path, b * n * (12 + (mask is not None)) + b * m * 12
-            + b * m * (k + 1) * 4, 9.0 * scanned.item(), t, p)
-        print(f"  {path} {name:9s} N={n} M={m} r={r:g} K={k}: kernel {t:.3f}"
-              f" ms  plain {p:.3f} ms  bound {bound:.3f} ms  equal (mean cnt"
-              f" {gc.float().mean():.2f})")
-    # masked points, empty balls (far centers), saturated balls, K > N
+# the scan's template instances (centers a warp x loads), each at 4 warps
+# a block, and a block of 3 warps: the edge cases run at every one
+EDGE_PLANS = [cuda_bq.Plan(4, c, shared) for c in cuda_bq.CENTERS
+              for shared in (False, True)] + [cuda_bq.Plan(3, 2, True)]
+COMPARES = 3  # launches of each ball-query case compared with the plain
+
+
+def check_bq(label, xyz, centers, r, k, mask, want, **kw):
+    """COMPARES launches of the B3 kernel, each exactly equal to `want`
+    (idx, cnt); returns the last."""
+    for _ in range(COMPARES):
+        got = cuda_bq.ball_query(xyz, centers, r, k, mask, **kw)
+        require_equal(f"{label} idx", got[0], want[0])
+        require_equal(f"{label} cnt", got[1], want[1])
+    return got
+
+
+def scan_work(xyz, centers, r, k, mask, idx, cnt, perm=None):
+    """What this data needs of a scan, each center up to its K-th hit (the
+    whole cloud where it has fewer), in the kernel's scan order (the Z
+    order of the sorted tier where perm is given): (points an index-order
+    scan tests, points in the 32-point tiles the conservative box test
+    cannot skip, box tests). Computed in torch from the inputs and the
+    output: tile boxes of the valid points, the separation test with the
+    kernel's fp32 operations and threshold."""
+    B, N, _ = xyz.shape
+    tile = cuda_bq.TILE
+    T = -(-N // tile)
+    valid = (torch.ones(B, N, dtype=torch.bool, device=xyz.device)
+             if mask is None else mask.bool())
+    last = idx[..., -1].long()
+    if perm is not None:
+        xyz = torch.gather(xyz, 1, perm[..., None].expand(B, N, 3))
+        valid = torch.gather(valid, 1, perm)
+        rank = torch.empty_like(perm).scatter_(
+            1, perm, torch.arange(N, device=xyz.device).expand(B, N))
+        last = torch.gather(rank, 1, last)
+    last = torch.where(cnt == k, last, N - 1)  # the last point scanned
+    pts = torch.full((B, T * tile, 3), float("nan"), device=xyz.device)
+    pts[:, :N] = torch.where(valid[..., None], xyz, float("nan"))
+    pts = pts.view(B, T, tile, 3)
+    lo = torch.where(pts.isnan(), float("inf"), pts).amin(2)[:, None]
+    hi = torch.where(pts.isnan(), float("-inf"), pts).amax(2)[:, None]
+    thr = cuda_bq.skip_radius_sq(radius_sq(r))
+    kept = tests = 0
+    tiles = torch.arange(T, device=xyz.device)
+    for s in range(0, centers.shape[1], 256):
+        c = centers[:, s:s + 256, None, :]
+        sep = torch.maximum(lo - c, c - hi).clamp_min(0.0)
+        sep2 = (sep[..., 0] * sep[..., 0] + sep[..., 1] * sep[..., 1]
+                ) + sep[..., 2] * sep[..., 2]
+        upto = tiles <= (last[:, s:s + 256, None] // tile)
+        kept += ((sep2 <= thr) & upto).sum().item()
+        tests += upto.sum().item()
+    return (last + 1).sum().item(), tile * kept, tests
+
+
+def bq_cost(b, n, m, k, mask, work) -> tuple[float, float]:
+    """(bytes, operations) of a ball query on this data: xyz (and mask) and
+    centers read once, idx and cnt written once; 9 operations a point an
+    index-order scan tests, or, where the box test skips tiles, 9 a point
+    of the tiles it keeps and 12 a box test, if fewer."""
+    scanned, kept, tests = work
+    nbytes = b * n * (12 + (mask is not None)) + b * m * 12 + b * m * (k + 1) * 4
+    return nbytes, min(9.0 * scanned, 9.0 * kept + 12.0 * tests)
+
+
+def skip_text(work) -> str:
+    scanned, kept, tests = work
+    return (f"tiles skipped {1 - kept / cuda_bq.TILE / max(tests, 1):.3f}, "
+            f"points a center {scanned:.4g} in order / {kept:.4g} kept")
+
+
+def bq_edge_cases(gen) -> dict:
+    """label -> (xyz, centers, mask, r, K): the edge cases of the scan."""
     xyz = cloud(gen, 4, 4096, -0.5, 0.5)
     mask = torch.rand(4, 4096, device="cuda", generator=gen) < 0.7
     mask[3] = False
     centers = torch.cat([xyz[:, :200], cloud(gen, 4, 56, 5.0, 6.0)], 1)
-    cases = {"masked+empty": (xyz, centers, mask, 0.1, 32),
-             "saturated": (xyz, centers, None, 0.3, 64),
-             "K>N": (xyz[:, :40].contiguous(), centers, None, 0.4, 64)}
-    for label, (x, c, mk, r, k) in cases.items():
-        gi, gc = cuda_bq.ball_query(x, c, r, k, mask=mk)
-        pi, pc = plain_bq(x, c, r, k, mask=mk)
-        require_equal(f"ball_query {label} idx", gi, pi)
-        require_equal(f"ball_query {label} cnt", gc, pc)
-        print(f"  {label}: equal (cnt min {gc.min().item()} max "
-              f"{gc.max().item()})")
+    ties = torch.randint(-4, 5, (4, 4096, 3), device="cuda",
+                         generator=gen).float()
+    # r = 0.5: d2 == r2 = 0.25 at (0.5, 0, 0); one ulp inside at (0, -in, 0)
+    inside = float(np.nextafter(np.float32(0.5), np.float32(0)))
+    edge = cloud(gen, 2, 4096, 2.0, 3.0)
+    edge[:, 0:3000:3] = torch.tensor([0.5, 0.0, 0.0], device="cuda")
+    edge[:, 1:3000:3] = torch.tensor([0.0, -inside, 0.0], device="cuda")
+    # z-sorted: tiles banded in z; centers at each tile's top +- r
+    banded = cloud(gen, 2, 4096)
+    banded[..., 2] = banded[..., 2].sort(1).values
+    tops = banded[:, cuda_bq.TILE - 1::cuda_bq.TILE, 2]
+    steps = torch.tensor([-1.0005, -0.9995, 0.0, 0.9995, 1.0005],
+                         device="cuda")
+    faces = torch.zeros(2, 640, 3, device="cuda")
+    faces[..., 2] = (tops.repeat(1, 5) + 0.1 * steps.repeat_interleave(128))
+    holes = torch.rand(4, 4096, device="cuda", generator=gen) < 0.8
+    holes[0, 64:1024] = False  # whole tiles masked
+    holes[1, ::64] = False
+    holes[2] = False  # an all-masked cloud
+    ordered = cloud(gen, 4, 8192)
+    ordered = torch.gather(ordered, 1, ordered[..., :1].argsort(1).expand(
+        4, 8192, 3)).contiguous()
+    ragged = cloud(gen, 3, 4001, -0.5, 0.5)
+    tail = torch.ones(3, 4001, dtype=torch.bool, device="cuda")
+    tail[:, 3990:] = False
+    return {
+        "masked+empty": (xyz, centers, mask, 0.1, 32),
+        "saturated": (xyz, centers, None, 0.3, 64),
+        "K>N": (xyz[:, :40].contiguous(), centers, None, 0.4, 64),
+        "ties": (ties, ties[:, :256].contiguous(), None, 1.5, 32),
+        "d2 == r2, one ulp inside": (
+            edge, torch.zeros(2, 64, 3, device="cuda"), None, 0.5, 64),
+        "tile faces +- r": (banded, faces, None, 0.1, 32),
+        "masked tiles, all-masked cloud": (xyz, centers, holes, 0.1, 32),
+        "N=4001": (ragged, ragged[:, :300].contiguous(), tail, 0.1, 32),
+        "sorted cloud": (ordered, ordered[:, ::8].contiguous(), None, 0.2,
+                         64),
+    }
+
+
+def phase_ball_query(gen, serve_calls, train_calls, eval_calls) -> dict:
+    print(f"== ball-query kernel (B3) vs plain (exact idx and cnt, "
+          f"{COMPARES} launches each)")
+    tally = Tally()
+    names = [name for name, *_ in BQ_SHAPES]
+    cases = [(path, name, *args, kw.get("mask"))
+             for path, calls in (("serve", serve_calls), ("train", train_calls),
+                                 ("eval4", eval_calls))
+             for name, (args, kw) in zip(names, calls["ball_query"])]
+    for path, name, xyz, centers, r, k, mask in cases:
+        (b, n), m = xyz.shape[:2], centers.shape[1]
+        want = plain_bq(xyz, centers, r, k, mask=mask)
+        gi, gc = check_bq(f"ball_query {path} {name}", xyz, centers, r, k,
+                          mask, want)
+        used = cuda_bq.last_plan
+        t = cuda_ms(lambda: cuda_bq.ball_query(xyz, centers, r, k, mask=mask),
+                    10)
+        p = cuda_ms(lambda: plain_bq(xyz, centers, r, k, mask=mask), 2)
+        work = scan_work(xyz, centers, r, k, mask, gi, gc)
+        bound = tally.add(path, *bq_cost(b, n, m, k, mask, work), t, p)
+        per = tuple(w / (b * m) for w in work)
+        print(f"  {path} {name:9s} N={n} M={m} r={r:g} K={k}: kernel {t:.3f}"
+              f" ms ({used})  plain {p:.3f} ms  bound {bound:.3f} ms  equal; "
+              f"{skip_text(per)}; mean cnt {gc.float().mean():.2f}")
+    for name, n, m, r, k in BQ_SHAPES:  # uniform clouds, centers unordered
+        xyz = cloud(gen, B, n)
+        centers = xyz[:, :m].contiguous()
+        check_bq(f"ball_query uniform {name}", xyz, centers, r, k, None,
+                 plain_bq(xyz, centers, r, k))
+    print(f"  the {len(BQ_SHAPES)} request shapes on uniform clouds: equal")
+    for label, (x, c, mk, r, k) in bq_edge_cases(gen).items():
+        want = plain_bq(x, c, r, k, mask=mk)
+        for launch in EDGE_PLANS:
+            check_bq(f"ball_query {label} ({launch})", x, c, r, k, mk, want,
+                     launch=launch)
+        work = scan_work(x, c, r, k, mk, *want)
+        per = tuple(w / (x.shape[0] * c.shape[1]) for w in work)
+        print(f"  {label}: equal at {len(EDGE_PLANS)} launch shapes (cnt min "
+              f"{want[1].min().item()} max {want[1].max().item()}; "
+              f"{skip_text(per)})")
     return tally.summary()
 
 
@@ -880,65 +1023,68 @@ def in_ball_check(label, xyz, centers, r, k, mask, idx, cnt, exact_idx,
         raise AssertionError(f"{label}: a chosen point is not in its ball")
 
 
-def phase_sorted(gen, eval_calls, train_sa1) -> dict:
-    print("== sorted ball query (B4: Z-order glue + B3) vs glue + plain "
-          "(exact idx and cnt)")
+def phase_sorted(gen, eval_calls, serve_sa1, train_sa1) -> dict:
+    print(f"== sorted ball query (B4: Morton-code kernel, torch sorts, B3 "
+          f"with the map-back in its epilogue) vs glue + plain (exact idx and"
+          f" cnt, {COMPARES} calls each)")
     tally = Tally()
-    (args, kw) = eval_calls["ball_query"][0]
-    serve = cloud(gen, B, N)
-    cases = [("eval4", "config #4 SA1", *args, kw.get("mask")),
-             ("serve", "config #5 SA1", serve, serve[:, :2048].contiguous(),
-              0.2, 64, None),
-             ("train", "config #3 SA1", *train_sa1[0],
-              train_sa1[1].get("mask"))]
+    junk = cloud(gen, 4, 8192)
+    junk_mask = torch.rand(4, 8192, device="cuda", generator=gen) < 0.7
+    junk[~junk_mask] = cloud(gen, 1, int((~junk_mask).sum()), -50.0, 50.0)[0]
+    junk_mask[3] = False  # an all-masked cloud
+    cases = [("eval4", "config #4 SA1", *eval_calls["ball_query"][0][0],
+              eval_calls["ball_query"][0][1].get("mask")),
+             ("serve", "config #5 SA1", *serve_sa1[0], serve_sa1[1].get("mask")),
+             ("train", "config #3 SA1", *train_sa1[0], train_sa1[1].get("mask")),
+             (None, "masked junk, an all-masked cloud", junk,
+              junk[:, :1024].contiguous(), 0.3, 32, junk_mask)]
     for path, label, xyz, centers, r, k, mask in cases:
         (b, n), m = xyz.shape[:2], centers.shape[1]
         if not sorted_bq.applies(n, k):
             raise AssertionError(f"{label}: N={n} K={k} is below the gate")
-        gi, gc = sorted_bq.sorted_ball_query(xyz, centers, r, k, mask=mask)
+        for got, want in zip(cuda_bq.morton_codes(xyz, centers, mask),
+                             sorted_bq.z_keys(xyz, centers, mask)):
+            require_equal(f"sorted {label} Morton codes", got, want)
         with ops.use_impl("plain"):
-            pi, pc = sorted_bq.sorted_ball_query(xyz, centers, r, k,
-                                                 mask=mask)
-        require_equal(f"sorted {label} idx", gi, pi)
-        require_equal(f"sorted {label} cnt", gc, pc)
+            want = sorted_bq.sorted_ball_query(xyz, centers, r, k, mask=mask)
+        for _ in range(COMPARES):
+            gi, gc = sorted_bq.sorted_ball_query(xyz, centers, r, k, mask=mask)
+            require_equal(f"sorted {label} idx", gi, want[0])
+            require_equal(f"sorted {label} cnt", gc, want[1])
         ei, ec = cuda_bq.ball_query(xyz, centers, r, k, mask=mask)
         in_ball_check(f"sorted {label}", xyz, centers, r, k, mask, gi, gc,
                       ei, ec)
+        perm, perm_c = sorted_bq.z_order(xyz, centers, mask)
+        work = scan_work(xyz, centers, r, k, mask, gi, gc, perm)
+        exact_work = scan_work(xyz, centers, r, k, mask, ei, ec)
+        per = [tuple(w / (b * m) for w in v) for v in (work, exact_work)]
+        if path is None:
+            print(f"  {label}: equal (cnt max {gc.max().item()}; sorted "
+                  f"{skip_text(per[0])})")
+            continue
         t = cuda_ms(lambda: sorted_bq.sorted_ball_query(xyz, centers, r, k,
                                                         mask=mask), 10)
         with ops.use_impl("plain"):
             p = cuda_ms(lambda: sorted_bq.sorted_ball_query(
                 xyz, centers, r, k, mask=mask), 2)
-        xs, cs, perm, inv_c = sorted_bq.sorted_views(xyz, centers, mask)
-        si, sc = cuda_bq.ball_query(xs, cs, r, k)
-        kern = cuda_ms(lambda: cuda_bq.ball_query(xs, cs, r, k), 10)
-        glue = cuda_ms(lambda: sorted_bq.map_back(
-            si, sc, *sorted_bq.sorted_views(xyz, centers, mask)[2:]), 10)
-        # phase 3's count on the sorted views: each center scans up to its
-        # K-th hit (all n if it has fewer), 9 operations a point; xyz (and
-        # mask) and centers read once, idx and cnt written once
-        scanned = torch.where(sc == k, si[..., -1].long() + 1, n).sum().item()
-        nbytes = (b * n * (12 + (mask is not None)) + b * m * 12
-                  + b * m * (k + 1) * 4)
-        if path == "eval4":
-            bound = tally.add(path, nbytes, 9.0 * scanned, t, p)
-        else:
-            bound = max(nbytes / HBM_BPS, 9.0 * scanned / FP32_FLOPS) * 1e3
+        keys = cuda_ms(lambda: sorted_bq.z_order(xyz, centers, mask), 10)
+        scan = cuda_ms(lambda: cuda_bq.ball_query(
+            xyz, centers, r, k, mask, perm=perm, perm_c=perm_c), 10)
+        scan_plan = cuda_bq.last_plan
         exact_ms = cuda_ms(lambda: cuda_bq.ball_query(xyz, centers, r, k,
                                                       mask=mask), 10)
+        cost = bq_cost(b, n, m, k, mask, work)
+        if path == "eval4":
+            bound = tally.add(path, *cost, t, p)
+        else:
+            bound = max(cost[0] / HBM_BPS, cost[1] / FP32_FLOPS) * 1e3
         print(f"  {label} [{b},{n}] M={m} r={r:g} K={k}: sorted {t:.3f} ms "
-              f"(glue {glue:.3f}, kernel on sorted views {kern:.3f}; exact "
-              f"kernel {exact_ms:.3f})  plain {p:.3f} ms  bound {bound:.3f} "
-              f"ms  equal; points scanned per center {scanned / (b * m):.0f}"
-              f" sorted vs {scanned_exact(ei, ec, k, n) / (b * m):.0f} exact;"
-              f" mean cnt {gc.float().mean():.2f}")
+              f"(codes + sorts {keys:.3f}, scan with map-back {scan:.3f} "
+              f"({scan_plan}); exact kernel {exact_ms:.3f})  plain "
+              f"{p:.3f} ms  bound {bound:.3f} ms  equal; sorted "
+              f"{skip_text(per[0])}; exact {skip_text(per[1])}; mean cnt "
+              f"{gc.float().mean():.2f}")
     return tally.summary()
-
-
-def scanned_exact(idx, cnt, k, n) -> int:
-    """Points the exact kernel scans: up to each center's K-th hit in index
-    order, or all n."""
-    return torch.where(cnt == k, idx[..., -1].long() + 1, n).sum().item()
 
 
 @contextlib.contextmanager
@@ -1082,17 +1228,20 @@ def main() -> None:
         outdoor = prepare_outdoor(work)
         train_calls = capture_train_step(gen)
         eval_loads, eval_calls = capture_eval_batch(outdoor)
+        serve_calls = capture_request()
         fps_t = phase_fps(gen, train_calls, eval_calls)
-        bq_t = phase_ball_query(gen, train_calls, eval_calls)
+        bq_t = phase_ball_query(gen, serve_calls, train_calls, eval_calls)
         served = phase_serve(card)
         scatter_t = phase_scatter(gen, train_calls)
         nn_calls = train_calls["three_nn"]
         train_sa1 = train_calls["ball_query"][0]
+        serve_sa1 = serve_calls["ball_query"][0]
+        del serve_calls
         del train_calls  # keep the recorded tensors out of training's peak
         trained = phase_train(card, gen, nn_calls)
         flat_t = phase_fps_flat(gen, eval_loads["fps"][0])
         del eval_loads
-        sorted_t = phase_sorted(gen, eval_calls, train_sa1)
+        sorted_t = phase_sorted(gen, eval_calls, serve_sa1, train_sa1)
         evaluated = phase_eval(card, outdoor)
     finally:
         shutil.rmtree(work, ignore_errors=True)

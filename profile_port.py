@@ -6,6 +6,7 @@ CUDA port, on one GPU.
     python3 profile_port.py --train [--trace PATH]  # training, config #3
     python3 profile_port.py --eval [--trace PATH]   # evaluation, config #4
     python3 profile_port.py --fps                   # FPS per call and plan
+    python3 profile_port.py --ball-query            # ball query per call and plan
 
 Serving drives the program of chip_smoke.py (BASELINE config #5: 32 scenes
 x 20480 points, seeded random weights, served through
@@ -46,6 +47,17 @@ on seeded clouds, at the plan that ops/cuda/fps.py chooses and then at
 each cluster size that fits the card in each register tier: each launch
 is first held equal to the plain version, then timed by CUDA events (ms
 and us a round).
+
+--ball-query times the ball-query kernel (csrc/ball_query.cu) at each
+main-path ball-query call, on the inputs recorded from one served request,
+one config-#3 train step and one config-#4 eval batch (chip_smoke.py's
+recorders): exact, then the three SA1 calls through the sorted tier (the
+scan alone, on the Z-order permutations, and the whole call). Each call
+runs at the plan that ops/cuda/ball_query.py chooses and then at every
+other shape (warps a block x centers a warp x loads from global or
+shared memory); each launch is first held equal to the plain version (the
+glue + plain for the sorted tier), then timed by CUDA events. About 500
+lines: redirect them to a file.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
+    BQ_SHAPES,
     EVAL_B,
     EVAL_N,
     FPS_SHAPES,
@@ -70,6 +83,9 @@ from chip_smoke import (
     B,
     N,
     build_server,
+    capture_eval_batch,
+    capture_request,
+    capture_train_step,
     cuda_ms,
     eval_config,
     make_requests,
@@ -83,7 +99,11 @@ from tpu3dsad_torch import train_lib
 from tpu3dsad_torch.data import get_dataset
 from tpu3dsad_torch.eval.parse import parse_predictions
 from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
+from tpu3dsad_torch import ops
+from tpu3dsad_torch.ops import sorted as sorted_bq
+from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.train_detector import build_detector
 
@@ -436,6 +456,69 @@ def profile_fps(card: str) -> None:
     print(f"on {card}")
 
 
+def bq_shapes() -> list:
+    """Every launch shape of the scan: 4, 8 or 16 warps a block, each
+    template instance (centers a warp, loads)."""
+    return [cuda_bq.Plan(w, c, shared) for shared in (False, True)
+            for c in cuda_bq.CENTERS for w in (4, 8, 16)]
+
+
+def time_bq_shapes(label: str, want, run) -> None:
+    """run(launch) at plan()'s shape (launch None) and at each of
+    bq_shapes(): exactly `want`, then ms by CUDA events, one line each."""
+    for launch in [None] + bq_shapes():
+        got = run(launch)
+        require_equal(f"{label} {launch} idx", got[0], want[0])
+        require_equal(f"{label} {launch} cnt", got[1], want[1])
+        used = cuda_bq.last_plan
+        ms = cuda_ms(lambda: run(launch), 10)
+        print(f"  {str(used):40s} {ms:9.3f} ms  equal"
+              f"{'  <- plan()' if launch is None else ''}")
+
+
+def profile_ball_query(card: str, work: Path) -> None:
+    """Each main-path ball-query call on its recorded inputs, exact, at
+    every shape of the scan; then the three SA1 calls through the sorted
+    tier: the codes and sorts, the scan at every shape, the whole call."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shutil.rmtree(work, ignore_errors=True)
+    recorded = {"serve": capture_request(),
+                "train": capture_train_step(gen),
+                "eval4": capture_eval_batch(prepare_outdoor(work))[1]}
+    names = [name for name, *_ in BQ_SHAPES]
+    for path, calls in recorded.items():
+        for name, (args, kw) in zip(names, calls["ball_query"]):
+            xyz, centers, r, k = args
+            mask = kw.get("mask")
+            (b, n), m = xyz.shape[:2], centers.shape[1]
+            print(f"{path} {name} [{b},{n}] M={m} r={r:g} K={k}: plan() "
+                  f"{cuda_bq.plan(b, n, m, k, sms)}")
+            time_bq_shapes(f"ball_query {path} {name}",
+                           plain_bq(xyz, centers, r, k, mask=mask),
+                           lambda launch: cuda_bq.ball_query(
+                               xyz, centers, r, k, mask, launch=launch))
+    for path, calls in recorded.items():
+        (xyz, centers, r, k), kw = calls["ball_query"][0]
+        mask = kw.get("mask")
+        with ops.use_impl("plain"):
+            want = sorted_bq.sorted_ball_query(xyz, centers, r, k, mask=mask)
+        perm, perm_c = sorted_bq.z_order(xyz, centers, mask)
+        whole = cuda_ms(lambda: sorted_bq.sorted_ball_query(
+            xyz, centers, r, k, mask=mask), 10)
+        keys = cuda_ms(lambda: sorted_bq.z_order(xyz, centers, mask), 10)
+        codes = cuda_ms(lambda: cuda_bq.morton_codes(xyz, centers, mask), 10)
+        print(f"{path} sa1 sorted [{xyz.shape[0]},{xyz.shape[1]}]: whole "
+              f"call {whole:.3f} ms; codes + sorts {keys:.3f} ms (codes "
+              f"{codes:.3f}); the scan with map-back:")
+        time_bq_shapes(f"sorted {path} sa1", want,
+                       lambda launch: cuda_bq.ball_query(
+                           xyz, centers, r, k, mask, perm=perm,
+                           perm_c=perm_c, launch=launch))
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -446,11 +529,16 @@ def main() -> None:
     mode.add_argument("--fps", action="store_true",
                       help="time the FPS kernel per main-path call and "
                            "cluster size instead")
+    mode.add_argument("--ball-query", action="store_true",
+                      help="time the ball-query kernel per main-path call "
+                           "and launch shape instead")
     ap.add_argument("--trace", type=Path, default=None)
     args = ap.parse_args()
     card = phase_device()
     if args.fps:
         profile_fps(card)
+    elif args.ball_query:
+        profile_ball_query(card, Path("build/profile/outdoor"))
     elif args.train:
         profile_train(card, args.trace or Path("build/profile/train_trace.json"))
     elif args.eval:

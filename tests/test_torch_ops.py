@@ -206,6 +206,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda_fps.furthest_point_sample(_t(xyz), 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_bq.ball_query(_t(xyz), _t(centers), r, K)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_bq.morton_codes(_t(xyz), _t(centers))
 
 
 def test_impl_selection():

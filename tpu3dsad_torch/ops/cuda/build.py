@@ -45,8 +45,12 @@ _SIGNATURES = {
     "tpu3dsad_fps": (_P, _P, _P, _P, _I, _I, _I, _PI, _I, _PI, _P),
     # the same for one cloud, without b
     "tpu3dsad_fps_flat": (_P, _P, _P, _P, _I, _I, _PI, _I, _PI, _P),
-    # xyz, mask, centers, idx, cnt, b, n, m, k, r2, stream
-    "tpu3dsad_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # xyz, mask, centers, perm, perm_c, scratch, idx, cnt, b, n, m, k, r2,
+    # skip_r2, warps a block, centers a warp, shared loads, stream
+    "tpu3dsad_ball_query": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _F, _F, _I, _I, _I, _P),
+    # xyz, mask, centers, codes_x, codes_c, b, n, m, stream
+    "tpu3dsad_morton_codes": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # g, idx, out, b, u, c, n, stream
     "tpu3dsad_scatter_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -18,14 +18,19 @@ spatial one. Bitwise the reference's arithmetic:
     can join no ball); indices map back through the permutation, empty
     balls give 0, rows return to the caller's center order.
 
-This is plain torch glue on any device around the exact tier
-(`ops.ball_query(..., exact=True)`): on the card it launches the B3
-kernel (csrc/ball_query.cu), on the CPU its plain version. It adds no
-kernel body. The reference sorts so that its kernel's AABB tile skip can
-leave most point tiles out; the port's B3 kernel has no such skip, so the
-sorted views do not shorten its scans yet (PERF.md).
+Two implementations, by the tensor's device (ops._use_kernel):
 
-`launches` counts the calls that launched the B3 kernel on sorted views.
+  * on the card, three launches and the two sorts: the Morton codes of
+    points and centers in one kernel (ops/cuda/ball_query.morton_codes),
+    torch.sort(stable=True) of each (the reference sorts in XLA, outside
+    its kernel), then the B3 kernel given both permutations: its pre-pass
+    stages the points in Z order (masked ones never join a ball, as the
+    1e9 points cannot), its tile skip leaves out the tiles far from each
+    center, and its epilogue writes the caller's indices and rows;
+  * the plain version: `sorted_views` (the glue above in torch), the plain
+    exact tier, `map_back`. The CPU and use_impl("plain") run it.
+
+`launches` counts the calls that launched the kernels.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from __future__ import annotations
 import torch
 
 from tpu3dsad_torch.ops.args import check_ball_query
+from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
+from tpu3dsad_torch.ops.plain import ball_query as plain_ball_query
 
 # the reference engages the sorted tier only at support sizes >= 8192
 # (_SORTED_MIN_N) and for K a multiple of its kernel's slot width 8 with
@@ -67,16 +74,15 @@ def _morton_codes(pts, mn, inv_cell) -> torch.Tensor:
             | (_spread_bits(q[..., 2]) << 2))
 
 
-def sorted_views(xyz, centers, mask=None):
-    """-> (xs [B,N,3], cs [B,M,3], perm [B,N], inv_c [B,M]): the points
-    (invalid ones at 1e9) and centers in Z order; xs[b, k] is point
-    perm[b, k], and center j sits at sorted row inv_c[b, j]."""
+def z_keys(xyz, centers, mask=None):
+    """-> (codes_x [B,N], codes_c [B,M]) int32: the Z-order keys of the
+    points (1 << 30 where invalid) and of the centers, on the grid of the
+    valid points' bounding box. The plain version of the kernel
+    ops/cuda/ball_query.morton_codes."""
     B, N, _ = xyz.shape
-    M = centers.shape[1]
     valid = (torch.ones(B, N, dtype=torch.bool, device=xyz.device)
              if mask is None else mask.bool())
     x = torch.where(valid[..., None], xyz.float(), 1e9)
-    c = centers.float()
     mn = torch.where(valid[..., None], x, 3e38).amin(1, keepdim=True)
     mx = torch.where(valid[..., None], x, -3e38).amax(1, keepdim=True)
     # a true division (python's 256.0 / t is 256 * reciprocal(t) in torch)
@@ -84,10 +90,22 @@ def sorted_views(xyz, centers, mask=None):
                          torch.clamp_min(mx - mn, 1e-6))
     codes_x = torch.where(valid, _morton_codes(x, mn, inv_cell),
                           _INVALID_CODE)
+    return codes_x, _morton_codes(centers.float(), mn, inv_cell)
+
+
+def sorted_views(xyz, centers, mask=None):
+    """-> (xs [B,N,3], cs [B,M,3], perm [B,N], inv_c [B,M]): the points
+    (invalid ones at 1e9) and centers in Z order; xs[b, k] is point
+    perm[b, k], and center j sits at sorted row inv_c[b, j]."""
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    codes_x, codes_c = z_keys(xyz, centers, mask)
+    x = xyz.float() if mask is None else torch.where(
+        mask.bool()[..., None], xyz.float(), 1e9)
+    c = centers.float()
     perm = torch.sort(codes_x, dim=1, stable=True).indices
     xs = torch.gather(x, 1, perm[..., None].expand(B, N, 3))
-    perm_c = torch.sort(_morton_codes(c, mn, inv_cell), dim=1,
-                        stable=True).indices
+    perm_c = torch.sort(codes_c, dim=1, stable=True).indices
     cs = torch.gather(c, 1, perm_c[..., None].expand(B, M, 3))
     rows = torch.arange(M, device=xyz.device).expand(B, M)
     inv_c = torch.empty_like(perm_c).scatter_(1, perm_c, rows)
@@ -107,13 +125,24 @@ def map_back(idx_s, cnt_s, perm, inv_c):
 def sorted_ball_query(xyz, centers, radius, nsample, *, mask=None):
     """xyz [B,N,3], centers [B,M,3] -> (idx [B,M,K] int32, cnt [B,M] int32)
     with exact membership and counts, slots in Z order."""
-    from tpu3dsad_torch import ops  # the exact tier's device dispatch
+    from tpu3dsad_torch import ops  # the device dispatch
 
     global launches
     check_ball_query(xyz, centers, nsample, mask)
-    xs, cs, perm, inv_c = sorted_views(xyz, centers, mask)
-    kernel = ops._use_kernel(xs)
-    idx_s, cnt_s = ops.ball_query(xs, cs, radius, nsample, exact=True)
-    if kernel:
-        launches += 1
-    return map_back(idx_s, cnt_s, perm, inv_c)
+    if not ops._use_kernel(xyz):
+        xs, cs, perm, inv_c = sorted_views(xyz, centers, mask)
+        idx_s, cnt_s = plain_ball_query(xs, cs, radius, nsample)
+        return map_back(idx_s, cnt_s, perm, inv_c)
+    perm, perm_c = z_order(xyz, centers, mask)
+    out = cuda_bq.ball_query(xyz, centers, radius, nsample, mask,
+                             perm=perm, perm_c=perm_c)
+    launches += 1
+    return out
+
+
+def z_order(xyz, centers, mask=None):
+    """On the card: (perm [B,N], perm_c [B,M]) int64, the stable sorts of
+    the points' and the centers' Morton codes (one kernel for the codes)."""
+    codes_x, codes_c = cuda_bq.morton_codes(xyz, centers, mask)
+    return (torch.sort(codes_x, dim=1, stable=True).indices,
+            torch.sort(codes_c, dim=1, stable=True).indices)
