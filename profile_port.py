@@ -7,6 +7,8 @@ CUDA port, on one GPU.
     python3 profile_port.py --eval [--trace PATH]   # evaluation, config #4
     python3 profile_port.py --fps                   # FPS per call and plan
     python3 profile_port.py --ball-query            # ball query per call and plan
+    python3 profile_port.py --scatter               # scatter per call and plan
+    python3 profile_port.py --scatter-calls PATH    # scatter calls, any tree
 
 Serving drives the program of chip_smoke.py (BASELINE config #5: 32 scenes
 x 20480 points, seeded random weights, served through
@@ -58,6 +60,23 @@ other shape (warps a block x centers a warp x loads from global or
 shared memory); each launch is first held equal to the plain version (the
 glue + plain for the sorted tier), then timed by CUDA events. About 500
 lines: redirect them to a file.
+
+--scatter times the scatter kernel (csrc/scatter.cu) at each of the 9
+scatter calls of one config-#3 train step, on their recorded inputs, and
+on heavy collisions (all of U on 8 rows), at the plan that
+ops/cuda/scatter.py chooses and then at variants of it: the warps a CTA
+and the channel slices. Each launch is first held bitwise to np.add.at on
+the host, then timed by CUDA events (host included, as the smoke times
+it); then plan()'s and index_add_'s device time by kernel
+(torch.profiler), and each variant's sum over the step.
+
+--scatter-calls PATH times ops.scatter_rows, whichever scatter kernel the
+package on the path has, at the 9 scatter calls of one train step saved
+in PATH (recorded and saved there first where PATH does not exist): per
+call and summed, its time with the host (CUDA events), the card's alone
+(torch.profiler), and index_add_'s. Run from an unpacked older commit
+(with this file copied there) on the same PATH, it compares two commits'
+kernels on one card and one input.
 """
 
 from __future__ import annotations
@@ -102,7 +121,9 @@ from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
 from tpu3dsad_torch import ops
 from tpu3dsad_torch.ops import sorted as sorted_bq
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
+from tpu3dsad_torch.ops.cuda import build
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.train_detector import build_detector
@@ -519,6 +540,173 @@ def profile_ball_query(card: str, work: Path) -> None:
     print(f"on {card}")
 
 
+def scatter_variants(p, c: int) -> dict:
+    """{label: plan}: plan() itself, then shapes that change one choice:
+    the warps a CTA, and for wide rows the channel slices."""
+    variants = {"plan()": p}
+    for w in (4, 8, 16, 32):
+        if w != p.warps:
+            variants[f"warps {w}"] = p._replace(warps=w)
+    for sl in (2, 3):
+        if c > 64 * sl and sl != p.slices:
+            variants[f"slices {sl}"] = p._replace(slices=sl)
+    return variants
+
+
+def device_ms(fn, calls: int = 10) -> dict:
+    """{kernel name: device ms a call} of fn() by torch.profiler: the
+    card's time without the host's."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split()[-1]
+            ms = e.device_time_total / calls / 1e3
+            times[name] = times.get(name, 0.0) + ms
+    return times
+
+
+def index_add(g, idx, n):
+    """The library call that computes the scatter: index_add_ into
+    zeros."""
+    b, u, c = g.shape
+    flat = (idx.long() + torch.arange(b, device=g.device)[:, None] * n
+            ).flatten()
+    rows = g.reshape(b * u, c)
+    return lambda: torch.zeros(b * n, c, device=g.device).index_add_(
+        0, flat, rows)
+
+
+def cta_skew(idx, n: int, span: int) -> str:
+    """The entries of a CTA's rows, span rows a CTA: their mean, and the
+    most of one CTA where it takes span rows in sequence and where it is
+    dealt them round robin (K = the least power of two >= n / span CTAs a
+    cloud), as the kernel deals them."""
+    b = idx.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    flat = (idx.long() + torch.arange(b, device=idx.device)[:, None] * n)[ok]
+    per_row = torch.bincount(flat, minlength=b * n).view(b, n)
+    ctas = 1
+    while span * ctas < n:
+        ctas *= 2
+    seq = torch.nn.functional.pad(per_row, (0, -n % span)).view(b, -1, span)
+    dealt = torch.nn.functional.pad(per_row, (0, -n % ctas)).view(b, -1, ctas)
+    mean = per_row.sum().item() / (b * ctas)
+    most_seq = seq.sum(-1).max().item()
+    most_dealt = dealt.sum(1).max().item()
+    return (f"entries a CTA: mean {mean:.0f}; the most, rows in sequence "
+            f"{most_seq} ({most_seq / mean:.1f}x), dealt round robin "
+            f"{most_dealt} ({most_dealt / mean:.1f}x)")
+
+
+def profile_scatter(card: str) -> None:
+    """Each scatter call of one train step on its recorded inputs at
+    plan() and each variant: bitwise np.add.at, then timed; plan()'s and
+    index_add_'s device time. Then SA2's shape with other indices: all of
+    U on 8 rows, uniform over the rows, each row's entries adjacent in u
+    (g read in order), and SA2's own indices with one channel (the scan
+    of idx and the lists without the bytes of g)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = [("step call", *args)
+             for args, _ in capture_train_step(gen)["scatter"]]
+    sa2_idx = calls[-1][2]
+    b, u, n = TRAIN_B, 32768, 2048
+
+    def normal(c):
+        return 8.0 * torch.randn(b, u, c, device="cuda", generator=gen)
+
+    for what, idx in (
+            ("all of U on 8 rows",
+             torch.randint(0, 8, (b, u), device="cuda", generator=gen)),
+            ("uniform", torch.randint(0, n, (b, u), device="cuda",
+                                      generator=gen)),
+            ("each row's entries adjacent",
+             (torch.arange(u, device="cuda") * n // u).expand(b, u))):
+        calls.append((what, normal(131), idx.int().contiguous(), n))
+    calls.append(("SA2's indices, one channel", normal(1), sa2_idx, n))
+    from chip_smoke import add_at, bits_differ, longest_row
+
+    per_call = []  # {label: ms} of each step call
+    for i, (what, g, idx, n) in enumerate(calls):
+        b, u, c = g.shape
+        p = cuda_scatter.plan(b, u, n, c, sms)
+        want = add_at(g, idx, n)
+        print(f"scatter [{b},{u},{c}] -> n={n}, {what}: longest row "
+              f"{longest_row(idx, n)}; plan() {p}")
+        print("  " + cta_skew(idx, n, cuda_scatter.ROWS * p.warps))
+        times = {}
+        for label, launch in scatter_variants(p, c).items():
+            got = cuda_scatter.scatter_rows(g, idx, n, launch)
+            if (at := bits_differ(got.cpu(), want)) is not None:
+                raise AssertionError(f"{label}: != np.add.at {at}")
+            ms = cuda_ms(lambda: cuda_scatter.scatter_rows(g, idx, n, launch),
+                         10)
+            times[label] = ms
+            print(f"  {label:10s} {str(launch):28s} {ms:8.3f} ms  "
+                  f"bitwise np.add.at")
+        ok = ((idx >= 0) & (idx < n)).flatten()
+        key = torch.where(ok, (idx.long() + torch.arange(
+            b, device="cuda")[:, None] * n).flatten(), b * n)
+        order = torch.argsort(key, stable=True)[:int(ok.sum())]
+        rows = g.reshape(b * u, c)
+        for label, fn in (
+                ("plan()", lambda: cuda_scatter.scatter_rows(g, idx, n)),
+                ("index_add_", index_add(g, idx, n)),
+                ("index_select of g's rows in row order",
+                 lambda: rows.index_select(0, order)),
+                ("g.clone()", g.clone)):
+            print(f"  {label}, device ms a call by kernel: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in device_ms(fn).items()))
+        ctas = build.library().tpu3dsad_scatter_occupancy(p.warps, p.slices,
+                                                          c)
+        print(f"  CTAs an SM at plan(): {ctas}")
+        if i < 9:
+            per_call.append(times)
+    print("summed over the step's 9 calls (a variant that does not apply to "
+          "a call counts its plan()):")
+    labels = {k for times in per_call for k in times}
+    sums = {k: sum(t.get(k, t["plan()"]) for t in per_call) for k in labels}
+    for label, ms in sorted(sums.items(), key=lambda kv: kv[1]):
+        print(f"  {label:10s} {ms:8.3f} ms")
+    print(f"on {card}")
+
+
+def profile_scatter_calls(card: str, path: Path) -> None:
+    """ops.scatter_rows, whichever kernel this package has, at the 9
+    scatter calls of one train step saved in `path` (recorded and saved
+    first where it does not exist): per call and summed, its time with the
+    host (CUDA events), the card's alone (torch.profiler), and
+    index_add_'s."""
+    if path.exists():
+        calls = [(g.cuda(), idx.cuda(), n) for g, idx, n in torch.load(path)]
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        calls = [args for args, _ in capture_train_step(gen)["scatter"]]
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save([(g.cpu(), idx.cpu(), n) for g, idx, n in calls], path)
+    keys = ("ms", "device ms", "index_add_ ms", "index_add_ device ms")
+    total = dict.fromkeys(keys, 0.0)
+    for g, idx, n in calls:
+        b, u, c = g.shape
+        run, lib = (lambda: ops.scatter_rows(g, idx, n)), index_add(g, idx, n)
+        got = dict(zip(keys, (cuda_ms(run, 20), sum(device_ms(run).values()),
+                              cuda_ms(lib, 20), sum(device_ms(lib).values()))))
+        for k in keys:
+            total[k] += got[k]
+        print(f"  [{b},{u},{c}] n={n}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in got.items()))
+    print("  summed over the 9 calls: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in total.items()))
+    print(f"on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -532,6 +720,14 @@ def main() -> None:
     mode.add_argument("--ball-query", action="store_true",
                       help="time the ball-query kernel per main-path call "
                            "and launch shape instead")
+    mode.add_argument("--scatter", action="store_true",
+                      help="time the scatter kernel per train-step call "
+                           "and launch shape instead")
+    mode.add_argument("--scatter-calls", type=Path, default=None,
+                      metavar="PATH",
+                      help="time ops.scatter_rows at the train step's "
+                           "scatter calls saved in PATH (saved first if "
+                           "absent) instead")
     ap.add_argument("--trace", type=Path, default=None)
     args = ap.parse_args()
     card = phase_device()
@@ -539,6 +735,10 @@ def main() -> None:
         profile_fps(card)
     elif args.ball_query:
         profile_ball_query(card, Path("build/profile/outdoor"))
+    elif args.scatter:
+        profile_scatter(card)
+    elif args.scatter_calls:
+        profile_scatter_calls(card, args.scatter_calls)
     elif args.train:
         profile_train(card, args.trace or Path("build/profile/train_trace.json"))
     elif args.eval:

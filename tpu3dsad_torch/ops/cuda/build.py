@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes; every one returns a cudaError_t as int
 _SIGNATURES = {
@@ -51,8 +52,12 @@ _SIGNATURES = {
                             _F, _F, _I, _I, _I, _P),
     # xyz, mask, centers, codes_x, codes_c, b, n, m, stream
     "tpu3dsad_morton_codes": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # g, idx, out, b, u, c, n, stream
-    "tpu3dsad_scatter_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # g, its batch and row strides (floats), idx, out, b, u, c, n, warps a
+    # CTA, channel slices, stream
+    "tpu3dsad_scatter_rows": (_P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P),
+    # warps a CTA, channel slices, c: CTAs an SM holds (-1: error)
+    "tpu3dsad_scatter_occupancy": (_I, _I, _I),
 }
 
 _lib: ctypes.CDLL | None = None
