@@ -83,7 +83,23 @@ Phases, in order; any failure raises and the script exits nonzero:
     0 <= mAP <= 1, the FPS caches written. Second sweep, with
     ops_fast_grouping=true ops_fast_mode=sorted: no B2 launch (cache
     hits), one sorted ball query per batch at SA1 beside 6 exact ones.
-    One batch rerun with the plain ops gives the same keep in both modes.
+    One batch rerun with the plain ops gives the same keep in both modes;
+10. host-fed training of config #3 from files: 64 train and 8 val
+    ScanNet-format scenes of 50000 points (data/synthetic_indoor.py, seed
+    0; the loader subsamples to 40960). Run A: run_detector with the
+    per-scene loader, host augmentation, colour features, 3 vote
+    candidates, batch 8, one epoch of 8 steps (Batcher, device_prefetch),
+    then the val sweep inside training: 5 / 7 / 9 launches a step and
+    5 / 7 an eval batch, finite losses and metrics, best.json and best/
+    written; the best snapshot restored into a fresh model and evaluated
+    again gives the logged metrics; a second run_detector resumes from
+    ckpt_8.pt and not from best/ (planted at another step). Run B: the
+    same root packed (pack_dataset), then data.name=packed with
+    augmentation on the card and compact votes: the same counts. One Run-A
+    batch through the kernel path and the plain path: the same loss and
+    bitwise the same gradients. Printed: each run's step median (steps
+    2-8) and the median wait on next(batches), the loader's and the
+    copy's ms a batch, the pack time, the sweep's ms and peak memory.
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -124,8 +140,9 @@ from tpu3dsad_torch.config import (
     TrainConfig,
     parse_cli,
 )
-from tpu3dsad_torch.data import get_dataset, kitti
+from tpu3dsad_torch.data import get_dataset, kitti, synthetic_indoor
 from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
+from tpu3dsad_torch.data.packed import pack_dataset
 from tpu3dsad_torch.data.synthetic_outdoor import write_dataset
 from tpu3dsad_torch.eval.ap import APCalculator
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
@@ -161,6 +178,10 @@ EVAL_SCENES, EVAL_RAW_N, EVAL_B, EVAL_N = 12, 122880, 8, 16384
 EVAL_ARGS = ["preset=outdoor", "data.device_preproc=true",
              f"train.batch_size={EVAL_B}"]
 SORTED_ARGS = ["ops_fast_grouping=true", "ops_fast_mode=sorted"]
+# config #3 from files: ScanNet-format scenes of 50000 raw points, which
+# the loader subsamples to 40960; 64 train scenes make one epoch of 8
+# steps, 8 val scenes one eval batch
+HOSTFED_TRAIN, HOSTFED_VAL, HOSTFED_RAW = 64, 8, 50000
 # NVIDIA's published H100 SXM peaks: HBM bytes/s, fp32 FLOP/s (no tensor
 # cores)
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -921,8 +942,10 @@ def phase_train(card: str, gen, nn_calls) -> dict:
               f"{h['seconds'] * 1e3:.3f} ms")
     warm = [h["seconds"] for h in result.history[1:]]
     med = statistics.median(warm)
+    wait = statistics.median(h["wait"] for h in result.history[1:])
     print(f"  median warm step {med * 1e3:.3f} ms = {TRAIN_B / med:.2f} "
-          f"scenes/s; first step {result.history[0]['seconds'] * 1e3:.3f} "
+          f"scenes/s (of it {wait * 1e3:.3f} ms in next(batches), which "
+          f"queues the batch's making on the card); first step {result.history[0]['seconds'] * 1e3:.3f} "
           f"ms; peak memory allocated {peak / 2**30:.3f} GiB on {card}")
 
     model = result.model
@@ -944,12 +967,18 @@ def phase_train(card: str, gen, nn_calls) -> dict:
 
     check_precision(nn_calls)
 
-    # one step from one state and batch, kernel path vs plain path, in
-    # fp32: every kernel on the path gives its plain version's bits (the
-    # scatter sums each row in index order, as index_put_ does on the
-    # card), so the loss and every gradient must be exactly equal
     batch = synthetic_detection_batch(gen, TRAIN_B, TRAIN_N, 18,
                                       vote_candidates=3)
+    kernel_vs_plain("one step", model, cfg, state, batch)
+    return {"counts": trained, "median_ms": med * 1e3, "peak_bytes": peak}
+
+
+def kernel_vs_plain(label: str, model, cfg, state, batch) -> None:
+    """One train step's forward + backward from `state` on `batch`, on the
+    kernel path and on the plain path, in fp32: every kernel on the path
+    gives its plain version's bits (the scatter sums each row in index
+    order, as index_put_ does on the card), so the loss and every gradient
+    must be exactly equal; 5 / 7 / 9 launches on the kernel path only."""
     bn_m = train_lib.bn_momentum_at(cfg.train, 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     reset_counts()
@@ -959,20 +988,19 @@ def phase_train(card: str, gen, nn_calls) -> dict:
         lp, gp = grads_of(model, cfg, state, batch, bn_m)
     if counts() != one_step or one_step != launches(fps=5, ball_query=7,
                                                     scatter=9):
-        raise AssertionError(f"launches {one_step} then {counts()}")
+        raise AssertionError(f"{label}: launches {one_step} then {counts()}")
     if not torch.equal(lk, lp):
-        raise AssertionError(f"loss: kernel path {lk.item()!r} vs plain "
-                             f"path {lp.item()!r}")
+        raise AssertionError(f"{label} loss: kernel path {lk.item()!r} vs "
+                             f"plain path {lp.item()!r}")
     most = 0.0
     for name, want in gp.items():
         if (at := bits_differ(gk[name], want)) is not None:
-            raise AssertionError(f"grad {name}: kernel path != plain path "
-                                 f"{at}")
+            raise AssertionError(f"{label} grad {name}: kernel path != "
+                                 f"plain path {at}")
         most = max(most, (gk[name] - want).abs().max().item())
-    print(f"  one step, kernel path vs plain path: loss {lk.item():.6f} "
+    print(f"  {label}, kernel path vs plain path: loss {lk.item():.6f} "
           f"equal; {len(gp)} gradients bitwise equal (max |kernel - plain| "
           f"{most!r})")
-    return {"counts": trained, "median_ms": med * 1e3, "peak_bytes": peak}
 
 
 def phase_fps_flat(gen, scene_call) -> dict:
@@ -1249,6 +1277,184 @@ def phase_eval(card: str, outdoor: dict) -> dict:
     return sweeps
 
 
+def hostfed_config(root: str, ckpt_dir: str, *extra: str) -> Config:
+    """Config #3 trained from files, through the CLI's own parser: the
+    default model and data (18 classes, 40960 points, 3 vote candidates),
+    batch 8, one epoch, the val sweep after it."""
+    return parse_cli([f"data.root={root}", f"train.ckpt_dir={ckpt_dir}",
+                      f"train.batch_size={TRAIN_B}", "train.num_epochs=1",
+                      "train.eval_every=1", "train.log_every=4", *extra])
+
+
+def host_batch_ms(dataset, count: int = 3) -> float:
+    """Median host ms of dataset.train_batch(rng, 8) over `count` calls."""
+    rng = np.random.default_rng(1)
+    times = []
+    for _ in range(count):
+        t0 = time.perf_counter()
+        dataset.train_batch(rng, TRAIN_B)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def copy_ms(batch: dict, count: int = 5) -> tuple[float, int]:
+    """(median ms by CUDA events, bytes) of copying one host batch from
+    pinned buffers to the card with non_blocking copies, as
+    device_prefetch does."""
+    pinned = [torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+              for v in batch.values()]
+    times = []
+    for _ in range(count):
+        _, ms = once_ms(lambda: [t.to("cuda", non_blocking=True)
+                                 for t in pinned])
+        times.append(ms)
+    return statistics.median(times), sum(t.nbytes for t in pinned)
+
+
+def run_hostfed(label: str, cfg, want: dict, card: str) -> dict:
+    """One run_detector of phase 10 with its counts from 0: the launches
+    must be `want`; one eval record, finite; best.json and best/ written.
+    Prints the step and wait medians (steps 2-8), the sweep and the peak
+    memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run_detector(cfg)
+    got = counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label} launches: {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+    losses = [h["loss"] for h in result.history]
+    if result.step != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: steps {result.step}, losses {losses}")
+    (ev,) = result.evals
+    thresholds = cfg.eval.ap_iou_threshs
+    if not (np.isfinite(ev["val_loss"]) and all(
+            0.0 <= ev[f"{k}@{t}"] <= 1.0 for t in thresholds
+            for k in ("mAP", "AR"))):
+        raise AssertionError(f"{label}: eval {ev}")
+    ckpt = Path(cfg.train.ckpt_dir)
+    best = json.loads((ckpt / "best.json").read_text())
+    if best != {"metric": ev[f"mAP@{thresholds[0]}"], "step": TRAIN_STEPS} or \
+            sorted(p.name for p in (ckpt / "best").iterdir()) != [
+                f"ckpt_{TRAIN_STEPS}.pt"]:
+        raise AssertionError(f"{label}: best.json {best}")
+    for h in result.history:
+        print(f"  {label} step {h['step']}: loss {h['loss']:.6f}  "
+              f"{h['seconds'] * 1e3:.3f} ms, of it waiting for the batch "
+              f"{h['wait'] * 1e3:.3f} ms")
+    warm = result.history[1:]
+    med = statistics.median(h["seconds"] for h in warm) * 1e3
+    wait = statistics.median(h["wait"] for h in warm) * 1e3
+    print(f"  {label}: median step {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} "
+          f"scenes/s, median wait on next(batches) {wait:.3f} ms; val sweep "
+          f"({HOSTFED_VAL} scenes, one batch) {ev['seconds'] * 1e3:.3f} ms, "
+          f"mAP@0.25 {ev['mAP@0.25']}, val_loss {ev['val_loss']}; peak "
+          f"memory allocated {peak / 2**30:.3f} GiB on {card}")
+    return {"result": result, "counts": got, "median_ms": med,
+            "wait_ms": wait, "eval_ms": ev["seconds"] * 1e3,
+            "peak_bytes": peak}
+
+
+def phase_hostfed(card: str) -> dict:
+    print(f"== host-fed training, config #3 from {HOSTFED_TRAIN} + "
+          f"{HOSTFED_VAL} ScanNet-format scenes of {HOSTFED_RAW} points, "
+          f"{TRAIN_B} x {TRAIN_N} points a batch, {TRAIN_STEPS} steps + one "
+          "val sweep, twice")
+    work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_scannet_"))
+    try:
+        return hostfed_runs(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def hostfed_runs(card: str, work: Path) -> dict:
+    root, packed = str(work / "scannet"), str(work / "packed")
+    t0 = time.perf_counter()
+    synthetic_indoor.write_dataset(root, scenes=HOSTFED_TRAIN,
+                                   val_scenes=HOSTFED_VAL,
+                                   num_points=HOSTFED_RAW, seed=0)
+    print(f"  wrote the scenes in {time.perf_counter() - t0:.3f} s")
+    want = launches(fps=5 * TRAIN_STEPS + 5, ball_query=7 * TRAIN_STEPS + 7,
+                    scatter=9 * TRAIN_STEPS)
+
+    # Run A: the per-scene loader, host augmentation, colour
+    cfg_a = hostfed_config(root, str(work / "ckpt_a"), "data.use_color=true")
+    dataset = get_dataset(cfg_a)
+    loader_a = host_batch_ms(dataset)
+    copy_a, bytes_a = copy_ms(dataset.train_batch(np.random.default_rng(2),
+                                                  TRAIN_B))
+    print(f"  run A loader: {loader_a:.3f} ms a batch on the host; copy "
+          f"{copy_a:.3f} ms a batch ({bytes_a / 2**20:.3f} MiB, "
+          f"{bytes_a / copy_a / 1e6:.3f} GB/s)")
+    a = run_hostfed("run A", cfg_a, want, card)
+    model = a["result"].model
+
+    # the best snapshot, restored into a fresh model, evaluates to the
+    # logged metrics (mAP, AR, per-class AP, val_loss); then, with another
+    # best planted, a second call resumes from the newest checkpoint and
+    # not from best/
+    logged = {k: v for k, v in a["result"].evals[0].items()
+              if k not in ("epoch", "step", "seconds")}
+    fresh = build_detector(cfg_a, dataset.mean_sizes)
+    step = train_lib.restore_checkpoint(cfg_a.train.ckpt_dir, fresh, None,
+                                        for_eval=True, use_best=True)
+    again = train_detector.evaluate(
+        cfg_a, fresh, dataset, train_lib.make_detector_eval_step(fresh, cfg_a),
+        lambda ep: eval_detector.parse_predictions(
+            ep, fresh.mean_sizes, cfg_a.model.num_heading_bins, cfg_a.eval))
+    if step != TRAIN_STEPS or again != logged:
+        raise AssertionError(f"use_best: step {step}, metrics {again} vs "
+                             f"logged {logged}")
+    optimizer = train_lib.make_optimizer(cfg_a.train, 1, fresh.parameters())
+    train_lib.save_best_checkpoint(cfg_a.train.ckpt_dir, fresh, optimizer,
+                                   999, 2.0)
+    resumed = run_detector(cfg_a)
+    state = model.state_dict()
+    if (resumed.start_step, resumed.step) != (TRAIN_STEPS, TRAIN_STEPS) or any(
+            not torch.equal(v, state[k])
+            for k, v in resumed.model.state_dict().items()):
+        raise AssertionError("the second call did not resume ckpt_8.pt")
+    print(f"  restore_checkpoint(use_best=True) gave step {step}, and "
+          f"evaluate() the logged metrics (mAP@0.25 {again['mAP@0.25']}, "
+          f"val_loss {again['val_loss']}); with a best planted at step 999 "
+          f"a second call resumed at step {resumed.start_step} with the "
+          "trained state")
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             dataset.train_batch(np.random.default_rng(3), TRAIN_B).items()}
+    kernel_vs_plain("one run-A batch (colour)", model, cfg_a, state, batch)
+    del model, fresh, resumed, state, batch
+    a.pop("result")
+
+    # Run B: the same root packed, augmentation on the card, compact votes
+    src = hostfed_config(root, str(work / "unused"), "data.use_color=true",
+                         "data.augment=false", "data.compact_votes=true")
+    t0 = time.perf_counter()
+    packed_counts = pack_dataset(get_dataset(src), packed)
+    pack_s = time.perf_counter() - t0
+    cfg_b = hostfed_config(packed, str(work / "ckpt_b"), "data.name=packed",
+                           "data.use_color=true", "data.device_augment=true",
+                           "data.compact_votes=true")
+    loader_b = host_batch_ms(get_dataset(cfg_b))
+    copy_b, bytes_b = copy_ms(get_dataset(cfg_b).train_batch(
+        np.random.default_rng(2), TRAIN_B))
+    print(f"  run B: packed {packed_counts} in {pack_s:.3f} s; loader "
+          f"{loader_b:.3f} ms a batch on the host; copy {copy_b:.3f} ms a "
+          f"batch ({bytes_b / 2**20:.3f} MiB, {bytes_b / copy_b / 1e6:.3f} "
+          "GB/s)")
+    b = run_hostfed("run B", cfg_b, want, card)
+    b.pop("result")
+    train_lib.apply_runtime_config(Config())
+    both = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    return {"counts": both, "a": {**a, "loader_ms": loader_a,
+                                  "copy_ms": copy_a, "copy_bytes": bytes_a},
+            "b": {**b, "loader_ms": loader_b, "copy_ms": copy_b,
+                  "copy_bytes": bytes_b, "pack_s": pack_s}}
+
+
 def main() -> None:
     card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1272,6 +1478,7 @@ def main() -> None:
         del eval_loads
         sorted_t = phase_sorted(gen, eval_calls, serve_sa1, train_sa1)
         evaluated = phase_eval(card, outdoor)
+        hostfed = phase_hostfed(card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -1281,14 +1488,16 @@ def main() -> None:
                              f"{jax_side}")
     paths = {"serve": served["counts"], "train": trained["counts"],
              "eval4": {**evaluated["exact"]["counts"],
-                       "sorted": evaluated["sorted"]["counts"]["sorted"]}}
+                       "sorted": evaluated["sorted"]["counts"]["sorted"]},
+             "hostfed": hostfed["counts"]}
 
     def entry(name, counter, source, replaces, times):
         for path, t in times["by_path"].items():
             t["launches"] = paths[path][counter]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": sum(c[counter] for c in paths.values()), **times}
+                "launches": sum(c[counter] for c in paths.values()),
+                "hostfed_launches": paths["hostfed"][counter], **times}
 
     kernels = [
         entry("fps", "fps", "tpu3dsad_torch/csrc/fps.cu",
@@ -1309,9 +1518,11 @@ def main() -> None:
           "config-#3 training step (8 x 40960) and one config-#4 eval batch "
           "(8 x 16384; fps_flat: one scene), each path's own under by_path;"
           f" launches: the {REQUESTS} served requests, the {TRAIN_STEPS} "
-          "training steps and one config-#4 sweep of "
+          "training steps, one config-#4 sweep of "
           f"{EVAL_SCENES} scenes (exact grouping; sorted_ball_query: the "
-          "sweep with ops_fast_mode=sorted)")
+          f"sweep with ops_fast_mode=sorted) and the 2 x {TRAIN_STEPS} "
+          "host-fed steps and 2 val batches of phase 10 (under "
+          "hostfed_launches)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -291,15 +291,28 @@ def test_run_eval_restores_a_port_checkpoint(scenes, tmp_path, capsys):
     assert out["val_loss"] != empty["val_loss"]  # the saved weights ran
 
 
-def test_unported_eval_options_raise(scenes, tmp_path):
-    cfg = parse_cli(TINY + [f"data.root={scenes}", "eval.use_best=true",
-                            f"train.ckpt_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="A7.6"):
-        eval_detector.run_eval(cfg, device="cpu")
-    model = tdet.build_detector(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7.6"):
-        train_lib.restore_checkpoint(str(tmp_path), model, None,
-                                     for_eval=True, use_best=True)
+def test_unported_eval_options_raise(scenes, tmp_path, capsys):
+    """eval.use_best, once refused (ROADMAP A7.6), now evaluates the
+    best-mAP snapshot under <ckpt_dir>/best and not the newest checkpoint;
+    with no snapshot there are no weights to restore, as in the reference
+    (tests/e2e/test_best_checkpoint.py)."""
+    cfg = parse_cli(TINY + [f"data.root={_copy(scenes, tmp_path / 'd')}",
+                            "eval.use_best=true",
+                            f"train.ckpt_dir={tmp_path / 'ckpt'}"])
+    ckpt = cfg.train.ckpt_dir
+    model = tdet.build_detector(cfg, tkitti.KITTI_MEAN_SIZES, device="cpu")
+    optim = train_lib.make_optimizer(cfg.train, 1, model.parameters())
+    train_lib.save_checkpoint(ckpt, model, optim, 7)
+    assert eval_detector.run_eval(cfg, device="cpu")["ckpt_step"] == 0
+    assert "no checkpoint found" in capsys.readouterr().err
+    assert train_lib.save_best_checkpoint(ckpt, model, optim, 5, 0.25)
+    train_lib.save_checkpoint(ckpt, model, optim, 9)
+    assert eval_detector.run_eval(cfg, device="cpu")["ckpt_step"] == 5
+    fresh = tdet.build_detector(cfg, device="cpu")
+    assert train_lib.restore_checkpoint(ckpt, fresh, None, for_eval=True,
+                                        use_best=True) == 5
+    assert train_lib.restore_checkpoint(ckpt, fresh, None,
+                                        for_eval=True) == 9
 
 
 def test_eval_entry_point_parses_the_command_line_and_defaults_to_the_card(

@@ -32,6 +32,7 @@ from tpu3dsad.utils import native
 from tpu3dsad_torch import ops
 from tpu3dsad_torch.data import host
 from tpu3dsad_torch.data import kitti as tkitti
+from tpu3dsad_torch.data import synthetic_indoor as tsi
 from tpu3dsad_torch.data import synthetic_outdoor as tso
 from tpu3dsad_torch.data.registry import get_dataset
 from tpu3dsad_torch.ops import sorted as tsorted
@@ -411,5 +412,12 @@ def test_kitti_unported_paths_raise(tmp_path):
                      device="cpu").train_batch(np.random.default_rng(0), 2)
     assert ok["points"].shape == (2, 1024, 3)
     assert ok["vote_targets"].shape == (2, 1024, 3, 3)
-    with pytest.raises(NotImplementedError, match="A7.2"):
+    # preset=scannet, refused until ROADMAP A7.2, loads ScanNet files
+    with pytest.raises(FileNotFoundError, match="data.root"):
         get_dataset(tconfig.parse_cli(["preset=scannet"]))
+    indoor = str(tmp_path / "indoor")
+    tsi.write_dataset(indoor, scenes=1, val_scenes=0, num_points=2000)
+    scannet = get_dataset(tconfig.parse_cli(
+        ["preset=scannet", f"data.root={indoor}", "data.num_points=1024"]))
+    assert scannet.train_batch(np.random.default_rng(0), 2)[
+        "vote_targets"].shape == (2, 1024, 3, 3)

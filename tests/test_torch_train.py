@@ -63,6 +63,8 @@ from tpu3dsad.ops.pallas.scatter import scatter_rows as pallas_scatter
 from tpu3dsad.ops.xla.interpolate import three_interpolate as j_interp
 from tpu3dsad_torch import losses as tlosses
 from tpu3dsad_torch import ops, train_lib
+from tpu3dsad_torch.data import augment as taug
+from tpu3dsad_torch.data import synthetic_indoor as tsi
 from tpu3dsad_torch.data import device_pipeline as tdp
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
 from tpu3dsad_torch.nn import MaskedBatchNorm
@@ -337,8 +339,8 @@ def test_augment_batch_matches_reference_on_the_same_draws(preset):
     """The port draws with torch, the reference with jax.random; fed the
     reference's own draws, the port transforms the batch identically."""
     aug = AUG_PRESETS[preset]
-    assert tdp.AUG_PRESETS == AUG_PRESETS
-    assert tdp.resolve_aug(to_port(DataConfig()), preset) == \
+    assert taug.AUG_PRESETS == AUG_PRESETS
+    assert taug.resolve_aug(to_port(DataConfig()), preset) == \
         resolve_aug(DataConfig(), preset)
     nb = detection_batch(np.random.default_rng(15), 3, 200, 4, 8,
                          vote_candidates=3)
@@ -729,20 +731,40 @@ def test_run_detector_on_cpu_trains_logs_checkpoints_and_resumes(
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(train=dict(eval_every=1)), "A7"),
-    (dict(data=dict(device_synth=False)), "A7"),
-    (dict(train=dict(steps_per_call=4)), "A7"),
+    (dict(train=dict(eval_every=1)), None),
+    (dict(data=dict(device_synth=False)), None),
+    (dict(train=dict(steps_per_call=4)), "A7.3"),
     (dict(train=dict(mesh_shape=(2,))), "A11"),
-    (dict(data=dict(name="scannet")), "A7"),
+    (dict(data=dict(name="scannet", use_color=True),
+          model=dict(num_classes=18)), None),
 ], ids=["evaluate", "host_fed", "steps_per_call", "mesh", "dataset"])
 def test_run_detector_refuses_unported_paths(tmp_path, change, match):
-    cfg = _run_cfg(tmp_path)
+    """k-step blocks and a mesh are refused before any work. The paths
+    ROADMAP A7.2 / A7.6 ported, refused before, run: evaluating within the
+    run (the synthetic dataset's host val batches), host-fed batches
+    (Batcher and device_prefetch) and a dataset read from files."""
+    ckpt = tmp_path / "ckpt"
+    cfg = _run_cfg(ckpt)
+    if change.get("data", {}).get("name") == "scannet":
+        tsi.write_dataset(str(tmp_path / "scenes"), scenes=8, val_scenes=2,
+                          num_points=600)
+        change["data"]["root"] = str(tmp_path / "scenes")
     cfg = dataclasses.replace(cfg, **{
         sec: dataclasses.replace(getattr(cfg, sec), **kw)
         for sec, kw in change.items()})
-    with pytest.raises(NotImplementedError, match=match):
-        run_detector(cfg, device="cpu")
-    assert not list(tmp_path.iterdir())  # refused before any work
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            run_detector(cfg, device="cpu")
+        assert not ckpt.exists()  # refused before any work
+        return
+    result = run_detector(cfg, device="cpu")
+    assert result.step == (1 if cfg.data.name == "scannet" else 8)
+    assert np.isfinite([h["loss"] for h in result.history]).all()
+    assert (ckpt / f"ckpt_{result.step}.pt").exists()
+    if cfg.train.eval_every == 1:
+        (m,) = result.evals
+        assert 0.0 <= m["mAP@0.25"] <= 1.0 and np.isfinite(m["val_loss"])
+        assert (ckpt / "best.json").exists()
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -765,6 +787,11 @@ def test_training_modules_import_without_jax():
         "import tpu3dsad_torch.train_detector, tpu3dsad_torch.train_lib\n"
         "import tpu3dsad_torch.losses, tpu3dsad_torch.data\n"
         "import tpu3dsad_torch.data.device_pipeline\n"
+        "import tpu3dsad_torch.data.scannet, tpu3dsad_torch.data.sunrgbd\n"
+        "import tpu3dsad_torch.data.packed, tpu3dsad_torch.data.validate\n"
+        "import tpu3dsad_torch.data.synthetic_indoor\n"
+        "import tpu3dsad_torch.data.synthetic_sunrgbd\n"
+        "import tpu3dsad_torch.data.augment, tpu3dsad_torch.data.synthetic\n"
         "import tpu3dsad_torch.utils.metrics, tpu3dsad_torch.ops\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'tpu3dsad')]\n"

@@ -56,11 +56,14 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    name: str = "scannet"  # 'synthetic' and 'kitti' are ported (ROADMAP A7)
+    # 'synthetic' | 'scannet' | 'sunrgbd' | 'kitti' | 'packed' (data/packed.py);
+    # 'modelnet' waits for ROADMAP A8
+    name: str = "scannet"
     root: str = ""
     num_points: int = 40960
     max_boxes: int = 64
     augment: bool = True
+    use_color: bool = False  # rgb as 3 point features (in_features=3)
     # large-cloud preprocessing FPS (KITTI crop -> budget) on the card (B2)
     device_preproc: bool = False
     device_augment: bool = False  # flip/rot/scale inside the train step
@@ -89,12 +92,12 @@ class TrainConfig:
     bn_momentum_max: float = 0.999  # cap on flax's running-average weight
     bn_decay_epochs: int = 20
     grad_clip: float = 0.0  # global-norm clip, 0 = off
-    steps_per_call: int = 1  # only 1 is ported (ROADMAP A7)
+    steps_per_call: int = 1  # only 1 is ported (ROADMAP A7.3)
     seed: int = 0
     ckpt_dir: str = "./ckpt"
     ckpt_every: int = 1  # epochs; the last epoch always saves
     log_every: int = 10  # steps
-    eval_every: int = 10  # epochs; evaluating in training waits (A7.2)
+    eval_every: int = 10  # epochs; then the val sweep and the best mAP
     mesh_shape: tuple[int, ...] = (-1,)  # one device only (ROADMAP A11)
     # TF32 for the MLP products on the card; distances stay fp32
     # (train_lib.apply_runtime_config)
@@ -111,7 +114,7 @@ class EvalConfig:
     use_oriented_nms: bool = False  # not ported (ROADMAP A5b)
     per_class_proposal: bool = True
     conf_thresh: float = 0.05
-    # the best-mAP snapshot is not written yet (ROADMAP A7.6)
+    # evaluate <ckpt_dir>/best, the best-mAP snapshot training keeps
     use_best: bool = False
 
 

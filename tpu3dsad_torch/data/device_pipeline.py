@@ -2,7 +2,7 @@
 augmentation, vote targets and synthetic scenes, as tensor programs.
 
 * `augment_batch` flips, rotates and scales a padded detection batch per
-  scene. Vote targets and GT boxes are offsets and poses that transform
+  scene, by the recipe of augment.resolve_aug. Vote targets and GT boxes are offsets and poses that transform
   linearly, so transforming them directly equals recomputing the votes
   after augmenting (ownership is invariant under a rigid transform and a
   uniform scale).
@@ -25,35 +25,6 @@ import torch
 
 from tpu3dsad_torch.config import class_mean_sizes
 from tpu3dsad_torch.ops.boxes import mod
-
-# lineage augmentation recipes (tpu3dsad/data/augment.py:25-32)
-AUG_PRESETS = {
-    "scannet": dict(flip_x=True, flip_y=True, rot_range=np.pi / 36,
-                    scale_range=None),
-    "sunrgbd": dict(flip_x=True, flip_y=False, rot_range=np.pi / 6,
-                    scale_range=(0.85, 1.15)),
-    "kitti": dict(flip_x=False, flip_y=True, rot_range=np.pi / 4,
-                  scale_range=(0.95, 1.05)),
-}
-
-
-def resolve_aug(data_cfg, dataset_name: str) -> dict:
-    """Effective augmentation parameters: 'auto' takes the dataset's
-    recipe, a preset name forces that recipe, 'custom' the aug_* fields."""
-    preset = data_cfg.aug_preset
-    if preset == "custom":
-        scale = (None
-                 if data_cfg.aug_scale_min == data_cfg.aug_scale_max == 1.0
-                 else (data_cfg.aug_scale_min, data_cfg.aug_scale_max))
-        return dict(flip_x=data_cfg.aug_flip_x, flip_y=data_cfg.aug_flip_y,
-                    rot_range=data_cfg.aug_rot_range, scale_range=scale)
-    if preset == "auto":
-        return AUG_PRESETS.get(dataset_name, AUG_PRESETS["scannet"])
-    if preset in AUG_PRESETS:
-        return AUG_PRESETS[preset]
-    raise ValueError(
-        f"data.aug_preset={preset!r}: expected 'auto', 'custom', or one of "
-        f"{sorted(AUG_PRESETS)}")
 
 
 def _uniform(generator, shape, lo, hi, device):

@@ -23,8 +23,9 @@ from tpu3dsad_torch.train_detector import build_detector, evaluate
 
 def run_eval(cfg, *, device="cuda") -> dict:
     """Evaluate the newest checkpoint under cfg.train.ckpt_dir (one written
-    by train_lib.save_checkpoint) on the val split of cfg.data; random
-    weights, with a warning on stderr, where there is none."""
+    by train_lib.save_checkpoint), or with eval.use_best the best-mAP
+    snapshot training kept, on the val split of cfg.data; random weights,
+    with a warning on stderr, where there is none."""
     train_lib.apply_runtime_config(cfg)
     dataset = get_dataset(cfg, device=device)
     model = build_detector(cfg, dataset.mean_sizes, device=device)

@@ -1,19 +1,19 @@
 """Detector training loop and val sweep (tpu3dsad/train_detector.py:
 run_detector, evaluate).
 
-run_detector: one train step per batch on one device; synthetic batches
-made on the card (`data.name=synthetic`, `data.device_synth=true`); JSON
-log lines at the `log_every` steps and at each epoch's end; checkpoints
-with auto-resume.
+run_detector: one train step per batch on one device. The batches come
+from the dataset's host loader (`train_batch`, on a Batcher thread, then
+`device_prefetch` to the card), or, for data.name=synthetic with
+data.device_synth=true, are made on the card. JSON log lines at the
+`log_every` steps and at each epoch's end; checkpoints with auto-resume;
+every `eval_every` epochs the val sweep, its metrics logged under eval/,
+and the best-mAP snapshot kept (train_lib.save_best_checkpoint).
 
-evaluate: the val sweep of a dataset with host val batches (KITTI,
-config #4) -> AP table, on one device.
+evaluate: the val sweep of a dataset's host val batches -> AP table, on
+one device.
 
 Not ported yet, and refused with NotImplementedError before any step:
-evaluating inside training (the synthetic dataset's host val batches,
-ROADMAP A7.2), host-fed training batches (Batcher, device_prefetch,
-ROADMAP A7.2 / A7.5), `steps_per_call > 1` (ROADMAP A7.3), and a device
-mesh (ROADMAP A11).
+`steps_per_call > 1` (ROADMAP A7.3) and a device mesh (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -21,16 +21,21 @@ from __future__ import annotations
 import json
 import sys
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from tpu3dsad_torch import train_lib
-from tpu3dsad_torch.data import get_dataset
+from tpu3dsad_torch.data import Batcher, get_dataset
 from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
+from tpu3dsad_torch.data.packed import device_prefetch
 from tpu3dsad_torch.eval.ap import APCalculator
-from tpu3dsad_torch.eval.parse import parse_groundtruths, predictions_to_lists
+from tpu3dsad_torch.eval.parse import (
+    parse_groundtruths,
+    parse_predictions,
+    predictions_to_lists,
+)
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
 from tpu3dsad_torch.utils.metrics import MetricsLogger
 
@@ -38,21 +43,26 @@ from tpu3dsad_torch.utils.metrics import MetricsLogger
 @dataclass
 class TrainResult:
     """What run_detector leaves: the trained model and optimizer, the step
-    it resumed from and the one it reached, and one record per step run
-    ({"step", "loss", "seconds"}: host wall time of the step, which ends
-    by reading its loss)."""
+    it resumed from and the one it reached, one record per step run
+    ({"step", "loss", "seconds", "wait"}: host wall time of the step,
+    which ends by reading its loss, and of it the time spent waiting for
+    the batch), and one per val sweep ({"epoch", "step", "seconds"} and
+    evaluate's metrics)."""
 
     model: SizeAdaptiveDetector
     optimizer: train_lib.Optimizer
     start_step: int
     step: int
     history: list = field(default_factory=list)
+    evals: list = field(default_factory=list)
 
 
 def build_detector(cfg, mean_sizes=None, *, device="cuda"):
-    """The detector of cfg.model, weights drawn from cfg.train.seed."""
+    """The detector of cfg.model, weights drawn from cfg.train.seed; with
+    data.use_color it takes the 3 colour channels as point features."""
     return SizeAdaptiveDetector(
-        cfg.model, mean_sizes, device=device,
+        cfg.model, mean_sizes, in_features=3 if cfg.data.use_color else 0,
+        device=device,
         generator=torch.Generator().manual_seed(cfg.train.seed))
 
 
@@ -61,27 +71,28 @@ def _refuse_unported(cfg, k: int) -> None:
         raise NotImplementedError(
             f"train.mesh_shape={cfg.train.mesh_shape}: training on a device "
             "mesh is not ported yet (ROADMAP A11)")
-    if not cfg.data.device_synth:
-        raise NotImplementedError(
-            "host-fed batches (Batcher, device_prefetch) are not ported yet "
-            "(ROADMAP A7.2, A7.5); set data.device_synth=true")
     if k > 1:
         raise NotImplementedError(
             f"train.steps_per_call={cfg.train.steps_per_call}: fused k-step "
             "blocks are not ported yet (ROADMAP A7.3)")
-    if cfg.train.eval_every <= cfg.train.num_epochs:
-        raise NotImplementedError(
-            f"train.eval_every={cfg.train.eval_every} would evaluate within "
-            f"{cfg.train.num_epochs} epochs: the synthetic dataset's host val "
-            "batches are not ported yet (ROADMAP A7.2); set eval_every above "
-            "num_epochs")
 
 
 def run_detector(cfg, *, device="cuda") -> TrainResult:
     """Train the detector of `cfg` (a Config) on `device`, the card unless
     the caller asks for the CPU; resume from cfg.train.ckpt_dir if it holds
     a checkpoint."""
-    dataset = get_dataset(cfg)
+    if (cfg.data.name == "packed" and cfg.data.augment
+            and not cfg.data.device_augment):
+        raise ValueError(
+            "packed scenes are canonical (packed with augment off): training "
+            "with data.augment=true requires data.device_augment=true (the "
+            "flip/rot/scale in the train step) — or set data.augment=false "
+            "deliberately")
+    # with device_augment the host loads canonical scenes and the train
+    # step augments them on the card
+    data_cfg = (replace(cfg, data=replace(cfg.data, augment=False))
+                if cfg.data.device_augment else cfg)
+    dataset = get_dataset(data_cfg, device=device)
     bs = cfg.train.batch_size
     steps_per_epoch, k = train_lib.round_steps_per_epoch(
         dataset.steps_per_epoch(bs), cfg.train.steps_per_call)
@@ -102,42 +113,100 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
     if warning:
         print(warning, file=sys.stderr)
 
-    train_step = train_lib.make_detector_steps(model, optimizer, cfg)
-    data_gen = torch.Generator(device=device).manual_seed(
-        cfg.train.seed + 1234)
-    step_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
+    train_step = train_lib.make_detector_steps(
+        model, optimizer, cfg,
+        aug_dataset=getattr(dataset, "source_dataset", None))
+    eval_step = train_lib.make_detector_eval_step(model, cfg)
 
-    def next_batch():
-        return synthetic_detection_batch(
-            data_gen, bs, cfg.data.num_points, cfg.model.num_classes,
-            cfg.data.max_boxes, vote_candidates=cfg.data.vote_candidates)
+    def parse(end_points):
+        return parse_predictions(end_points, model.mean_sizes,
+                                 cfg.model.num_heading_bins, cfg.eval)
+
+    step_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
+    batcher = None
+    if cfg.data.device_synth and cfg.data.name == "synthetic":
+        data_gen = torch.Generator(device=device).manual_seed(
+            cfg.train.seed + 1234)
+
+        def make_batch():
+            return synthetic_detection_batch(
+                data_gen, bs, cfg.data.num_points, cfg.model.num_classes,
+                cfg.data.max_boxes, vote_candidates=cfg.data.vote_candidates)
+
+        batches = iter(make_batch, None)
+    else:
+        # host batches made ahead on a thread, copied ahead to the device
+        batcher = Batcher(lambda rng: dataset.train_batch(rng, bs),
+                          seed=cfg.train.seed, prefetch=2)
+        batches = device_prefetch(batcher, device)
 
     logger = MetricsLogger()
     result = TrainResult(model, optimizer, start_step, start_step)
-    for epoch in range(start_step // steps_per_epoch, cfg.train.num_epochs):
-        bn_m = train_lib.bn_momentum_at(cfg.train, epoch)
-        t0 = time.perf_counter()
-        for _ in range(steps_per_epoch):
-            t_step = time.perf_counter()
-            metrics = train_step(next_batch(), step_gen, bn_m)
-            loss = float(metrics["loss"])  # waits for the step's kernels
-            result.step += 1
-            result.history.append({"step": result.step, "loss": loss,
-                                   "seconds": time.perf_counter() - t_step})
-            if result.step % cfg.train.log_every == 0:
-                logger.log(result.step, {
-                    "epoch": epoch,
-                    **{n: round(float(v), 4) for n, v in metrics.items()}},
-                    prefix="train/")
-        dt = time.perf_counter() - t0
-        print(json.dumps({"epoch": epoch, "epoch_time_s": round(dt, 2),
-                          "scenes_per_sec": round(steps_per_epoch * bs / dt,
-                                                  2)}), flush=True)
-        if ((epoch + 1) % max(1, cfg.train.ckpt_every) == 0
-                or epoch == cfg.train.num_epochs - 1):
-            train_lib.save_checkpoint(cfg.train.ckpt_dir, model, optimizer,
-                                      result.step)
+    try:
+        for epoch in range(start_step // steps_per_epoch,
+                           cfg.train.num_epochs):
+            _train_epoch(cfg, epoch, steps_per_epoch, batches, train_step,
+                         step_gen, logger, result)
+            if (epoch + 1) % cfg.train.eval_every == 0:
+                _evaluate_and_keep_best(cfg, epoch, dataset, eval_step,
+                                        parse, logger, result)
+    finally:
+        if batcher is not None:
+            batches.close()
+            batcher.close()
     return result
+
+
+def _train_epoch(cfg, epoch, steps_per_epoch, batches, train_step, step_gen,
+                 logger, result) -> None:
+    """One epoch of train steps, then its log line and checkpoint."""
+    bs = cfg.train.batch_size
+    bn_m = train_lib.bn_momentum_at(cfg.train, epoch)
+    t0 = time.perf_counter()
+    for _ in range(steps_per_epoch):
+        t_step = time.perf_counter()
+        batch = next(batches)
+        wait = time.perf_counter() - t_step
+        metrics = train_step(batch, step_gen, bn_m)
+        loss = float(metrics["loss"])  # waits for the step's kernels
+        result.step += 1
+        result.history.append({"step": result.step, "loss": loss,
+                               "seconds": time.perf_counter() - t_step,
+                               "wait": wait})
+        if result.step % cfg.train.log_every == 0:
+            logger.log(result.step, {
+                "epoch": epoch,
+                **{n: round(float(v), 4) for n, v in metrics.items()}},
+                prefix="train/")
+    dt = time.perf_counter() - t0
+    print(json.dumps({"epoch": epoch, "epoch_time_s": round(dt, 2),
+                      "scenes_per_sec": round(steps_per_epoch * bs / dt, 2)}),
+          flush=True)
+    if ((epoch + 1) % max(1, cfg.train.ckpt_every) == 0
+            or epoch == cfg.train.num_epochs - 1):
+        train_lib.save_checkpoint(cfg.train.ckpt_dir, result.model,
+                                  result.optimizer, result.step)
+
+
+def _evaluate_and_keep_best(cfg, epoch, dataset, eval_step, parse, logger,
+                            result) -> None:
+    """The val sweep: flat metrics logged under eval/, the per-class APs
+    printed, and the model kept as the best snapshot where the first AP
+    threshold's mAP improves."""
+    t0 = time.perf_counter()
+    m = evaluate(cfg, result.model, dataset, eval_step, parse)
+    result.evals.append({"epoch": epoch, "step": result.step,
+                         "seconds": time.perf_counter() - t0, **m})
+    flat = {k: v for k, v in m.items() if isinstance(v, (int, float))}
+    logger.log(result.step, {"epoch": epoch, **flat}, prefix="eval/")
+    per_cls = {k: v for k, v in m.items() if isinstance(v, dict)}
+    if per_cls:
+        print(json.dumps({"epoch": epoch, **per_cls}), flush=True)
+    lead = m.get(f"mAP@{cfg.eval.ap_iou_threshs[0]}")
+    if lead is not None and train_lib.save_best_checkpoint(
+            cfg.train.ckpt_dir, result.model, result.optimizer, result.step,
+            lead):
+        print(json.dumps({"epoch": epoch, "new_best_mAP": lead}), flush=True)
 
 
 def evaluate(cfg, model, dataset, eval_step, parse, num_batches=None):

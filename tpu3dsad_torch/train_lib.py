@@ -21,10 +21,10 @@ import numpy as np
 import torch
 
 from tpu3dsad_torch import ops
+from tpu3dsad_torch.data.augment import resolve_aug
 from tpu3dsad_torch.data.device_pipeline import (
     augment_batch,
     decode_compact_votes,
-    resolve_aug,
 )
 from tpu3dsad_torch.losses import detection_loss
 
@@ -159,15 +159,19 @@ def detector_loss(model, cfg, batch: dict, bn_momentum: float):
         far=cfg.model.assign_far, center_norm=cfg.model.center_loss_norm)
 
 
-def make_detector_steps(model, optimizer: Optimizer, cfg):
+def make_detector_steps(model, optimizer: Optimizer, cfg,
+                        aug_dataset: str | None = None):
     """The detector's train step, closed over the model, the optimizer and
     the config: step(batch, generator, bn_momentum) -> metrics (detached
     0-d tensors). It decodes compact votes, augments on the card when
-    data.device_augment and data.augment are set (draws from `generator`),
-    runs forward, loss and backward in train mode, and updates the
-    parameters and the BN running averages in place."""
+    data.device_augment and data.augment are set (draws from `generator`;
+    the recipe of `aug_dataset`, which defaults to cfg.data.name: a packed
+    split passes its source dataset), runs forward, loss and backward in
+    train mode, and updates the parameters and the BN running averages in
+    place."""
     device_aug = cfg.data.device_augment and cfg.data.augment
-    aug = resolve_aug(cfg.data, cfg.data.name) if device_aug else None
+    aug = (resolve_aug(cfg.data, aug_dataset or cfg.data.name)
+           if device_aug else None)
 
     def step(batch: dict, generator, bn_momentum: float) -> dict:
         batch = decode_compact_votes(batch, cfg.data.vote_candidates)
@@ -232,19 +236,33 @@ def save_checkpoint(ckpt_dir: str, model, optimizer: Optimizer, step: int,
     return target
 
 
+def save_best_checkpoint(ckpt_dir: str, model, optimizer: Optimizer,
+                         step: int, metric: float) -> bool:
+    """Keep the best-metric snapshot beside the newest checkpoints: where
+    `metric` (higher is better, the eval mAP) beats the one recorded in
+    <ckpt_dir>/best.json, write <ckpt_dir>/best/ckpt_<step>.pt (only that
+    one) and record {"metric", "step"}. Returns whether it wrote."""
+    path = Path(ckpt_dir).absolute()
+    record = path / "best.json"
+    best = (json.loads(record.read_text())["metric"] if record.exists()
+            else -float("inf"))
+    if metric <= best:
+        return False
+    save_checkpoint(str(path / "best"), model, optimizer, step, keep=1)
+    record.write_text(json.dumps({"metric": float(metric), "step": int(step)}))
+    return True
+
+
 def restore_checkpoint(ckpt_dir: str, model, optimizer: Optimizer | None,
                        *, for_eval: bool = False,
                        use_best: bool = False) -> int:
     """Load the newest checkpoint under ckpt_dir into the model and the
-    optimizer (auto-resume); returns its step, or 0 if there is none.
-    for_eval=True loads the model alone: evaluation needs no optimizer.
-    use_best (the best-mAP snapshot) is not ported: training does not
-    write that snapshot yet."""
-    if use_best:
-        raise NotImplementedError(
-            "eval.use_best: the best-mAP snapshot is not written by the "
-            "port's training yet (ROADMAP A7.6)")
-    ckpts = _checkpoints(Path(ckpt_dir).absolute())
+    optimizer (auto-resume, which never reads the best snapshot under
+    best/); returns its step, or 0 if there is none. use_best=True loads
+    the best-mAP snapshot (save_best_checkpoint) instead. for_eval=True
+    loads the model alone: evaluation needs no optimizer."""
+    path = Path(ckpt_dir).absolute()
+    ckpts = _checkpoints(path / "best" if use_best else path)
     if not ckpts:
         return 0
     device = next(model.parameters()).device
