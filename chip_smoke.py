@@ -99,7 +99,29 @@ Phases, in order; any failure raises and the script exits nonzero:
     batch through the kernel path and the plain path: the same loss and
     bitwise the same gradients. Printed: each run's step median (steps
     2-8) and the median wait on next(batches), the loader's and the
-    copy's ms a batch, the pack time, the sweep's ms and peak memory.
+    copy's ms a batch, the pack time, the sweep's ms and peak memory;
+11. config #4 training from files: 16 train and 4 val KITTI-format scenes
+    of 122880 points (data/synthetic_outdoor.py, seed 1). Run A:
+    run_detector at preset=outdoor with B2 in the loader
+    (data.device_preproc) and host augmentation, batch 8, 4 epochs of 2
+    steps, the val sweep after the last: B2 once per scene whose FPS cache
+    it writes, 5 / 7 / 9 launches a step and 5 / 7 a sweep batch (the
+    counts of a CPU trace of the same step), finite losses and metrics,
+    parameters and BN statistics moved; every scene then cached, a second
+    call resumes at step 8 with no launch. Run B: the same root with
+    compact votes, density-biased proposal sampling and oriented NMS: no
+    B2, the same counts; its first host batch decoded on the card is
+    bitwise run A's (points, vote targets and mask); oriented_bev_iou on
+    the card on its sweep's decoded corners within 1e-4 of the host
+    evaluator (4096 pairs, float64 corners). Then the kernel inputs of one step with FPS
+    sampling and one with density sampling, recorded: B1 and B3 equal to
+    plain in 3 launches each, B5 bitwise np.add.at (the FPS step's timed,
+    path train4); one step each with FPS sampling, density sampling and
+    the lineage head (5 / 5 / 7 launches) on the kernel and the plain path:
+    the same loss and bitwise the same gradients; B2 on a loader scene
+    against plain. Printed: each run's step median (steps 2-8), the
+    median wait, B2's ms a scene in the loader, the loader's ms a batch
+    with augmentation, the sweep's ms and peak memory.
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -111,8 +133,9 @@ over repeated launches; bound_ms is the least time the card could take for
 the same work at NVIDIA's published H100 SXM peaks (3.35 TB/s; 67 TFLOP/s
 fp32 outside the tensor cores). The line before the last is a JSON summary
 of the kernels: times summed over one request, one training step, one
-config-#4 eval batch (one scene for B2), and each path's own under
-by_path; the last line names the device.
+config-#4 eval batch (one scene for B2) and one config-#4 train step
+(train4; B2: one loader scene), and each path's own under by_path; the
+last line names the device.
 """
 
 from __future__ import annotations
@@ -141,12 +164,16 @@ from tpu3dsad_torch.config import (
     parse_cli,
 )
 from tpu3dsad_torch.data import get_dataset, kitti, synthetic_indoor
-from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
+from tpu3dsad_torch.data.device_pipeline import (
+    decode_compact_votes,
+    synthetic_detection_batch,
+)
 from tpu3dsad_torch.data.packed import pack_dataset
 from tpu3dsad_torch.data.synthetic_outdoor import write_dataset
-from tpu3dsad_torch.eval.ap import APCalculator
+from tpu3dsad_torch.eval.ap import APCalculator, box3d_iou_oriented
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
 from tpu3dsad_torch.ops import sorted as sorted_bq
+from tpu3dsad_torch.ops.boxes import oriented_bev_iou
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import build
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
@@ -182,6 +209,22 @@ SORTED_ARGS = ["ops_fast_grouping=true", "ops_fast_mode=sorted"]
 # the loader subsamples to 40960; 64 train scenes make one epoch of 8
 # steps, 8 val scenes one eval batch
 HOSTFED_TRAIN, HOSTFED_VAL, HOSTFED_RAW = 64, 8, 50000
+# config #4 training from files: KITTI-format scenes of 122880 raw points
+# (seed 1), cropped and sampled to 16384 by B2 in the loader; 16 train
+# scenes make 2 steps of 8 an epoch, 4 epochs; 4 val scenes one sweep
+# batch, half padding
+OUT_TRAIN, OUT_VAL, OUT_EPOCHS = 16, 4, 4
+OUT_STEPS = OUT_TRAIN // TRAIN_B * OUT_EPOCHS
+OUT_ARGS = ["preset=outdoor", "data.device_preproc=true", "data.augment=true",
+            f"train.batch_size={TRAIN_B}", f"train.num_epochs={OUT_EPOCHS}",
+            f"train.eval_every={OUT_EPOCHS}", "train.log_every=4"]
+# B1 / B3 / B5 launches of one outdoor train step, as a CPU trace of the
+# same step counts them (tests/test_torch_outdoor_train.py)
+STEP4 = {"fps": dict(fps=5, ball_query=7, scatter=9),
+         "density": dict(fps=5, ball_query=7, scatter=9),
+         "lineage": dict(fps=5, ball_query=5, scatter=7)}
+STEP4_ARGS = {"fps": [], "density": ["model.proposal_sampling=density"],
+              "lineage": ["model.proposal_mode=lineage"]}
 # NVIDIA's published H100 SXM peaks: HBM bytes/s, fp32 FLOP/s (no tensor
 # cores)
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -473,21 +516,7 @@ def phase_fps(gen, train_calls, eval_calls) -> dict:
               for path, calls in (("train", train_calls), ("eval4", eval_calls))
               for name, (args, kw) in zip(names, calls["fps"])]
     for path, name, xyz, m, mask in cases:
-        b, n = xyz.shape[:2]
-        got = cuda_fps.furthest_point_sample(xyz, m, mask=mask)
-        used = cuda_fps.last_plan
-        require_equal(f"fps {path} {name}", got,
-                      plain_fps(xyz, m, mask=mask))
-        k = cuda_ms(lambda: cuda_fps.furthest_point_sample(xyz, m, mask=mask),
-                    10)
-        p = cuda_ms(lambda: plain_fps(xyz, m, mask=mask), 2)
-        # each of the m - 1 rounds: 3 sub, 3 mul, 2 add, min, compare per
-        # point; xyz (and mask) read once, idx written once
-        bound = tally.add(path, b * n * (12 + (mask is not None)) + b * m * 4,
-                          10.0 * b * n * (m - 1), k, p)
-        print(f"  {path} {name:9s} [{b},{n}]->{m}: kernel {k:.3f} ms "
-              f"({k * 1e3 / (m - 1):.3f} us/round; {plan_text(used)})  plain "
-              f"{p:.3f} ms  bound {bound:.3f} ms  equal")
+        fps_case(tally, path, name, xyz, m, mask)
     Plan = cuda_fps.Plan
     # masked tail, an all-masked cloud, exact distance ties on a grid (in
     # place, and a grid repeated along N so that ties straddle the slices of
@@ -527,7 +556,32 @@ def phase_fps(gen, train_calls, eval_calls) -> dict:
         k = cuda_ms(lambda: cuda_fps.fps_batched(x, m, mk, plans), 3)
         print(f"  {label} [{x.shape[0]},{x.shape[1]}]->{m}: equal; {k:.3f} "
               f"ms ({k * 1e3 / (m - 1):.3f} us/round; {plan_text(used)})")
-    return tally.summary()
+    return tally
+
+
+def fps_case(tally, path, name, xyz, m, mask, compares=1) -> None:
+    """One recorded B1 call: `compares` launches, each exactly the plain
+    version's picks; then, where a tally is given, timed against the plain
+    version and added to it under `path`."""
+    b, n = xyz.shape[:2]
+    want = plain_fps(xyz, m, mask=mask)
+    for _ in range(compares):
+        got = cuda_fps.furthest_point_sample(xyz, m, mask=mask)
+        require_equal(f"fps {path} {name}", got, want)
+    used = cuda_fps.last_plan
+    if tally is None:
+        print(f"  {path} {name:9s} [{b},{n}]->{m}: equal in {compares} "
+              f"launches ({plan_text(used)})")
+        return
+    k = cuda_ms(lambda: cuda_fps.furthest_point_sample(xyz, m, mask=mask), 10)
+    p = cuda_ms(lambda: plain_fps(xyz, m, mask=mask), 2)
+    # each of the m - 1 rounds: 3 sub, 3 mul, 2 add, min, compare per
+    # point; xyz (and mask) read once, idx written once
+    bound = tally.add(path, b * n * (12 + (mask is not None)) + b * m * 4,
+                      10.0 * b * n * (m - 1), k, p)
+    print(f"  {path} {name:9s} [{b},{n}]->{m}: kernel {k:.3f} ms "
+          f"({k * 1e3 / (m - 1):.3f} us/round; {plan_text(used)})  plain "
+          f"{p:.3f} ms  bound {bound:.3f} ms  equal in {compares} launches")
 
 
 def plan_text(plan) -> str:
@@ -664,20 +718,7 @@ def phase_ball_query(gen, serve_calls, train_calls, eval_calls) -> dict:
                                  ("eval4", eval_calls))
              for name, (args, kw) in zip(names, calls["ball_query"])]
     for path, name, xyz, centers, r, k, mask in cases:
-        (b, n), m = xyz.shape[:2], centers.shape[1]
-        want = plain_bq(xyz, centers, r, k, mask=mask)
-        gi, gc = check_bq(f"ball_query {path} {name}", xyz, centers, r, k,
-                          mask, want)
-        used = cuda_bq.last_plan
-        t = cuda_ms(lambda: cuda_bq.ball_query(xyz, centers, r, k, mask=mask),
-                    10)
-        p = cuda_ms(lambda: plain_bq(xyz, centers, r, k, mask=mask), 2)
-        work = scan_work(xyz, centers, r, k, mask, gi, gc)
-        bound = tally.add(path, *bq_cost(b, n, m, k, mask, work), t, p)
-        per = tuple(w / (b * m) for w in work)
-        print(f"  {path} {name:9s} N={n} M={m} r={r:g} K={k}: kernel {t:.3f}"
-              f" ms ({used})  plain {p:.3f} ms  bound {bound:.3f} ms  equal; "
-              f"{skip_text(per)}; mean cnt {gc.float().mean():.2f}")
+        bq_case(tally, path, name, xyz, centers, r, k, mask)
     for name, n, m, r, k in BQ_SHAPES:  # uniform clouds, centers unordered
         xyz = cloud(gen, B, n)
         centers = xyz[:, :m].contiguous()
@@ -694,7 +735,31 @@ def phase_ball_query(gen, serve_calls, train_calls, eval_calls) -> dict:
         print(f"  {label}: equal at {len(EDGE_PLANS)} launch shapes (cnt min "
               f"{want[1].min().item()} max {want[1].max().item()}; "
               f"{skip_text(per)})")
-    return tally.summary()
+    return tally
+
+
+def bq_case(tally, path, name, xyz, centers, r, k, mask) -> None:
+    """One recorded B3 call: COMPARES launches exactly equal to the plain
+    version (idx and cnt); then, where a tally is given, timed against
+    the plain version, with its bound, and added under `path`."""
+    (b, n), m = xyz.shape[:2], centers.shape[1]
+    want = plain_bq(xyz, centers, r, k, mask=mask)
+    gi, gc = check_bq(f"ball_query {path} {name}", xyz, centers, r, k, mask,
+                      want)
+    used = cuda_bq.last_plan
+    work = scan_work(xyz, centers, r, k, mask, gi, gc)
+    per = tuple(w / (b * m) for w in work)
+    if tally is None:
+        print(f"  {path} {name:9s} N={n} M={m} r={r:g} K={k}: equal in "
+              f"{COMPARES} launches ({used}); {skip_text(per)}; mean cnt "
+              f"{gc.float().mean():.2f}")
+        return
+    t = cuda_ms(lambda: cuda_bq.ball_query(xyz, centers, r, k, mask=mask), 10)
+    p = cuda_ms(lambda: plain_bq(xyz, centers, r, k, mask=mask), 2)
+    bound = tally.add(path, *bq_cost(b, n, m, k, mask, work), t, p)
+    print(f"  {path} {name:9s} N={n} M={m} r={r:g} K={k}: kernel {t:.3f}"
+          f" ms ({used})  plain {p:.3f} ms  bound {bound:.3f} ms  equal; "
+          f"{skip_text(per)}; mean cnt {gc.float().mean():.2f}")
 
 
 def build_server():
@@ -825,30 +890,41 @@ def check_scatter(name, g, idx, n, gen) -> dict:
     return {"longest": longest_row(idx, n), "vs_plain": err}
 
 
+def scatter_case(tally, path, g, idx, n, gen) -> None:
+    """One recorded B5 call (check_scatter); then, where a tally is given,
+    timed against the plain version and index_add_, and added under
+    `path`."""
+    B, U, C = g.shape
+    name = f"{path} n={n} U={U} C={C}"
+    found = check_scatter(name, g, idx, n, gen)
+    if tally is None:
+        print(f"  {name:28s}: bitwise np.add.at, the same bits in 3 "
+              f"launches, equal to plain on integer g; longest row "
+              f"{found['longest']}; {cuda_scatter.last_plan}")
+        return
+    tally.max_abs_err = max(tally.max_abs_err, found["vs_plain"])
+    flat = (idx.long() + torch.arange(B, device="cuda")[:, None] * n
+            ).flatten()
+    rows = g.reshape(B * U, C)
+    t = cuda_ms(lambda: cuda_scatter.scatter_rows(g, idx, n), 20)
+    p = cuda_ms(lambda: plain_scatter(g, idx, n), 5)
+    lib = cuda_ms(lambda: torch.zeros(B * n, C, device="cuda").index_add_(
+        0, flat, rows), 20)
+    bound = tally.add(path, 4 * (B * U * C + B * U + B * n * C), B * U * C,
+                      t, p, lib)
+    print(f"  {name:28s}: kernel {t:.3f} ms  plain {p:.3f} ms  "
+          f"index_add_ {lib:.3f} ms  bound {bound:.3f} ms  longest row "
+          f"{found['longest']}; {cuda_scatter.last_plan}; bitwise "
+          f"np.add.at, |kernel - plain| {found['vs_plain']:.3g}")
+
+
 def phase_scatter(gen, train_calls) -> dict:
     print("== scatter kernel at the training step's launches: bitwise "
           "np.add.at and the same bits in 3 launches (integer g: equal to "
           "plain)")
     tally = Tally()
     for args, _ in train_calls["scatter"]:
-        g, idx, n = args
-        B, U, C = g.shape
-        name = f"n={n} U={U} C={C}"
-        found = check_scatter(name, g, idx, n, gen)
-        tally.max_abs_err = max(tally.max_abs_err, found["vs_plain"])
-        flat = (idx.long() + torch.arange(B, device="cuda")[:, None] * n
-                ).flatten()
-        rows = g.reshape(B * U, C)
-        t = cuda_ms(lambda: cuda_scatter.scatter_rows(g, idx, n), 20)
-        p = cuda_ms(lambda: plain_scatter(g, idx, n), 5)
-        lib = cuda_ms(lambda: torch.zeros(B * n, C, device="cuda").index_add_(
-            0, flat, rows), 20)
-        bound = tally.add("train", 4 * (B * U * C + B * U + B * n * C),
-                          B * U * C, t, p, lib)
-        print(f"  {name:22s}: kernel {t:.3f} ms  plain {p:.3f} ms  "
-              f"index_add_ {lib:.3f} ms  bound {bound:.3f} ms  longest row "
-              f"{found['longest']}; {cuda_scatter.last_plan}; bitwise "
-              f"np.add.at, |kernel - plain| {found['vs_plain']:.3g}")
+        scatter_case(tally, "train", *args, gen)
     # heavy collisions, masked centers' zeros, out-of-range indices, odd
     # widths
     zeros = torch.randint(0, 1024, (TRAIN_B, 8192), device="cuda",
@@ -869,7 +945,7 @@ def phase_scatter(gen, train_calls) -> dict:
         print(f"  {label}: equal on integer g; the same bits in 3 launches; "
               f"bitwise np.add.at; longest row {found['longest']}; "
               f"{cuda_scatter.last_plan}; {t:.3f} ms")
-    return tally.summary()
+    return tally
 
 
 def train_config(ckpt_dir: str) -> Config:
@@ -973,12 +1049,15 @@ def phase_train(card: str, gen, nn_calls) -> dict:
     return {"counts": trained, "median_ms": med * 1e3, "peak_bytes": peak}
 
 
-def kernel_vs_plain(label: str, model, cfg, state, batch) -> None:
+def kernel_vs_plain(label: str, model, cfg, state, batch,
+                    want: dict | None = None) -> None:
     """One train step's forward + backward from `state` on `batch`, on the
     kernel path and on the plain path, in fp32: every kernel on the path
     gives its plain version's bits (the scatter sums each row in index
     order, as index_put_ does on the card), so the loss and every gradient
-    must be exactly equal; 5 / 7 / 9 launches on the kernel path only."""
+    must be exactly equal; `want` launches (5 / 7 / 9) on the kernel path
+    only."""
+    want = want or launches(fps=5, ball_query=7, scatter=9)
     bn_m = train_lib.bn_momentum_at(cfg.train, 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     reset_counts()
@@ -986,8 +1065,7 @@ def kernel_vs_plain(label: str, model, cfg, state, batch) -> None:
     one_step = counts()
     with ops.use_impl("plain"):
         lp, gp = grads_of(model, cfg, state, batch, bn_m)
-    if counts() != one_step or one_step != launches(fps=5, ball_query=7,
-                                                    scatter=9):
+    if counts() != one_step or one_step != want:
         raise AssertionError(f"{label}: launches {one_step} then {counts()}")
     if not torch.equal(lk, lp):
         raise AssertionError(f"{label} loss: kernel path {lk.item()!r} vs "
@@ -1045,7 +1123,7 @@ def phase_fps_flat(gen, scene_call) -> dict:
               f"({k * 1e3 / max(m - 1, 1):.3f} us/round; cluster {cluster}, "
               f"{plan_text(used)})  B1 entry {b1_ms:.3f} ms  plain {p:.3f} "
               f"ms  bound {bound:.3f} ms  equal")
-    return tally.summary()
+    return tally
 
 
 def in_ball_check(label, xyz, centers, r, k, mask, idx, cnt, exact_idx,
@@ -1141,7 +1219,7 @@ def phase_sorted(gen, eval_calls, serve_sa1, train_sa1) -> dict:
               f"{p:.3f} ms  bound {bound:.3f} ms  equal; sorted "
               f"{skip_text(per[0])}; exact {skip_text(per[1])}; mean cnt "
               f"{gc.float().mean():.2f}")
-    return tally.summary()
+    return tally
 
 
 @contextlib.contextmanager
@@ -1455,6 +1533,306 @@ def hostfed_runs(card: str, work: Path) -> dict:
                   "copy_bytes": bytes_b, "pack_s": pack_s}}
 
 
+def outdoor_config(root: str, ckpt_dir: str, *extra: str) -> Config:
+    """Config #4 trained from files, through the CLI's own parser:
+    preset=outdoor, B2 in the loader, host augmentation, batch 8, 4 epochs
+    of 2 steps, the val sweep after the last."""
+    return parse_cli([*OUT_ARGS, f"data.root={root}",
+                      f"train.ckpt_dir={ckpt_dir}", *extra])
+
+
+def fps_caches(root: str) -> list:
+    return sorted(Path(root).rglob(f"*_fpscache_{EVAL_N}.npy"))
+
+
+def run_outdoor(label: str, cfg, card: str) -> dict:
+    """One run_detector of phase 11 with its counts from 0: B2 once per
+    scene whose FPS cache it wrote, 5 / 7 / 9 launches a step (STEP4),
+    5 and 7 (or 5 with the lineage head) a sweep batch; finite losses, one
+    sweep of finite metrics. Prints the step and wait medians (steps 2-8),
+    B2's ms a scene in the loader, the sweep and the peak memory."""
+    root = cfg.data.root
+    before = len(fps_caches(root))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with stage_clock({"b2": [(kitti, "device_fps")],
+                      "forward+parse": []}) as t:
+        result = run_detector(cfg)
+    got = counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    written = len(fps_caches(root)) - before
+    step = launches(**STEP4[cfg.model.proposal_sampling])
+    want = {k: step[k] * OUT_STEPS for k in step}
+    want["fps"] += step["fps"]  # the sweep's one batch
+    want["ball_query"] += step["ball_query"]
+    want["fps_flat"] = written
+    print(f"  {label} launches: {got}; FPS caches written {written}")
+    if got != want or len(t["b2"]) != written:
+        raise AssertionError(f"{label}: launches {got} != {want} (B2 once per "
+                             f"scene it cached; {len(t['b2'])} device_fps)")
+    losses = [h["loss"] for h in result.history]
+    if result.step != OUT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: steps {result.step}, losses {losses}")
+    (ev,) = result.evals
+    if t["scenes"] != [OUT_VAL] or not (np.isfinite(ev["val_loss"]) and all(
+            0.0 <= ev[f"{k}@{th}"] <= 1.0 for th in cfg.eval.ap_iou_threshs
+            for k in ("mAP", "AR"))):
+        raise AssertionError(f"{label}: sweep of {t['scenes']} scenes, {ev}")
+    for h in result.history:
+        print(f"  {label} step {h['step']}: loss {h['loss']:.6f}  "
+              f"{h['seconds'] * 1e3:.3f} ms, of it waiting for the batch "
+              f"{h['wait'] * 1e3:.3f} ms")
+    warm = result.history[1:]
+    med = statistics.median(h["seconds"] for h in warm) * 1e3
+    wait = statistics.median(h["wait"] for h in warm) * 1e3
+    b2 = statistics.median(t["b2"]) * 1e3 if t["b2"] else None
+    b2_text = f"{b2:.3f} ms" if b2 is not None else "none (all cached)"
+    print(f"  {label}: median step {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} "
+          f"scenes/s, median wait on next(batches) {wait:.3f} ms; B2 in the "
+          f"loader {b2_text} a scene (median of {len(t['b2'])}); val sweep "
+          f"({OUT_VAL} scenes, one batch) {ev['seconds'] * 1e3:.3f} ms, "
+          f"mAP@0.25 {ev['mAP@0.25']}, val_loss {ev['val_loss']}; peak "
+          f"memory allocated {peak / 2**30:.3f} GiB on {card}")
+    return {"result": result, "counts": got, "median_ms": med,
+            "wait_ms": wait, "b2_ms": b2, "eval_ms": ev["seconds"] * 1e3,
+            "peak_bytes": peak}
+
+
+def capture_outdoor_step(kind: str, cfg, batch) -> tuple[dict, object, dict]:
+    """The kernel inputs of one config-#4 train step (forward, loss and
+    backward of the outdoor detector, weights from train.seed) on `batch`,
+    recorded call by call: (calls, model, its initial state)."""
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg, kitti.KITTI_MEAN_SIZES)
+    state = copy.deepcopy(model.state_dict())
+    with recording() as calls:
+        grads_of(model, cfg, state, batch,
+                 train_lib.bn_momentum_at(cfg.train, 0))
+    found = {k: len(v) for k, v in calls.items()}
+    want = {**STEP4[kind], "three_nn": 2}
+    print(f"  {kind} step calls: {found}")
+    if found != want:
+        raise AssertionError(f"one outdoor {kind} step made {found} calls, "
+                             f"not {want}")
+    return calls, model, state
+
+
+def check_step_calls(kind: str, cfg, calls, tallies) -> None:
+    """Every recorded B1 / B3 / B5 call of a step against its plain
+    version (B1 and B3 in 3 launches each, exactly; B5 bitwise np.add.at);
+    with tallies, timed and added under path train4."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    path = "train4" if tallies else f"train4 {kind}"
+    fps_names = ["sa1", "sa2", "sa3", "sa4", "proposal"]
+    bq_names = ["sa1", "sa2", "sa3", "sa4"] + (
+        ["proposal"] if kind == "lineage"
+        else [f"bank_{r:g}" for r in cfg.model.cluster_radius_bank])
+    for name, (args, kw) in zip(fps_names, calls["fps"]):
+        fps_case(tallies and tallies["fps"], path, name, args[0], args[1],
+                 kw.get("mask"), compares=3)
+    for name, (args, kw) in zip(bq_names, calls["ball_query"]):
+        bq_case(tallies and tallies["ball_query"], path, name, *args,
+                kw.get("mask"))
+    for args, _ in calls["scatter"]:
+        scatter_case(tallies and tallies["scatter"], path, *args, gen)
+
+
+def resident_step_ms(model, cfg, batch) -> float:
+    """Median host ms of 5 train steps (train_lib's, with the optimizer)
+    on one batch already on the card, after a warm-up, each ending by
+    reading its loss: the step without the feed."""
+    train_lib.apply_runtime_config(cfg)
+    optimizer = train_lib.make_optimizer(cfg.train, 2, model.parameters())
+    step = train_lib.make_detector_steps(model, optimizer, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        float(step(batch, gen, train_lib.bn_momentum_at(cfg.train, 0))["loss"])
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times[1:]) * 1e3
+
+
+def loader_b2(tally, root: str) -> None:
+    """B2 on the cropped cloud of train scene 0, as the loader pads it:
+    exactly the plain version's picks in 3 launches, timed, added under
+    path train4."""
+    pc = np.load(sorted(Path(root, "train").glob("*_pc.npy"))[0])
+    pc = pc[kitti.range_crop(pc)]
+    n = pc.shape[0]
+    budget = -(-n // 4096) * 4096  # kitti.device_fps's bucket
+    xyz = torch.zeros(1, budget, 3, device="cuda")
+    xyz[0, :n] = torch.from_numpy(np.ascontiguousarray(pc[:, :3])).cuda()
+    mask = torch.zeros(1, budget, dtype=torch.bool, device="cuda")
+    mask[0, :n] = True
+    want, p = once_ms(lambda: plain_fps(xyz, EVAL_N, mask=mask))
+    for _ in range(3):
+        require_equal("fps_flat train4 scene", cuda_fps.fps_flat(
+            xyz, EVAL_N, mask), want)
+    k = cuda_ms(lambda: cuda_fps.fps_flat(xyz, EVAL_N, mask), 3)
+    # phase 2's count: 10 fp32 operations a point a round
+    bound = tally.add("train4", budget * 13 + EVAL_N * 4,
+                      10.0 * budget * (EVAL_N - 1), k, p)
+    print(f"  B2 on train scene 0 ([1,{budget}], {n} cropped points) -> "
+          f"{EVAL_N}: kernel {k:.3f} ms (cluster {cuda_fps.last_cluster}, "
+          f"{plan_text(cuda_fps.last_plan)})  plain {p:.3f} ms  bound "
+          f"{bound:.3f} ms  equal in 3 launches")
+
+
+def oriented_iou_check(cfg, model) -> None:
+    """oriented_bev_iou on the card, on the decoded corners of one sweep
+    batch (scene 0, 64 proposals: 4096 pairs), within 1e-4 of the host
+    evaluator's box3d_iou_oriented given the corners in float64. Given
+    them in float32, as AP does, the evaluator's sequential clip loses
+    boxes at the decoder's 1e-4 m size floor 50 m out (a box against
+    itself scores 0); the pairs where that moves it by 1e-4 or more are
+    counted."""
+    dataset = get_dataset(cfg)
+    batch = next(dataset.val_batches(np.random.default_rng(0), TRAIN_B))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    ep, _ = train_lib.make_detector_eval_step(model, cfg)(batch)
+    parsed = eval_detector.parse_predictions(
+        ep, model.mean_sizes, cfg.model.num_heading_bins, cfg.eval)
+    corners = parsed["corners"][0, :64]
+    got = oriented_bev_iou(corners[None], corners[None])[0].cpu().numpy()
+    c32 = corners.cpu().numpy()
+    c64 = c32.astype(np.float64)
+    size = parsed["size"][0, :64].cpu().numpy()
+    worst, at, fp32_off = 0.0, (0, 0), 0
+    for i in range(64):
+        for j in range(64):
+            d = abs(got[i, j] - box3d_iou_oriented(c64[i], c64[j]))
+            if d >= worst:
+                worst, at = d, (i, j)
+            fp32_off += abs(box3d_iou_oriented(c32[i], c32[j])
+                            - box3d_iou_oriented(c64[i], c64[j])) >= 1e-4
+    i, j = at
+    if not worst < 1e-4:
+        raise AssertionError(
+            f"oriented_bev_iou vs the host evaluator: max |diff| {worst} at "
+            f"({i}, {j}): card {got[i, j]}, sizes {size[i].tolist()} / "
+            f"{size[j].tolist()}")
+    print(f"  oriented_bev_iou on the card vs eval/ap.py box3d_iou_oriented "
+          f"(float64 corners) on 4096 pairs of decoded corners: max |diff| "
+          f"{worst:.3g} ({int((got > 0).sum())} pairs overlap; "
+          f"{int((size.min(-1) <= 1e-4).sum())} of 64 boxes at the 1e-4 m "
+          f"size floor; the evaluator on float32 corners off by >= 1e-4 at "
+          f"{fp32_off} pairs)")
+
+
+def phase_outdoor_train(card: str, tallies: dict) -> dict:
+    print(f"== config #4 training from {OUT_TRAIN} + {OUT_VAL} KITTI-format "
+          f"scenes of {EVAL_RAW_N} points, {TRAIN_B} x {EVAL_N} points a "
+          f"batch, {OUT_STEPS} steps + one val sweep, twice")
+    work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_kitti_"))
+    try:
+        return outdoor_runs(card, tallies, work)
+    finally:
+        train_lib.apply_runtime_config(Config())
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def outdoor_runs(card: str, tallies: dict, work: Path) -> dict:
+    root = str(work / "kitti")
+    t0 = time.perf_counter()
+    write_dataset(root, scenes=OUT_TRAIN, val_scenes=OUT_VAL,
+                  num_points=EVAL_RAW_N, seed=1)
+    print(f"  wrote the scenes in {time.perf_counter() - t0:.3f} s")
+
+    # Run A: B2 in the loader on the first pass, host augmentation,
+    # expanded votes, FPS proposal sampling, 3D NMS
+    cfg_a = outdoor_config(root, str(work / "ckpt_a"))
+    a = run_outdoor("run A", cfg_a, card)
+    model = a["result"].model
+    fresh = build_detector(cfg_a, kitti.KITTI_MEAN_SIZES).state_dict()
+    state = copy.deepcopy(model.state_dict())
+    for kind in ("weight", "running_mean", "running_var"):
+        if all(torch.equal(state[k], fresh[k]) for k in state
+               if k.endswith(kind)):
+            raise AssertionError(f"run A: no {kind} moved in training")
+    del fresh
+
+    # the caches of the scenes run A's batches did not reach; from here on
+    # no load runs B2
+    dataset = get_dataset(cfg_a)
+    reset_counts()
+    for item in dataset.train_items + dataset.val_items:
+        dataset._load_scene(*item, np.random.default_rng(0), False)
+    filled = counts()["fps_flat"]
+    if len(fps_caches(root)) != OUT_TRAIN + OUT_VAL:
+        raise AssertionError(f"{len(fps_caches(root))} FPS caches")
+    loader = host_batch_ms(dataset)
+    print(f"  {filled} scenes not loaded by run A cached; loader with "
+          f"augmentation (caches read): {loader:.3f} ms a batch on the host")
+
+    reset_counts()
+    resumed = run_detector(cfg_a)
+    if (resumed.start_step, resumed.step) != (OUT_STEPS, OUT_STEPS) or any(
+            not torch.equal(v, state[k])
+            for k, v in resumed.model.state_dict().items()) or \
+            counts() != launches():
+        raise AssertionError(f"run A did not resume at step {OUT_STEPS} "
+                             f"without launches: {counts()}")
+    print(f"  a second call resumed at step {resumed.start_step} with the "
+          "trained state, no launch (no B2: every scene cached)")
+    del resumed
+
+    # Run B: compact votes, density-biased proposal sampling, oriented NMS
+    cfg_b = outdoor_config(root, str(work / "ckpt_b"),
+                           "data.compact_votes=true",
+                           "model.proposal_sampling=density",
+                           "eval.use_oriented_nms=true")
+    first = [get_dataset(c).train_batch(np.random.default_rng(c.train.seed),
+                                        TRAIN_B) for c in (cfg_a, cfg_b)]
+    decoded = decode_compact_votes(
+        {k: torch.from_numpy(v).cuda() for k, v in first[1].items()},
+        cfg_b.data.vote_candidates)
+    for key in ("points", "vote_targets", "vote_mask"):
+        got, want = decoded[key].cpu(), torch.from_numpy(first[0][key])
+        if got.dtype != want.dtype or (
+                not torch.equal(got, want) if got.dtype == torch.bool
+                else bits_differ(got, want) is not None):
+            raise AssertionError(f"run B's first batch decoded: {key} differs"
+                                 " from run A's")
+    print("  run B's first host batch (int8 owners), decoded on the card: "
+          "points, vote_targets and vote_mask bitwise run A's")
+    b = run_outdoor("run B", cfg_b, card)
+    if b["counts"]["fps_flat"]:
+        raise AssertionError("run B ran B2 on cached scenes")
+    model_b = b["result"].model
+    oriented_iou_check(cfg_b, model_b)
+    del model_b, b["result"], a["result"], model, state
+
+    # the kernel inputs of one step of each head and sampling, against
+    # the plain versions; the FPS-sampling step's are timed (path train4)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in first[0].items()}
+    resident = {}
+    for kind in ("fps", "density", "lineage"):
+        cfg = outdoor_config(root, str(work / "unused"), *STEP4_ARGS[kind])
+        if kind != "lineage":
+            calls, model, state = capture_outdoor_step(kind, cfg, batch)
+            check_step_calls(kind, cfg, calls, tallies if kind == "fps"
+                             else None)
+            del calls
+        else:
+            model = build_detector(cfg, kitti.KITTI_MEAN_SIZES)
+            state = copy.deepcopy(model.state_dict())
+        kernel_vs_plain(f"one outdoor {kind} step", model, cfg, state, batch,
+                        launches(**STEP4[kind]))
+        resident[kind] = resident_step_ms(model, cfg, batch)
+        del model, state
+    print("  train step on one batch held on the card (no feed), median of "
+          "5 after a warm-up: " + ", ".join(
+              f"{k} sampling {v:.3f} ms" if k != "lineage"
+              else f"lineage head {v:.3f} ms" for k, v in resident.items()))
+    loader_b2(tallies["fps_flat"], root)
+    both = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    return {"counts": both, "a": a, "b": b, "loader_ms": loader,
+            "resident_ms": resident}
+
+
 def main() -> None:
     card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1479,6 +1857,9 @@ def main() -> None:
         sorted_t = phase_sorted(gen, eval_calls, serve_sa1, train_sa1)
         evaluated = phase_eval(card, outdoor)
         hostfed = phase_hostfed(card)
+        trained4 = phase_outdoor_train(card, {
+            "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t,
+            "fps_flat": flat_t})
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -1489,9 +1870,10 @@ def main() -> None:
     paths = {"serve": served["counts"], "train": trained["counts"],
              "eval4": {**evaluated["exact"]["counts"],
                        "sorted": evaluated["sorted"]["counts"]["sorted"]},
-             "hostfed": hostfed["counts"]}
+             "hostfed": hostfed["counts"], "train4": trained4["counts"]}
 
-    def entry(name, counter, source, replaces, times):
+    def entry(name, counter, source, replaces, tally):
+        times = tally.summary()
         for path, t in times["by_path"].items():
             t["launches"] = paths[path][counter]
         return {"name": name, "route": "cuda", "source": source,
@@ -1515,14 +1897,16 @@ def main() -> None:
     ]
     print("kernel ms / plain_ms / library_ms / bound_ms: summed over the "
           "main-path shapes of one served request (32 x 20480), one "
-          "config-#3 training step (8 x 40960) and one config-#4 eval batch "
-          "(8 x 16384; fps_flat: one scene), each path's own under by_path;"
-          f" launches: the {REQUESTS} served requests, the {TRAIN_STEPS} "
-          "training steps, one config-#4 sweep of "
+          "config-#3 training step (8 x 40960), one config-#4 eval batch "
+          "(8 x 16384; fps_flat: one scene) and one config-#4 train step "
+          "(train4, 8 x 16384; fps_flat: one loader scene), each path's "
+          f"own under by_path; launches: the {REQUESTS} served requests, the "
+          f"{TRAIN_STEPS} training steps, one config-#4 sweep of "
           f"{EVAL_SCENES} scenes (exact grouping; sorted_ball_query: the "
-          f"sweep with ops_fast_mode=sorted) and the 2 x {TRAIN_STEPS} "
+          f"sweep with ops_fast_mode=sorted), the 2 x {TRAIN_STEPS} "
           "host-fed steps and 2 val batches of phase 10 (under "
-          "hostfed_launches)")
+          f"hostfed_launches) and the 2 x {OUT_STEPS} config-#4 steps, 2 "
+          "val batches and B2 in the loader of phase 11 (train4)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -204,16 +204,24 @@ def test_nms_aabb_equals_jax(cls_nms):
     assert 0 < keep.sum() < valid.sum()  # some boxes suppressed
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A5b"):
-        SizeAdaptiveDetector(ModelConfig(proposal_sampling="density"),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        SizeAdaptiveDetector(ModelConfig(proposal_mode="lineage"),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        parse_predictions({}, np.ones((4, 3), np.float32), 12,
-                          EvalConfig(use_oriented_nms=True))
+def test_unported_options_raise(pair):
+    """Density sampling, the lineage head and the BEV / oriented NMS,
+    which this test once showed refused (hence its name), now run (held to the
+    reference in test_torch_outdoor_train.py)."""
+    _, _, _, pts, mask = pair
+    for change in (dict(proposal_sampling="density"),
+                   dict(proposal_mode="lineage")):
+        model = SizeAdaptiveDetector(
+            tconfig.ModelConfig(**{**dataclasses.asdict(to_port(SMALL)),
+                                   **change}), device="cpu")
+        with torch.no_grad():
+            ep = model(torch.from_numpy(pts), mask=torch.from_numpy(mask))
+        assert ep["proposal_inds"].shape == (2, SMALL.num_proposals)
+        assert ("scale_logits" in ep) == ("proposal_mode" not in change)
+        for ev in (EvalConfig(use_oriented_nms=True),
+                   EvalConfig(use_3d_nms=False)):
+            keep = parse_predictions(ep, model.mean_sizes, 12, ev)["keep"]
+            assert 0 < keep.sum() < keep.numel()
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "EvalConfig"])

@@ -398,20 +398,28 @@ def test_kitti_val_batches_equal_reference(tmp_path, monkeypatch,
 
 
 def test_kitti_unported_paths_raise(tmp_path):
+    """Host augmentation and compact votes, which this test once showed
+    refused (hence its name), now load; augmentation moves points and boxes,
+    and compact votes carry int8 owners in place of the targets."""
     tso.write_dataset(str(tmp_path), scenes=1, val_scenes=1,
                       num_points=40000, seed=2)
     cfg = tconfig.parse_cli(["preset=outdoor", f"data.root={tmp_path}",
                              "data.num_points=1024"])
     ds = get_dataset(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7.5"):
-        ds.train_batch(np.random.default_rng(0), 1)  # data.augment=true
-    with pytest.raises(NotImplementedError, match="A7.5"):
-        get_dataset(tconfig.apply_overrides(cfg, ["data.compact_votes=true"]),
-                    device="cpu")
+    aug = ds.train_batch(np.random.default_rng(0), 2)  # data.augment=true
+    compact = get_dataset(tconfig.apply_overrides(
+        cfg, ["data.compact_votes=true"]), device="cpu").train_batch(
+            np.random.default_rng(0), 2)
+    assert compact["vote_owner"].dtype == np.int8
+    assert "vote_targets" not in compact
+    np.testing.assert_array_equal(compact["points"], aug["points"])
+    assert (compact["vote_owner"] >= 0).sum() == aug["vote_mask"].sum()
     ok = get_dataset(tconfig.apply_overrides(cfg, ["data.augment=false"]),
                      device="cpu").train_batch(np.random.default_rng(0), 2)
-    assert ok["points"].shape == (2, 1024, 3)
+    assert ok["points"].shape == aug["points"].shape == (2, 1024, 3)
     assert ok["vote_targets"].shape == (2, 1024, 3, 3)
+    assert not np.array_equal(ok["points"], aug["points"])
+    assert not np.array_equal(ok["gt_headings"], aug["gt_headings"])
     # preset=scannet, refused until ROADMAP A7.2, loads ScanNet files
     with pytest.raises(FileNotFoundError, match="data.root"):
         get_dataset(tconfig.parse_cli(["preset=scannet"]))

@@ -45,8 +45,17 @@ class ModelConfig:
     seed_feat_dim: int = 256
     cluster_radius_bank: tuple[float, ...] = (0.15, 0.3, 0.6)
     cluster_nsample: int = 16
-    proposal_mode: str = "adaptive"  # 'lineage' is not ported (ROADMAP A5b)
-    proposal_sampling: str = "fps"  # 'density' is not ported (ROADMAP A5b)
+    # 'adaptive' = the radius bank; 'lineage' = the fixed-radius VoteNet
+    # head (proposal_radius), which lineage checkpoints import into
+    proposal_mode: str = "adaptive"
+    proposal_radius: float = 0.3
+    # proposal centers of the adaptive head: 'fps' over the votes, or
+    # 'density' = FPS over the proposal_candidate_factor x num_proposals
+    # votes of most neighbours within proposal_density_radius
+    # (models/proposal.py::density_biased_fps)
+    proposal_sampling: str = "fps"
+    proposal_density_radius: float = 0.3
+    proposal_candidate_factor: int = 4
     # objectness assignment zone and center-chamfer unit (losses.py)
     assign_near: float = 0.3
     assign_far: float = 0.6
@@ -75,8 +84,7 @@ class DataConfig:
     aug_scale_min: float = 1.0
     aug_scale_max: float = 1.0
     vote_candidates: int = 3
-    # int8 vote owners decoded in the step; not ported for KITTI
-    # (ROADMAP A7.5)
+    # int8 vote owners decoded in the step
     compact_votes: bool = False
 
 
@@ -111,7 +119,9 @@ class EvalConfig:
     ap_iou_threshs: tuple[float, ...] = (0.25, 0.5)
     use_3d_nms: bool = True
     cls_nms: bool = True
-    use_oriented_nms: bool = False  # not ported (ROADMAP A5b)
+    # suppress by the oriented BEV IoU that AP scores with (else the
+    # axis-aligned hulls: 3D, or BEV with use_3d_nms=False)
+    use_oriented_nms: bool = False
     per_class_proposal: bool = True
     conf_thresh: float = 0.05
     # evaluate <ckpt_dir>/best, the best-mAP snapshot training keeps

@@ -8,15 +8,14 @@ On-disk contract under `<root>/<split>/`:
   <idx>_bbox.npy  float32 [G, 8]  cx cy cz dx dy dz heading cls (cls 0..2:
                                   car, pedestrian, cyclist)
 
-Per scene: crop -> FPS to the budget -> pad -> vote targets. The FPS runs
-on the card (`device_fps`, data.device_preproc=true: one cloud of ~120k
-points, the cluster kernel B2) or as the plain version on the CPU
-(`host_fps`). Its picks are cached next to the scene as
-`<idx>_fpscache_<n>.npy`, row 0 holding the cropped count, the
-reference's format.
-
-Not ported yet (ROADMAP A7.5, config-#4 training): host augmentation
-(augment_scene) and the compact-votes format; both raise.
+Per scene: crop -> FPS to the budget -> pad -> (train batches, with
+data.augment) flip / rotation / scale by the "kitti" recipe -> vote
+targets, as [N,V,3] offsets or, with data.compact_votes, as int8 owners
+that the train step decodes. The FPS runs on the card (`device_fps`,
+data.device_preproc=true: one cloud of ~120k points, the cluster kernel
+B2) or as the plain version on the CPU (`host_fps`). Its picks are cached
+next to the scene as `<idx>_fpscache_<n>.npy`, row 0 holding the cropped
+count, the reference's format.
 """
 
 from __future__ import annotations
@@ -29,7 +28,13 @@ import torch
 
 from tpu3dsad_torch import ops
 from tpu3dsad_torch.data import host
-from tpu3dsad_torch.data.pipeline import iter_val_batches, pad_boxes
+from tpu3dsad_torch.data.augment import augment_scene, resolve_aug
+from tpu3dsad_torch.data.pipeline import (
+    compact_owner,
+    iter_val_batches,
+    pad_boxes,
+    recover_owner,
+)
 
 KITTI_CLASS_NAMES = ("car", "pedestrian", "cyclist")
 KITTI_MEAN_SIZES = np.array(
@@ -80,10 +85,6 @@ class KittiDetectionDataset:
     def __init__(self, cfg, *, device="cuda"):
         """cfg: a Config. `device` runs the FPS when data.device_preproc
         is set: the card unless the caller asks for the CPU."""
-        if cfg.data.compact_votes:
-            raise NotImplementedError(
-                "data.compact_votes=true for KITTI is not ported yet "
-                "(ROADMAP A7.5, config-#4 training)")
         self.cfg = cfg
         self.device = device
         self.root = cfg.data.root
@@ -109,11 +110,6 @@ class KittiDetectionDataset:
         return host_fps(points, m)
 
     def _load_scene(self, d, idx, rng, augment):
-        if augment and self.cfg.data.augment:
-            raise NotImplementedError(
-                "host augmentation of KITTI scenes (augment_scene) is not "
-                "ported yet (ROADMAP A7.5, config-#4 training); set "
-                "data.augment=false")
         pc = np.load(os.path.join(d, f"{idx}_pc.npy"))
         bboxes = np.load(os.path.join(d, f"{idx}_bbox.npy")).reshape(-1, 8)
         centers = bboxes[:, :3].astype(np.float32)
@@ -146,6 +142,14 @@ class KittiDetectionDataset:
         pmask = np.zeros(n_budget, bool)
         pmask[:n] = True
 
+        if augment and self.cfg.data.augment:
+            # after the cached crop + FPS, whose picks do not depend on
+            # the pose, so the cache holds for every draw
+            pts_aug, centers, headings, sizes = augment_scene(
+                rng, points[:n], centers, headings, sizes,
+                **resolve_aug(self.cfg.data, "kitti"))
+            points[:n] = pts_aug[:, :3]
+
         votes = np.zeros((n_budget, 3), np.float32)
         vmask = np.zeros(n_budget, bool)
         if len(centers):
@@ -154,11 +158,18 @@ class KittiDetectionDataset:
                  classes[:, None].astype(np.float32)], axis=1)
             votes[:n], vmask[:n] = host.vote_targets(points[:n], boxes8)
         V = max(1, self.cfg.data.vote_candidates)
-        if V > 1:
-            # outdoor boxes never overlap, so every candidate slot copies
-            # the single owner's offset
-            votes = np.repeat(votes[:, None, :], V, axis=1)
         max_boxes = self.cfg.data.max_boxes
+        if self.cfg.data.compact_votes:
+            # int8 owners (the votes aim at the centers, so recovery is
+            # exact); the step's decode rebuilds the [N,V,3] targets
+            owner = recover_owner(points, votes, vmask, centers)
+            vote_fields = {"vote_owner": compact_owner(owner, max_boxes)}
+        else:
+            if V > 1:
+                # outdoor boxes never overlap, so every candidate slot
+                # copies the single owner's offset
+                votes = np.repeat(votes[:, None, :], V, axis=1)
+            vote_fields = {"vote_targets": votes, "vote_mask": vmask}
         c, bm = pad_boxes(centers, max_boxes)
         s, _ = pad_boxes(sizes, max_boxes)
         h, _ = pad_boxes(headings, max_boxes)
@@ -166,8 +177,7 @@ class KittiDetectionDataset:
         return {
             "points": points,
             "point_mask": pmask,
-            "vote_targets": votes,
-            "vote_mask": vmask,
+            **vote_fields,
             "gt_centers": c,
             "gt_sizes": s,
             "gt_headings": h,

@@ -171,7 +171,10 @@ def detection_loss(end_points, batch, mean_sizes, num_heading_bins,
     c_loss = center_loss(end_points, batch, pos, norm=center_norm)
     h_cls, h_reg, s_cls, s_reg, sem, gt_size = box_and_sem_loss(
         end_points, batch, pos, nearest, mean_sizes, num_heading_bins)
-    sc_loss = scale_selection_loss(end_points, pos, gt_size, radius_bank)
+    # the lineage proposal head (fixed radius) gives no scale logits
+    sc_loss = (scale_selection_loss(end_points, pos, gt_size, radius_bank)
+               if "scale_logits" in end_points
+               else torch.zeros((), device=gt_size.device))
 
     box_loss = c_loss + 0.1 * h_cls + h_reg + 0.1 * s_cls + s_reg
     total = (v_loss + 0.5 * o_loss + box_loss + 0.1 * sem

@@ -1,8 +1,9 @@
 """SizeAdaptiveDetector — the flagship model (tpu3dsad/models/detector.py).
 
-Backbone -> voting -> size-adaptive clustering / proposal -> decoded
-end_points dict. The height feature (z minus the floor of the scene's valid
-points) is computed in the model when cfg.append_height is set.
+Backbone -> voting -> proposal (the size-adaptive head, or the lineage
+head with model.proposal_mode='lineage') -> decoded end_points dict. The
+height feature (z minus the floor of the scene's valid points) is computed
+in the model when cfg.append_height is set.
 """
 
 from __future__ import annotations
@@ -39,8 +40,6 @@ class SizeAdaptiveDetector(nn.Module):
                  in_features: int = 0, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.proposal_mode == "lineage":
-            LineageProposal()
         self.cfg = cfg
         self.mean_sizes = (class_mean_sizes(cfg.num_classes)
                            if mean_sizes is None
@@ -50,13 +49,23 @@ class SizeAdaptiveDetector(nn.Module):
         seed_dim = cfg.fp_channels[1][-1]
         self.voting = VotingModule(seed_dim, cfg.vote_factor,
                                    cfg.seed_feat_dim)
-        self.proposal = SizeAdaptiveProposal(
-            num_classes=cfg.num_classes, in_dim=seed_dim,
-            num_heading_bins=cfg.num_heading_bins,
-            num_proposals=cfg.num_proposals,
-            radius_bank=tuple(cfg.cluster_radius_bank),
-            nsample=cfg.cluster_nsample, sampling=cfg.proposal_sampling,
-        )
+        if cfg.proposal_mode == "lineage":
+            # the fixed-radius lineage head, which lineage checkpoints
+            # import into
+            self.proposal = LineageProposal(
+                num_classes=cfg.num_classes, in_dim=seed_dim,
+                num_heading_bins=cfg.num_heading_bins,
+                num_proposals=cfg.num_proposals,
+                radius=cfg.proposal_radius, nsample=cfg.cluster_nsample)
+        else:
+            self.proposal = SizeAdaptiveProposal(
+                num_classes=cfg.num_classes, in_dim=seed_dim,
+                num_heading_bins=cfg.num_heading_bins,
+                num_proposals=cfg.num_proposals,
+                radius_bank=tuple(cfg.cluster_radius_bank),
+                nsample=cfg.cluster_nsample, sampling=cfg.proposal_sampling,
+                density_radius=cfg.proposal_density_radius,
+                candidate_factor=cfg.proposal_candidate_factor)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_like_flax_(self, generator)
