@@ -122,6 +122,26 @@ Phases, in order; any failure raises and the script exits nonzero:
     against plain. Printed: each run's step median (steps 2-8), the
     median wait, B2's ms a scene in the loader, the loader's ms a batch
     with augmentation, the sweep's ms and peak memory.
+12. k-step blocks (train.steps_per_call=4: on the card the first block
+    runs eagerly, then one step is captured into a CUDA graph and each
+    block replays it 4 times). (a) Config #3 with device synth: run_detector
+    for 8 steps at k = 1 twice, which must be bitwise equal, then at k = 4
+    (a warm-up block, then a replayed one), which must be bitwise equal to
+    them: losses, parameters, BN statistics, Adam moments and count; the
+    counters see 4 eager steps and the captured one (25 / 35 / 45). Then a
+    block built apart: a warm-up block, the capture (one step's launches
+    through the wrappers), 5 replayed blocks on the host clock and one
+    under torch.profiler, which must show 5 FPS, 7 + 7 ball-query and 9
+    scatter kernels a replayed step and no wrapper call. (b) Phase 10's
+    packed split (run B's options) for 2 epochs at k = 1 and k = 4 through
+    the stacked host feed: the counts (k = 4: 5 steps through the
+    wrappers), finite losses and sweep; then 3 stacked packed blocks
+    (augmented on the card; each at another BN momentum, the rate halved
+    after steps 4 and 8) through a block, bitwise 12 eager steps on the
+    same slices. Printed: ms a step at k = 1 and k = 4 (the replayed
+    blocks' median over 4), the capture's ms, the busy share of a replayed
+    block, a replayed step's kernels by name and in all, peak memory with
+    the graph's pool, and for (b) each call's ms and host wait.
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -134,14 +154,18 @@ the same work at NVIDIA's published H100 SXM peaks (3.35 TB/s; 67 TFLOP/s
 fp32 outside the tensor cores). The line before the last is a JSON summary
 of the kernels: times summed over one request, one training step, one
 config-#4 eval batch (one scene for B2) and one config-#4 train step
-(train4; B2: one loader scene), and each path's own under by_path; the
-last line names the device.
+(train4; B2: one loader scene), and each path's own under by_path;
+launches count every phase's main-path runs, phase 12's as its wrappers
+see them (the warm-up block and the capture), and
+traink_replayed_step_launches and _device_ms a replayed step's launches
+and device time by the profiler; the last line names the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import re
 import shutil
@@ -1436,16 +1460,13 @@ def run_hostfed(label: str, cfg, want: dict, card: str) -> dict:
             "peak_bytes": peak}
 
 
-def phase_hostfed(card: str) -> dict:
+def phase_hostfed(card: str, work: Path) -> dict:
+    """Phase 10 in `work`, whose packed split phase 12 trains on again."""
     print(f"== host-fed training, config #3 from {HOSTFED_TRAIN} + "
           f"{HOSTFED_VAL} ScanNet-format scenes of {HOSTFED_RAW} points, "
           f"{TRAIN_B} x {TRAIN_N} points a batch, {TRAIN_STEPS} steps + one "
           "val sweep, twice")
-    work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_scannet_"))
-    try:
-        return hostfed_runs(card, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    return hostfed_runs(card, work)
 
 
 def hostfed_runs(card: str, work: Path) -> dict:
@@ -1833,6 +1854,323 @@ def outdoor_runs(card: str, tallies: dict, work: Path) -> dict:
             "resident_ms": resident}
 
 
+# train.steps_per_call of phase 12; replayed blocks timed after the capture
+K_STEPS, REPLAY_BLOCKS = 4, 5
+# the kernels of one replayed config-#3 step, by the names torch.profiler
+# gives them, with the counter of their wrapper: 5 FPS (B1), 7 ball
+# queries of two launches (B3's staging and scan) and 9 scatters (B5, in
+# the backward)
+REPLAY_KERNELS = {"fps_cluster_kernel": ("fps", 5),
+                  "stage_kernel": ("ball_query", 7),
+                  "ball_query_kernel": ("ball_query", 7),
+                  "scatter_kernel": ("scatter", 9)}
+
+
+def busy_share(trace_events: list) -> tuple[int, float, float]:
+    """(kernels, busy us, span us) of the chrome-trace events of category
+    'kernel': busy is the union of their intervals, span runs from the first
+    kernel's start to the last kernel's end."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace_events
+                   if e.get("cat") == "kernel")
+    if not spans:
+        raise RuntimeError("the trace holds no kernel: no device time seen")
+    busy, run_start, run_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > run_end:
+            busy += run_end - run_start
+            run_start, run_end = start, end
+        else:
+            run_end = max(run_end, end)
+    busy += run_end - run_start
+    return len(spans), busy, max(e for _, e in spans) - spans[0][0]
+
+
+def kernel_times(trace_events: list) -> list[tuple[str, float, int]]:
+    """(name, device us, launches) of each kernel in a chrome trace, most
+    time first."""
+    acc: dict = {}
+    for e in trace_events:
+        if e.get("cat") == "kernel":
+            us, n = acc.get(e["name"], (0.0, 0))
+            acc[e["name"]] = (us + e["dur"], n + 1)
+    return sorted(((k, us, n) for k, (us, n) in acc.items()),
+                  key=lambda r: -r[1])
+
+
+def traced(fn) -> tuple[object, list]:
+    """(fn(), the chrome-trace events of a torch.profiler run of it, the
+    card synchronised at its end)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return out, json.loads(path.read_text())["traceEvents"]
+
+
+def k_config(ckpt_dir: str, k: int) -> Config:
+    """Phase 6's config #3 run (device synth, 8 x 40960, 8 steps) at
+    train.steps_per_call=k."""
+    cfg = train_config(ckpt_dir)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, steps_per_call=k))
+
+
+def trained_state(losses, model, optimizer) -> dict:
+    """What a k-step block must reproduce of k single steps: the losses,
+    the model's parameters and BN statistics, the optimizer's moments and
+    count."""
+    return {"loss": torch.as_tensor(losses),
+            **{f"model.{k}": v for k, v in model.state_dict().items()},
+            **{f"mu.{i}": m for i, m in enumerate(optimizer.mu)},
+            **{f"nu.{i}": v for i, v in enumerate(optimizer.nu)},
+            "count": optimizer.count}
+
+
+def require_bitwise(label: str, got: dict, want: dict) -> None:
+    """Raise, naming every entry whose bits differ."""
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if differ or got.keys() != want.keys():
+        raise AssertionError(f"{label}: {len(differ)} of {len(want)} "
+                             f"entries differ, first {differ[:8]}")
+
+
+def run_counted(cfg, want: dict, steps: int = TRAIN_STEPS
+                ) -> tuple[object, int]:
+    """(run_detector(cfg), peak bytes) with its counts from 0, which must
+    be `want` (finite losses, `steps` steps)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run_detector(cfg)
+    got = counts()
+    torch.cuda.synchronize()
+    if got != want:
+        raise AssertionError(f"launches {got} != {want}")
+    losses = [h["loss"] for h in result.history]
+    if result.step != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"steps {result.step}, losses {losses}")
+    return result, torch.cuda.max_memory_allocated()
+
+
+def block_ms(block, batches, gen, bn_m) -> float:
+    """Host ms of one block call that ends by reading its losses."""
+    t0 = time.perf_counter()
+    block(batches, gen, bn_m)["loss"].tolist()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def replayed_synth_block(card: str, work: Path) -> dict:
+    """A config-#3 device-synth block built apart from run_detector, so the
+    replay can be timed and traced: a warm-up block, the capture, then
+    REPLAY_BLOCKS blocks on the host clock (each ends by reading its
+    losses) and one under torch.profiler. The wrappers' counters see the
+    capture's launches and none of a replay's; the profiler counts the
+    replayed kernels by name."""
+    cfg = k_config(str(work / "apart"), K_STEPS)
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg)
+    optimizer = train_lib.make_optimizer(cfg.train, TRAIN_STEPS,
+                                         model.parameters())
+    data_gen = torch.Generator(device="cuda").manual_seed(7)
+    step_gen = torch.Generator(device="cuda").manual_seed(8)
+    block = train_lib.make_detector_train_block(
+        model, optimizer, cfg, K_STEPS, generators=(data_gen,),
+        synth_fn=lambda: synthetic_detection_batch(
+            data_gen, TRAIN_B, TRAIN_N, 18, vote_candidates=3))
+    bn_m = train_lib.bn_momentum_at(cfg.train, 0)
+    warm = block_ms(block, None, step_gen, bn_m)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = block_ms(block, None, step_gen, bn_m)
+    captured = counts()
+    if captured != launches(fps=5, ball_query=7, scatter=9):
+        raise AssertionError(f"the capture launched {captured}, not one "
+                             "step's 5 / 7 / 9")
+    times = [block_ms(block, None, step_gen, bn_m)
+             for _ in range(REPLAY_BLOCKS)]
+    _, events = traced(lambda: block(None, step_gen, bn_m)["loss"].tolist())
+    if counts() != captured:
+        raise AssertionError(f"replays went through the wrappers: "
+                             f"{counts()}")
+    peak = torch.cuda.max_memory_allocated()
+    kernels, busy, span = busy_share(events)
+    by_name = {name: 0 for name in REPLAY_KERNELS}
+    device_us = {name: 0.0 for name in REPLAY_KERNELS}
+    for name, us, n in kernel_times(events):
+        for key in REPLAY_KERNELS:
+            if re.search(rf"\b{key}\b", name):
+                by_name[key] += n
+                device_us[key] += us
+    want = {k: n * K_STEPS for k, (_, n) in REPLAY_KERNELS.items()}
+    if by_name != want:
+        raise AssertionError(f"a replayed block ran {by_name}, not {want}")
+    med = statistics.median(times) / K_STEPS
+    print(f"  replayed block (apart from run_detector): warm-up block "
+          f"{warm:.3f} ms, capture + first replayed block {first:.3f} ms "
+          f"(capture {block.capture_seconds * 1e3:.3f} ms), replayed blocks "
+          f"{', '.join(f'{t:.3f}' for t in times)} ms: {med:.3f} ms a step "
+          f"on {card}")
+    print(f"  a replayed step's kernels by name (torch.profiler, one block "
+          f"/ {K_STEPS}; device ms): " + ", ".join(
+              f"{k} {v // K_STEPS} ({device_us[k] / K_STEPS / 1e3:.3f})"
+              for k, v in by_name.items())
+          + f"; all kernels {kernels / K_STEPS:.1f}; busy share "
+          f"{busy / span:.3f} ({busy / 1e3:.3f} of {span / 1e3:.3f} ms); "
+          f"peak memory allocated with the graph's pool "
+          f"{peak / 2**30:.3f} GiB on {card}")
+    return {"step_ms": med, "capture_ms": block.capture_seconds * 1e3,
+            "busy_share": busy / span, "kernels_a_step": kernels / K_STEPS,
+            "replay_launches": by_name, "peak_bytes": peak,
+            "replay_device_ms": {k: us / K_STEPS / 1e3
+                                 for k, us in device_us.items()}}
+
+
+def stacked_blocks(dataset, count: int) -> list:
+    """`count` [k, B, ...] blocks of the dataset on the card, as the k-step
+    host feed draws them (k x B scenes a draw)."""
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(count):
+        flat = dataset.train_batch(rng, K_STEPS * TRAIN_B)
+        out.append({n: torch.from_numpy(
+            v.reshape((K_STEPS, TRAIN_B) + v.shape[1:])).cuda()
+            for n, v in flat.items()})
+    return out
+
+
+def graph_vs_eager_host(cfg) -> None:
+    """Three stacked packed blocks (augmented on the card from the step's
+    generator) through a block, which warms up, captures and replays, and
+    the same 12 slices through single eager steps from the same weights
+    and generator seed: bitwise the same losses, parameters, BN
+    statistics, moments and count. Each block runs at another BN momentum
+    (epochs 0, 20, 40) and the rate steps down after steps 4 and 8, so
+    the replays must read both from the device."""
+    dataset = get_dataset(cfg)
+    blocks = stacked_blocks(dataset, 3)
+    source = dataset.source_dataset
+    train = dataclasses.replace(cfg.train, lr_decay_steps=(1, 2),
+                                lr_decay_rates=(0.5, 0.5))
+    bn_ms = [train_lib.bn_momentum_at(train, 20 * i) for i in range(3)]
+    got = {}
+    for graphed in (True, False):
+        model = build_detector(cfg, dataset.mean_sizes)
+        optimizer = train_lib.make_optimizer(train, K_STEPS,
+                                             model.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        if graphed:
+            block = train_lib.make_detector_train_block(
+                model, optimizer, cfg, K_STEPS, source)
+            losses = torch.cat([block(b, gen, m)["loss"]
+                                for b, m in zip(blocks, bn_ms)])
+        else:
+            step = train_lib.make_detector_steps(model, optimizer, cfg,
+                                                 source)
+            losses = torch.stack([
+                step({n: v[i] for n, v in b.items()}, gen, m)["loss"]
+                for b, m in zip(blocks, bn_ms) for i in range(K_STEPS)])
+        got[graphed] = trained_state(losses, model, optimizer)
+        del model, optimizer
+    require_bitwise("packed blocks: graph vs eager steps", got[True],
+                    got[False])
+    print(f"  3 packed blocks (warm-up, capture + replay, replay; BN "
+          f"momentum {bn_ms}, the rate halved after steps 4 and 8) bitwise "
+          f"{3 * K_STEPS} eager steps on the same slices: losses, "
+          f"{len(got[True]) - 2} tensors and the count")
+
+
+def phase_train_k(card: str, hostfed_work: Path) -> dict:
+    print(f"== k-step blocks: run_detector, config #3, "
+          f"train.steps_per_call={K_STEPS} (a CUDA graph of one step "
+          f"replayed {K_STEPS} times a block) against 1, {TRAIN_B} x "
+          f"{TRAIN_N} points, {TRAIN_STEPS} steps")
+    step_counts = launches(fps=5 * TRAIN_STEPS, ball_query=7 * TRAIN_STEPS,
+                           scatter=9 * TRAIN_STEPS)
+    # at k: one eager warm-up block, then one step captured
+    k_counts = launches(fps=5 * (K_STEPS + 1), ball_query=7 * (K_STEPS + 1),
+                        scatter=9 * (K_STEPS + 1))
+    work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_k_"))
+    try:
+        # (a) device synth: two eager runs, then the block
+        states, results = [], {}
+        for label, k in (("k=1", 1), ("k=1 again", 1), (f"k={K_STEPS}",
+                                                         K_STEPS)):
+            result, peak = run_counted(k_config(str(work / label), k),
+                                       step_counts if k == 1 else k_counts)
+            states.append(trained_state(
+                [h["loss"] for h in result.history], result.model,
+                result.optimizer))
+            results[label] = (result.history, peak)
+        total = dict(k_counts)
+        require_bitwise("two eager runs", states[1], states[0])
+        require_bitwise(f"k={K_STEPS} vs k=1", states[2], states[0])
+        del states
+        for label, (history, peak) in results.items():
+            med = statistics.median(h["seconds"] for h in history[1:]) * 1e3
+            each = ", ".join(f"{h['seconds'] * 1e3:.3f}" for h in history)
+            print(f"  device synth {label}: losses "
+                  f"{[round(h['loss'], 4) for h in history]}; ms a step "
+                  f"{each} (median of steps 2-8 {med:.3f}); peak memory "
+                  f"allocated {peak / 2**30:.3f} GiB on {card}")
+        print(f"  two eager runs bitwise equal, and k={K_STEPS} (a warm-up "
+              "block, then a replayed one) bitwise equal to them: losses, "
+              "parameters, BN statistics, moments, count")
+        eager_ms = statistics.median(
+            h["seconds"] for h in results["k=1"][0][1:]) * 1e3
+        replayed = replayed_synth_block(card, work)
+
+        # (b) the packed split of phase 10's run B through the stacked
+        # feed, two epochs, so that at k the last two blocks only replay
+        packed = str(hostfed_work / "packed")
+        extra = ("data.name=packed", "data.use_color=true",
+                 "data.device_augment=true", "data.compact_votes=true",
+                 "train.num_epochs=2", "train.eval_every=2")
+        steps = 2 * TRAIN_STEPS
+        host = {}
+        for k in (1, K_STEPS):
+            cfg = hostfed_config(packed, str(work / f"packed_{k}"), *extra,
+                                 f"train.steps_per_call={k}")
+            ran = steps if k == 1 else K_STEPS + 1
+            want = launches(fps=5 * ran + 5, ball_query=7 * ran + 7,
+                            scatter=9 * ran)
+            result, peak = run_counted(cfg, want, steps)
+            if k > 1:
+                total = {n: total[n] + want[n] for n in total}
+            (ev,) = result.evals
+            if not np.isfinite(ev["val_loss"]):
+                raise AssertionError(f"packed k={k}: eval {ev}")
+            calls = [result.history[i:i + k] for i in range(0, steps, k)]
+            call_ms = [sum(h["seconds"] for h in c) * 1e3 for c in calls]
+            waits = [sum(h["wait"] for h in c) * 1e3 for c in calls]
+            # k = 1: steps 2-16; k: the blocks after the capture's
+            settled = slice(1, None) if k == 1 else slice(2, None)
+            med = statistics.median(call_ms[settled]) / k
+            wait = statistics.median(waits[settled])
+            host[k] = {"median_ms": med, "wait_ms": wait}
+            print(f"  packed k={k}: losses "
+                  f"{[round(h['loss'], 4) for h in result.history]}; ms a "
+                  f"call {', '.join(f'{t:.3f}' for t in call_ms)}, of it "
+                  f"host wait {', '.join(f'{w:.3f}' for w in waits)}; "
+                  f"{med:.3f} ms a step and {wait:.3f} ms of wait a call "
+                  f"(medians of calls {'2-16' if k == 1 else '3-4'}); val "
+                  f"sweep {ev['seconds'] * 1e3:.3f} ms; peak memory "
+                  f"allocated {peak / 2**30:.3f} GiB on {card}")
+        graph_vs_eager_host(cfg)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    train_lib.apply_runtime_config(Config())
+    print(f"  ms a step: k=1 {eager_ms:.3f} (run_detector, median of steps "
+          f"2-8), k={K_STEPS} {replayed['step_ms']:.3f} (replayed blocks, "
+          f"median over {REPLAY_BLOCKS} / {K_STEPS}); capture "
+          f"{replayed['capture_ms']:.3f} ms; on {card}")
+    return {"counts": total, "eager_ms": eager_ms, **replayed, "host": host}
+
+
 def main() -> None:
     card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1856,10 +2194,11 @@ def main() -> None:
         del eval_loads
         sorted_t = phase_sorted(gen, eval_calls, serve_sa1, train_sa1)
         evaluated = phase_eval(card, outdoor)
-        hostfed = phase_hostfed(card)
+        hostfed = phase_hostfed(card, work / "hostfed")
         trained4 = phase_outdoor_train(card, {
             "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t,
             "fps_flat": flat_t})
+        trained_k = phase_train_k(card, work / "hostfed")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -1870,7 +2209,8 @@ def main() -> None:
     paths = {"serve": served["counts"], "train": trained["counts"],
              "eval4": {**evaluated["exact"]["counts"],
                        "sorted": evaluated["sorted"]["counts"]["sorted"]},
-             "hostfed": hostfed["counts"], "train4": trained4["counts"]}
+             "hostfed": hostfed["counts"], "train4": trained4["counts"],
+             "traink": trained_k["counts"]}
 
     def entry(name, counter, source, replaces, tally):
         times = tally.summary()
@@ -1879,7 +2219,14 @@ def main() -> None:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(c[counter] for c in paths.values()),
-                "hostfed_launches": paths["hostfed"][counter], **times}
+                "hostfed_launches": paths["hostfed"][counter],
+                "traink_replayed_step_launches": sum(
+                    n for k, n in trained_k["replay_launches"].items()
+                    if REPLAY_KERNELS[k][0] == counter) // K_STEPS,
+                "traink_replayed_step_device_ms": sum(
+                    ms for k, ms in trained_k["replay_device_ms"].items()
+                    if REPLAY_KERNELS[k][0] == counter),
+                **times}
 
     kernels = [
         entry("fps", "fps", "tpu3dsad_torch/csrc/fps.cu",
@@ -1906,7 +2253,11 @@ def main() -> None:
           f"sweep with ops_fast_mode=sorted), the 2 x {TRAIN_STEPS} "
           "host-fed steps and 2 val batches of phase 10 (under "
           f"hostfed_launches) and the 2 x {OUT_STEPS} config-#4 steps, 2 "
-          "val batches and B2 in the loader of phase 11 (train4)")
+          "val batches and B2 in the loader of phase 11 (train4), and "
+          f"phase 12's train.steps_per_call={K_STEPS} runs (device synth "
+          "and packed: the eager warm-up block and the captured step, "
+          "which the counters see; traink_replayed_step_launches counts a "
+          "replayed step's launches by name with torch.profiler)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

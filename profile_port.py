@@ -102,11 +102,13 @@ from chip_smoke import (
     B,
     N,
     build_server,
+    busy_share,
     capture_eval_batch,
     capture_request,
     capture_train_step,
     cuda_ms,
     eval_config,
+    kernel_times,
     make_requests,
     phase_device,
     plan_text,
@@ -168,37 +170,6 @@ def hook_events(mods: dict) -> tuple[dict, list]:
         handles.append(mod.register_forward_pre_hook(marker(name, 0)))
         handles.append(mod.register_forward_hook(marker(name, 1)))
     return events, handles
-
-
-def busy_share(trace_events: list) -> tuple[int, float, float]:
-    """(kernels, busy us, span us) of the chrome-trace events of category
-    'kernel': busy is the union of their intervals, span runs from the first
-    kernel's start to the last kernel's end."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace_events
-                   if e.get("cat") == "kernel")
-    if not spans:
-        raise RuntimeError("the trace holds no kernel: no device time seen")
-    busy, run_start, run_end = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > run_end:
-            busy += run_end - run_start
-            run_start, run_end = start, end
-        else:
-            run_end = max(run_end, end)
-    busy += run_end - run_start
-    return len(spans), busy, max(e for _, e in spans) - spans[0][0]
-
-
-def kernel_times(trace_events: list) -> list[tuple[str, float, int]]:
-    """(name, device us, launches) of each kernel in a chrome trace, most
-    time first."""
-    acc: dict = {}
-    for e in trace_events:
-        if e.get("cat") == "kernel":
-            us, n = acc.get(e["name"], (0.0, 0))
-            acc[e["name"]] = (us + e["dur"], n + 1)
-    return sorted(((k, us, n) for k, (us, n) in acc.items()),
-                  key=lambda r: -r[1])
 
 
 def is_gemm(name: str) -> bool:

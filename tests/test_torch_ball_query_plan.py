@@ -25,6 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
 from test_torch_outdoor import _sorted_case
 from tpu3dsad.ops.oracle import ball_query_oracle
 from tpu3dsad_torch.ops import sorted as tsorted

@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
 import tpu3dsad.ops as jops
 import tpu3dsad_torch.config as tconfig
 import tpu3dsad_torch.ops as tops

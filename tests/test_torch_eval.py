@@ -32,6 +32,9 @@ import numpy as np
 import pytest
 import torch
 
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
 import tpu3dsad.ops as jops
 from tpu3dsad import config as jconfig
 from tpu3dsad import train_lib as jtrain

@@ -16,6 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
 from tpu3dsad.ops.oracle import fps_oracle
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
 from tpu3dsad_torch.ops.cuda.fps import MAX_CLUSTER, Plan, plan

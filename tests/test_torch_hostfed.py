@@ -33,6 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
 import tpu3dsad_torch.config as tconfig
 from tpu3dsad import config as jconfig
 from tpu3dsad import losses as jlosses
@@ -454,8 +457,13 @@ def test_device_prefetch_on_the_cpu_keeps_order_and_content(packs):
         _equal({k: t.numpy() for k, t in d.items()}, h)
     with pytest.raises(NotImplementedError, match="A11"):
         tpacked.device_prefetch(host, "cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        tpacked.device_prefetch(host, "cpu", stacked=True)
+    blocks = [{k: np.stack([b[k] for b in host[i:i + 2]]) for k in host[0]}
+              for i in (0, 2)]
+    out = list(tpacked.device_prefetch(iter(blocks), "cpu", stacked=True))
+    assert len(out) == 2
+    for h, d in zip(blocks, out):
+        assert all(t.shape[:2] == (2, 2) for t in d.values())
+        _equal({k: t.numpy() for k, t in d.items()}, h)
     assert inspect.signature(tpacked.device_prefetch).parameters[
         "device"].default == "cuda"
 

@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
 from tpu3dsad.nn import FeaturePropagation as JFP
 from tpu3dsad.nn import MaskedBatchNorm as JBN
 from tpu3dsad.nn import SetAbstraction as JSA

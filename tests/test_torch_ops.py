@@ -15,6 +15,9 @@ import types
 import numpy as np
 import pytest
 import torch
+
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 

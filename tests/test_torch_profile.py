@@ -2,6 +2,10 @@
 names), on hand-made traces."""
 
 import pytest
+import torch
+
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
 
 from profile_port import busy_share, is_gemm, kernel_times
 

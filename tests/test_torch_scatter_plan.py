@@ -21,6 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.cuda.scatter import (
     MAX_BLOCKS,

@@ -49,6 +49,9 @@ import optax
 import pytest
 import torch
 
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
 import tpu3dsad_torch.config as tconfig
 from tpu3dsad import losses as jlosses
 from tpu3dsad import train_lib as jtrain
@@ -733,16 +736,19 @@ def test_run_detector_on_cpu_trains_logs_checkpoints_and_resumes(
 @pytest.mark.parametrize("change,match", [
     (dict(train=dict(eval_every=1)), None),
     (dict(data=dict(device_synth=False)), None),
-    (dict(train=dict(steps_per_call=4)), "A7.3"),
+    (dict(train=dict(steps_per_call=4)), None),
     (dict(train=dict(mesh_shape=(2,))), "A11"),
     (dict(data=dict(name="scannet", use_color=True),
           model=dict(num_classes=18)), None),
 ], ids=["evaluate", "host_fed", "steps_per_call", "mesh", "dataset"])
-def test_run_detector_refuses_unported_paths(tmp_path, change, match):
-    """k-step blocks and a mesh are refused before any work. The paths
-    ROADMAP A7.2 / A7.6 ported, refused before, run: evaluating within the
-    run (the synthetic dataset's host val batches), host-fed batches
-    (Batcher and device_prefetch) and a dataset read from files."""
+def test_run_detector_refuses_unported_paths(tmp_path, capsys, change,
+                                             match):
+    """A mesh is refused before any work. The paths ported since, refused
+    before, run: evaluating within the run (the synthetic dataset's host
+    val batches), host-fed batches (Batcher and device_prefetch), k-step
+    blocks (train.steps_per_call=4: two blocks of 4 on the CPU, log rows
+    at steps 4 and 8, as tests/e2e/test_steps_per_call.py holds the
+    reference) and a dataset read from files."""
     ckpt = tmp_path / "ckpt"
     cfg = _run_cfg(ckpt)
     if change.get("data", {}).get("name") == "scannet":
@@ -760,6 +766,11 @@ def test_run_detector_refuses_unported_paths(tmp_path, change, match):
     result = run_detector(cfg, device="cpu")
     assert result.step == (1 if cfg.data.name == "scannet" else 8)
     assert np.isfinite([h["loss"] for h in result.history]).all()
+    assert [h["step"] for h in result.history] == list(
+        range(1, result.step + 1))
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    logged = [r["step"] for r in rows if "train/loss" in r]
+    assert logged == ([] if cfg.data.name == "scannet" else [4, 8])
     assert (ckpt / f"ckpt_{result.step}.pt").exists()
     if cfg.train.eval_every == 1:
         (m,) = result.evals

@@ -25,6 +25,7 @@ import torch
 
 from tpu3dsad_torch.config import class_mean_sizes
 from tpu3dsad_torch.ops.boxes import mod
+from tpu3dsad_torch.utils.constants import device_constant
 
 
 def _uniform(generator, shape, lo, hi, device):
@@ -68,8 +69,8 @@ def apply_augment(batch: dict, draws: dict) -> dict:
     sizes = batch["gt_sizes"]
 
     def flip(v, ax, do):
-        sign = torch.ones(3, device=v.device)
-        sign[ax] = -1.0
+        sign = device_constant(np.where(np.arange(3) == ax, -1.0, 1.0),
+                               v.device)
         shape = (-1,) + (1,) * (v.dim() - 1)
         return torch.where(do.reshape(shape), v * sign, v)
 
@@ -198,7 +199,7 @@ def synthetic_detection_batch(generator: torch.Generator, batch_size: int,
     B, N = batch_size, num_points
     G = min(max_objects, max_boxes)
     min_objects = min(min_objects, G)
-    mean_sizes = torch.as_tensor(class_mean_sizes(num_classes), device=dev)
+    mean_sizes = device_constant(class_mean_sizes(num_classes), dev)
 
     def uniform(shape, lo, hi):
         return _uniform(generator, shape, lo, hi, dev)

@@ -197,16 +197,14 @@ def device_prefetch(batches, device="cuda", depth: int = 2, *, mesh=None,
     consumer's work on them is done. A pinned buffer is released only
     after its copy's event has completed.
 
-    A device mesh (ROADMAP A11) and stacked k-step blocks (ROADMAP A7.3)
-    are not ported and raise."""
+    stacked=True marks [k, B, ...] blocks of k steps
+    (train.steps_per_call); on one device they are copied as any batch is
+    (the reference shards their axis 1 over a mesh). A device mesh
+    (ROADMAP A11) is not ported and raises."""
     if mesh is not None:
         raise NotImplementedError(
             "device_prefetch over a device mesh is not ported yet "
             "(ROADMAP A11)")
-    if stacked:
-        raise NotImplementedError(
-            "stacked k-step blocks (train.steps_per_call > 1) are not ported "
-            "yet (ROADMAP A7.3)")
     device = torch.device(device)
     if device.type == "cuda":
         return _prefetch_cuda(batches, device, depth)

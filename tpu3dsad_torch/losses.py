@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from tpu3dsad_torch.ops.boxes import angle_to_bin
 from tpu3dsad_torch.ops.plain.knn import pairwise_sqdist
+from tpu3dsad_torch.utils.constants import device_constant
 
 NEAR_THRESHOLD = 0.3
 FAR_THRESHOLD = 0.6
@@ -133,8 +134,7 @@ def box_and_sem_loss(end_points, batch, pos, nearest, mean_sizes,
 
     # size: template class == semantic class (lineage convention)
     size_cls = _masked_mean(_ce(end_points["size_scores"], gt_cls), pos)
-    ms = torch.as_tensor(np.asarray(mean_sizes, np.float32),
-                         device=gt_size.device)[gt_cls]
+    ms = device_constant(mean_sizes, gt_size.device)[gt_cls]
     gt_res_norm = (gt_size - ms) / ms
     pred_sres = _take(end_points["size_residuals_normalized"],
                       gt_cls[..., None], -2)[..., 0, :]
@@ -147,8 +147,7 @@ def box_and_sem_loss(end_points, batch, pos, nearest, mean_sizes,
 def scale_selection_loss(end_points, pos, gt_size, radius_bank):
     """CE of the scale logits against the bank radius nearest half the GT
     box's mean horizontal extent."""
-    bank = torch.as_tensor(radius_bank, dtype=torch.float32,
-                           device=gt_size.device)
+    bank = device_constant(radius_bank, gt_size.device)
     target_r = 0.5 * gt_size[..., :2].mean(-1)
     tgt = (target_r[..., None] - bank).abs().argmin(-1)
     return _masked_mean(_ce(end_points["scale_logits"], tgt), pos)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from tpu3dsad_torch.ops.boxes import angle_from_bin
+from tpu3dsad_torch.utils.constants import device_constant
 
 
 def decode_proposals(raw, base_xyz, mean_sizes, num_heading_bins: int):
@@ -19,8 +20,7 @@ def decode_proposals(raw, base_xyz, mean_sizes, num_heading_bins: int):
     Returns dict of decoded fields (lineage end_points naming)."""
     NH = num_heading_bins
     NS = len(mean_sizes)
-    sizes = torch.as_tensor(np.asarray(mean_sizes, np.float32),
-                            device=raw.device)
+    sizes = device_constant(mean_sizes, raw.device)
     splits = [2, 3, NH, NH, NS, NS * 3]
     parts = torch.split(raw, splits + [raw.shape[-1] - sum(splits)], -1)
     objectness, offset, heading_scores, heading_res_norm, size_scores, \
@@ -43,8 +43,7 @@ def predicted_boxes(end_points, mean_sizes, num_heading_bins: int):
     """Argmax decode to concrete boxes: (center [B,P,3], size [B,P,3],
     heading [B,P], sem_cls [B,P], objectness_prob [B,P])."""
     center = end_points["center"]
-    sizes = torch.as_tensor(np.asarray(mean_sizes, np.float32),
-                            device=center.device)
+    sizes = device_constant(mean_sizes, center.device)
     hcls = end_points["heading_scores"].argmax(-1)
     hres = end_points["heading_residuals"].gather(-1, hcls[..., None])[..., 0]
     heading = angle_from_bin(hcls, hres, num_heading_bins)

@@ -51,7 +51,7 @@ class SharedMLP(nn.Module):
             in_channels = ch
 
     def forward(self, x: torch.Tensor, *, mask: torch.Tensor | None = None,
-                bn_momentum: float = 0.9) -> torch.Tensor:
+                bn_momentum: float | torch.Tensor = 0.9) -> torch.Tensor:
         """x [..., C]; mask [...] gates the BN statistics in training."""
         for i in range(self.n):
             x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x),

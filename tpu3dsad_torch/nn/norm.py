@@ -8,7 +8,9 @@ one to one. Fresh modules start as flax's do: scale 1, bias 0, running mean
 Two conventions differ from torch.nn.BatchNorm and follow the reference:
 
   * `momentum` is the weight of the OLD running average (flax), passed at
-    call time so the BN-momentum schedule needs no new module;
+    call time so the BN-momentum schedule needs no new module: a float, or
+    a 0-d tensor on the module's device, which a captured CUDA graph reads
+    at each replay (the same fp32 products either way);
   * the variance is the biased one over the valid rows (divided by their
     count, clamped to >= 1), used both to normalise and to update the
     running average.
@@ -35,7 +37,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, *, mask: torch.Tensor | None = None,
-                momentum: float = 0.9) -> torch.Tensor:
+                momentum: float | torch.Tensor = 0.9) -> torch.Tensor:
         """x [..., C]; mask [...] bool (True = real row) -> normalised x."""
         if self.training:
             rows = x.reshape(-1, x.shape[-1])

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu3dsad_torch.utils.constants import device_constant
+
 # unit-cube corner signs: top face counter-clockwise, then the bottom face
 _CORNER_SIGNS = np.array(
     [
@@ -56,7 +58,7 @@ def angle_to_bin(angle: torch.Tensor, num_bins: int):
 def box_corners(center: torch.Tensor, size: torch.Tensor,
                 heading: torch.Tensor) -> torch.Tensor:
     """center [...,3], size [...,3], heading [...] -> corners [...,8,3]."""
-    signs = torch.as_tensor(_CORNER_SIGNS, device=size.device)
+    signs = device_constant(_CORNER_SIGNS, size.device)
     ext = size[..., None, :] * signs  # [..., 8, 3]
     c, s = torch.cos(heading)[..., None], torch.sin(heading)[..., None]
     x = ext[..., 0] * c - ext[..., 1] * s

@@ -1,19 +1,23 @@
 """Detector training loop and val sweep (tpu3dsad/train_detector.py:
 run_detector, evaluate).
 
-run_detector: one train step per batch on one device. The batches come
+run_detector: train steps on one device, one a call, or, with
+train.steps_per_call = k > 1, k a call (train_lib.make_detector_train_block:
+on the card a CUDA graph of one step replayed k times). The batches come
 from the dataset's host loader (`train_batch`, on a Batcher thread, then
-`device_prefetch` to the card), or, for data.name=synthetic with
-data.device_synth=true, are made on the card. JSON log lines at the
-`log_every` steps and at each epoch's end; checkpoints with auto-resume;
-every `eval_every` epochs the val sweep, its metrics logged under eval/,
-and the best-mAP snapshot kept (train_lib.save_best_checkpoint).
+`device_prefetch` to the card; at k > 1 one draw of k x B scenes a call,
+stacked [k, B, ...]), or, for data.name=synthetic with
+data.device_synth=true, are made on the card (inside the block at k > 1).
+The loss is read once a call. JSON log lines at the `log_every` steps and
+at each epoch's end; checkpoints with auto-resume; every `eval_every`
+epochs the val sweep, its metrics logged under eval/, and the best-mAP
+snapshot kept (train_lib.save_best_checkpoint).
 
 evaluate: the val sweep of a dataset's host val batches -> AP table, on
 one device.
 
-Not ported yet, and refused with NotImplementedError before any step:
-`steps_per_call > 1` (ROADMAP A7.3) and a device mesh (ROADMAP A11).
+Not ported yet, and refused with NotImplementedError before any step: a
+device mesh (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -44,10 +48,11 @@ from tpu3dsad_torch.utils.metrics import MetricsLogger
 class TrainResult:
     """What run_detector leaves: the trained model and optimizer, the step
     it resumed from and the one it reached, one record per step run
-    ({"step", "loss", "seconds", "wait"}: host wall time of the step,
-    which ends by reading its loss, and of it the time spent waiting for
-    the batch), and one per val sweep ({"epoch", "step", "seconds"} and
-    evaluate's metrics)."""
+    ({"step", "loss", "seconds", "wait"}: host wall time of the call that
+    ran the step, which ends by reading its losses, and of it the time
+    spent waiting for the batch, each divided by the call's k steps), and
+    one per val sweep ({"epoch", "step", "seconds"} and evaluate's
+    metrics)."""
 
     model: SizeAdaptiveDetector
     optimizer: train_lib.Optimizer
@@ -66,15 +71,11 @@ def build_detector(cfg, mean_sizes=None, *, device="cuda"):
         generator=torch.Generator().manual_seed(cfg.train.seed))
 
 
-def _refuse_unported(cfg, k: int) -> None:
+def _refuse_unported(cfg) -> None:
     if tuple(cfg.train.mesh_shape) not in ((-1,), (1,)):
         raise NotImplementedError(
             f"train.mesh_shape={cfg.train.mesh_shape}: training on a device "
             "mesh is not ported yet (ROADMAP A11)")
-    if k > 1:
-        raise NotImplementedError(
-            f"train.steps_per_call={cfg.train.steps_per_call}: fused k-step "
-            "blocks are not ported yet (ROADMAP A7.3)")
 
 
 def run_detector(cfg, *, device="cuda") -> TrainResult:
@@ -96,7 +97,7 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
     bs = cfg.train.batch_size
     steps_per_epoch, k = train_lib.round_steps_per_epoch(
         dataset.steps_per_epoch(bs), cfg.train.steps_per_call)
-    _refuse_unported(cfg, k)
+    _refuse_unported(cfg)
     train_lib.apply_runtime_config(cfg)
 
     model = build_detector(cfg, dataset.mean_sizes, device=device)
@@ -113,9 +114,6 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
     if warning:
         print(warning, file=sys.stderr)
 
-    train_step = train_lib.make_detector_steps(
-        model, optimizer, cfg,
-        aug_dataset=getattr(dataset, "source_dataset", None))
     eval_step = train_lib.make_detector_eval_step(model, cfg)
 
     def parse(end_points):
@@ -123,29 +121,51 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
                                  cfg.model.num_heading_bins, cfg.eval)
 
     step_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
-    batcher = None
+    aug_dataset = getattr(dataset, "source_dataset", None)
+    batcher = make_batch = None
+    synth_gens = ()
     if cfg.data.device_synth and cfg.data.name == "synthetic":
         data_gen = torch.Generator(device=device).manual_seed(
             cfg.train.seed + 1234)
+        synth_gens = (data_gen,)
 
         def make_batch():
             return synthetic_detection_batch(
                 data_gen, bs, cfg.data.num_points, cfg.model.num_classes,
                 cfg.data.max_boxes, vote_candidates=cfg.data.vote_candidates)
 
-        batches = iter(make_batch, None)
+        # at k > 1 the block makes its batches itself
+        batches = iter(make_batch, None) if k == 1 else None
     else:
+        def host_batch(rng):
+            if k == 1:
+                return dataset.train_batch(rng, bs)
+            # one draw of k x B scenes, stacked [k, B, ...]
+            flat = dataset.train_batch(rng, k * bs)
+            return {n: v.reshape((k, bs) + v.shape[1:])
+                    for n, v in flat.items()}
+
         # host batches made ahead on a thread, copied ahead to the device
-        batcher = Batcher(lambda rng: dataset.train_batch(rng, bs),
-                          seed=cfg.train.seed, prefetch=2)
-        batches = device_prefetch(batcher, device)
+        batcher = Batcher(host_batch, seed=cfg.train.seed, prefetch=2)
+        batches = device_prefetch(batcher, device, stacked=k > 1)
+    if k > 1:
+        train = train_lib.make_detector_train_block(
+            model, optimizer, cfg, k, aug_dataset, synth_fn=make_batch,
+            generators=synth_gens)
+    else:
+        step = train_lib.make_detector_steps(model, optimizer, cfg,
+                                             aug_dataset)
+
+        def train(batch, generator, bn_momentum):
+            return {n: v.reshape(1)
+                    for n, v in step(batch, generator, bn_momentum).items()}
 
     logger = MetricsLogger()
     result = TrainResult(model, optimizer, start_step, start_step)
     try:
         for epoch in range(start_step // steps_per_epoch,
                            cfg.train.num_epochs):
-            _train_epoch(cfg, epoch, steps_per_epoch, batches, train_step,
+            _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train,
                          step_gen, logger, result)
             if (epoch + 1) % cfg.train.eval_every == 0:
                 _evaluate_and_keep_best(cfg, epoch, dataset, eval_step,
@@ -157,27 +177,35 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
     return result
 
 
-def _train_epoch(cfg, epoch, steps_per_epoch, batches, train_step, step_gen,
+def _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train, step_gen,
                  logger, result) -> None:
-    """One epoch of train steps, then its log line and checkpoint."""
+    """One epoch of train calls of k steps (train(batch, generator,
+    bn_momentum) -> {metric: [k] tensor}), then its log line and
+    checkpoint."""
     bs = cfg.train.batch_size
     bn_m = train_lib.bn_momentum_at(cfg.train, epoch)
     t0 = time.perf_counter()
-    for _ in range(steps_per_epoch):
-        t_step = time.perf_counter()
-        batch = next(batches)
-        wait = time.perf_counter() - t_step
-        metrics = train_step(batch, step_gen, bn_m)
-        loss = float(metrics["loss"])  # waits for the step's kernels
-        result.step += 1
-        result.history.append({"step": result.step, "loss": loss,
-                               "seconds": time.perf_counter() - t_step,
-                               "wait": wait})
-        if result.step % cfg.train.log_every == 0:
-            logger.log(result.step, {
-                "epoch": epoch,
-                **{n: round(float(v), 4) for n, v in metrics.items()}},
-                prefix="train/")
+    for _ in range(steps_per_epoch // k):
+        t_call = time.perf_counter()
+        batch = None if batches is None else next(batches)
+        wait = time.perf_counter() - t_call
+        metrics = train(batch, step_gen, bn_m)
+        losses = metrics["loss"].tolist()  # waits for the call's kernels
+        seconds = time.perf_counter() - t_call
+        base = result.step
+        result.step += k
+        result.history.extend(
+            {"step": base + j + 1, "loss": loss, "seconds": seconds / k,
+             "wait": wait / k} for j, loss in enumerate(losses))
+        rows = [j for j in range(k)
+                if (base + j + 1) % cfg.train.log_every == 0]
+        if rows:
+            values = {n: v.tolist() for n, v in metrics.items()}
+            for j in rows:
+                logger.log(base + j + 1, {
+                    "epoch": epoch,
+                    **{n: round(v[j], 4) for n, v in values.items()}},
+                    prefix="train/")
     dt = time.perf_counter() - t0
     print(json.dumps({"epoch": epoch, "epoch_time_s": round(dt, 2),
                       "scenes_per_sec": round(steps_per_epoch * bs / dt, 2)}),

@@ -1,20 +1,22 @@
 """Training library (tpu3dsad/train_lib.py): runtime knobs (grouping,
-precision), schedules, the optimizer, the detector train and eval steps,
-checkpoints.
+precision), schedules, the optimizer, the detector train step and the
+k-step block (a CUDA graph on the card), the eval step, checkpoints.
 
-The optimizer follows optax's formulas, which differ from torch's helpers
-in two places: the learning rate of update k (0-based) is the schedule at
-k, stepped once k reaches an epoch boundary (optax's
+The optimizer is optax's chain written in tensor ops, which differs from
+torch's helpers in two places: the learning rate of update k (0-based) is
+the schedule at k, stepped once k reaches an epoch boundary (optax's
 piecewise_constant_schedule on the count of earlier updates), and the
 global-norm clip scales by max_norm / norm with no epsilon
-(optax.clip_by_global_norm; torch's clip_grad_norm_ adds 1e-6). Adam and
-AdamW place eps as optax does, which is torch.optim's placement.
+(optax.clip_by_global_norm; torch's clip_grad_norm_ adds 1e-6). Its
+count, rate and moments stay on the device, so a captured step replays
+the update.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +29,7 @@ from tpu3dsad_torch.data.device_pipeline import (
     decode_compact_votes,
 )
 from tpu3dsad_torch.losses import detection_loss
+from tpu3dsad_torch.utils.constants import device_constant
 
 
 def apply_runtime_config(cfg) -> None:
@@ -80,16 +83,22 @@ def check_and_record_train_meta(ckpt_dir: str, steps_per_epoch: int,
 
 def lr_schedule(cfg, steps_per_epoch: int):
     """count -> learning rate: cfg.lr times every rate whose epoch
-    boundary the count of earlier updates has reached."""
-    boundaries = {int(e) * steps_per_epoch: float(r)
-                  for e, r in zip(cfg.lr_decay_steps, cfg.lr_decay_rates)}
+    boundary the count of earlier updates has reached. `count` is an int,
+    or a 0-d integer tensor: then the rate is a 0-d fp32 tensor on its
+    device, picked there without a read to the host."""
+    boundaries = sorted({int(e) * steps_per_epoch: float(r) for e, r in
+                         zip(cfg.lr_decay_steps, cfg.lr_decay_rates)}.items())
+    levels = [cfg.lr]  # the rate once the first i boundaries are reached
+    for _, rate in boundaries:
+        levels.append(levels[-1] * rate)
+    starts = [b for b, _ in boundaries]
 
-    def schedule(count: int) -> float:
-        lr = cfg.lr
-        for boundary, rate in sorted(boundaries.items()):
-            if count >= boundary:
-                lr *= rate
-        return lr
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            reached = (count >= device_constant(starts, count.device,
+                                                np.int64)).sum()
+            return torch.take(device_constant(levels, count.device), reached)
+        return levels[sum(count >= b for b in starts)]
 
     return schedule
 
@@ -106,41 +115,83 @@ def bn_momentum_at(cfg, epoch: int) -> float:
 class Optimizer:
     """Adam, or AdamW when weight_decay > 0, after an optional global-norm
     clip, on the lr schedule (optax.adam / adamw chained after
-    clip_by_global_norm). `count` is the number of updates made."""
+    clip_by_global_norm), in tensor ops on the parameters' device, so that
+    a CUDA graph of a train step replays the update: `count` (the number
+    of updates made) and the moments `mu`, `nu` are tensors updated in
+    place, the rate is the schedule at `count` picked on the device, and
+    nothing is read back to the host. Parameters without a gradient are
+    left as they are."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, cfg, steps_per_epoch: int, params):
         self.params = [p for p in params if p.requires_grad]
         self.schedule = lr_schedule(cfg, steps_per_epoch)
         self.clip = cfg.grad_clip
-        self.count = 0
-        kw = dict(lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8)
-        if cfg.weight_decay > 0:
-            self.inner = torch.optim.AdamW(
-                self.params, weight_decay=cfg.weight_decay, **kw)
-        else:
-            self.inner = torch.optim.Adam(self.params, **kw)
+        self.weight_decay = cfg.weight_decay
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=self.params[0].device)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
 
     def zero_grad(self) -> None:
-        self.inner.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
+    @torch.no_grad()
     def step(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        live = [i for i, p in enumerate(self.params) if p.grad is not None]
+        params = [self.params[i] for i in live]
+        mu = [self.mu[i] for i in live]
+        nu = [self.nu[i] for i in live]
+        grads = [p.grad for p in params]
         if self.clip > 0:
             norm = torch.sqrt(sum((g * g).sum() for g in grads))
             keep = norm < self.clip
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.clip))
-        for group in self.inner.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.inner.step()
+        lr = self.schedule(self.count)
         self.count += 1
+        t = self.count.float()
+        torch._foreach_mul_(mu, self.B1)
+        torch._foreach_add_(mu, grads, alpha=1 - self.B1)
+        torch._foreach_mul_(nu, self.B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.B2)
+        update = torch._foreach_div(mu, 1 - self.B1 ** t)
+        denom = torch._foreach_div(nu, 1 - self.B2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.EPS)
+        torch._foreach_div_(update, denom)
+        if self.weight_decay > 0:
+            torch._foreach_add_(update, params, alpha=self.weight_decay)
+        torch._foreach_mul_(update, -lr)
+        torch._foreach_add_(params, update)
 
     def state_dict(self) -> dict:
-        return {"inner": self.inner.state_dict(), "count": self.count}
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        self.inner.load_state_dict(state["inner"])
-        self.count = int(state["count"])
+        """Copy a state into this optimizer's own tensors (a captured graph
+        holds their addresses). Takes state_dict()'s layout, or that of
+        torch.optim.Adam / AdamW ({"inner": its state_dict, "count": int}),
+        which checkpoints hold from before the update was written in
+        tensor ops."""
+        if "inner" in state:
+            inner = state["inner"]["state"]
+            mu = [inner[i]["exp_avg"] if i in inner else torch.zeros_like(p)
+                  for i, p in enumerate(self.params)]
+            nu = [inner[i]["exp_avg_sq"] if i in inner
+                  else torch.zeros_like(p) for i, p in enumerate(self.params)]
+        else:
+            mu, nu = state["mu"], state["nu"]
+        if len(mu) != len(self.params) or any(
+                m.shape != p.shape or v.shape != p.shape
+                for m, v, p in zip(mu, nu, self.params)):
+            raise ValueError("optimizer state does not match the parameters")
+        for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
+            dst.copy_(src)
+        self.count.copy_(torch.as_tensor(state["count"]))
 
 
 def make_optimizer(cfg, steps_per_epoch: int, params) -> Optimizer:
@@ -148,7 +199,7 @@ def make_optimizer(cfg, steps_per_epoch: int, params) -> Optimizer:
     return Optimizer(cfg, steps_per_epoch, params)
 
 
-def detector_loss(model, cfg, batch: dict, bn_momentum: float):
+def detector_loss(model, cfg, batch: dict, bn_momentum):
     """Forward in the model's current mode, then detection_loss:
     (loss, metrics)."""
     end_points = model(batch["points"], batch.get("point_features"),
@@ -168,12 +219,13 @@ def make_detector_steps(model, optimizer: Optimizer, cfg,
     the recipe of `aug_dataset`, which defaults to cfg.data.name: a packed
     split passes its source dataset), runs forward, loss and backward in
     train mode, and updates the parameters and the BN running averages in
-    place."""
+    place. bn_momentum is a float or a 0-d tensor on the model's device
+    (nn/norm.py)."""
     device_aug = cfg.data.device_augment and cfg.data.augment
     aug = (resolve_aug(cfg.data, aug_dataset or cfg.data.name)
            if device_aug else None)
 
-    def step(batch: dict, generator, bn_momentum: float) -> dict:
+    def step(batch: dict, generator, bn_momentum) -> dict:
         batch = decode_compact_votes(batch, cfg.data.vote_candidates)
         if aug is not None:
             batch = augment_batch(batch, generator, **aug)
@@ -185,6 +237,115 @@ def make_detector_steps(model, optimizer: Optimizer, cfg,
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+class DetectorTrainBlock:
+    """k train steps a call (train.steps_per_call; the reference's scanned
+    block, tpu3dsad/train_lib.py:303-343): block(batches, generator,
+    bn_momentum) -> {metric: [k] tensor}. `batches` carries a leading k
+    axis on every entry (the stacked host feed), or is None where
+    synth_fn() makes each step's batch on the device (data.device_synth);
+    `generators` names the generators synth_fn draws from.
+
+    Step i is make_detector_steps' step on slice i (or on synth_fn's
+    batch), so a block is k sequential steps on the same batches and the
+    same draws: parameters, BN running averages, optimizer state and
+    metrics. The BN momentum is a 0-d tensor that each call fills.
+
+    On the CPU a block is k eager steps. On the card the first call runs
+    its k steps eagerly on a side stream, which warms the capture up; the
+    second call captures one step into a CUDA graph (`graph`; it reads
+    static input buffers, makes synth_fn's batch inside the graph, and has
+    `generator` and `generators` registered, so each replay draws anew;
+    `capture_seconds` is the host time the capture took), and every call
+    from then on replays it k times, copying slice i into the static
+    inputs before replay i. Nothing inside a block reads a value back to
+    the host. A capture or replay that fails raises."""
+
+    def __init__(self, model, optimizer: Optimizer, cfg, k: int,
+                 aug_dataset: str | None = None, synth_fn=None,
+                 generators=()):
+        self.step = make_detector_steps(model, optimizer, cfg, aug_dataset)
+        self.k = k
+        self.synth_fn = synth_fn
+        self.generators = generators
+        self.device = optimizer.count.device
+        self.bn_m = torch.zeros((), device=self.device)
+        self.names: list[str] = []  # the metrics, in the first step's order
+        self.stream = None  # the side stream of the warm-up and the capture
+        self.graph = None
+        self.capture_seconds = None
+        self.inputs = self.outputs = None  # the graph's static buffers
+
+    def __call__(self, batches, generator, bn_momentum) -> dict:
+        self.bn_m.fill_(bn_momentum)
+        if self.device.type != "cuda":
+            out = self._eager(batches, generator)
+        elif self.stream is None:
+            out = self._warm_up(batches, generator)
+        else:
+            if self.graph is None:
+                self._capture(batches, generator)
+            out = self._replay(batches)
+        return {n: out[:, j] for j, n in enumerate(self.names)}
+
+    def _one(self, batch, generator) -> torch.Tensor:
+        if self.synth_fn is not None:
+            batch = self.synth_fn()
+        metrics = self.step(batch, generator, self.bn_m)
+        if not self.names:
+            self.names.extend(metrics)
+        return torch.stack([metrics[n] for n in self.names])
+
+    def _eager(self, batches, generator) -> torch.Tensor:
+        return torch.stack([
+            self._one(None if batches is None else
+                      {n: v[i] for n, v in batches.items()}, generator)
+            for i in range(self.k)])
+
+    def _warm_up(self, batches, generator) -> torch.Tensor:
+        self.stream = torch.cuda.Stream(self.device)
+        here = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            out = self._eager(batches, generator)
+        here.wait_stream(self.stream)
+        out.record_stream(here)
+        return out
+
+    def _capture(self, batches, generator) -> None:
+        t0 = time.perf_counter()
+        self.inputs = (None if batches is None else
+                       {n: v[0].clone() for n, v in batches.items()})
+        graph = torch.cuda.CUDAGraph()
+        registered = []
+        for gen in (generator, *self.generators):
+            if all(gen is not g for g in registered):
+                graph.register_generator_state(gen)
+                registered.append(gen)
+        with torch.cuda.graph(graph, stream=self.stream):
+            self.outputs = self._one(self.inputs, generator)
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _replay(self, batches) -> torch.Tensor:
+        out = torch.empty(self.k, len(self.names), device=self.device)
+        for i in range(self.k):
+            if batches is not None:
+                for n, t in self.inputs.items():
+                    t.copy_(batches[n][i], non_blocking=True)
+            self.graph.replay()
+            out[i].copy_(self.outputs)
+        return out
+
+
+def make_detector_train_block(model, optimizer: Optimizer, cfg, k: int,
+                              aug_dataset: str | None = None,
+                              synth_fn=None,
+                              generators=()) -> DetectorTrainBlock:
+    """cfg: a Config; see DetectorTrainBlock."""
+    return DetectorTrainBlock(model, optimizer, cfg, k, aug_dataset,
+                              synth_fn, generators)
 
 
 def make_detector_eval_step(model, cfg):
