@@ -142,6 +142,31 @@ Phases, in order; any failure raises and the script exits nonzero:
     blocks' median over 4), the capture's ms, the busy share of a replayed
     block, a replayed step's kernels by name and in all, peak memory with
     the graph's pool, and for (b) each call's ms and host wait.
+13. config #1, the PointNet++ classifier (models/classifier.py). (a) The
+    SSG model, 40 classes, seeded random weights, answers 20 clouds of
+    1024 points one at a time in eval mode (fp32) after a warm-up: finite
+    logits, 2 FPS and 2 ball-query launches a cloud and no scatter; one
+    cloud's launches equal to the plain versions (FPS and ball-query
+    indices, each timed with its plan) and its logits within rtol 1e-5,
+    atol 1e-6 of the plain path's; ms a cloud and one profiled cloud.
+    (b) train_classifier.run_classifier trains MSG (40 classes, 16 x 1024
+    points, synthetic clouds) for one epoch, cut from the reference's 100
+    steps to 8, and its 8-batch val sweep: 2 / 6 / 3 launches a step and
+    2 / 6 a val batch, finite losses, parameters and BN statistics moved,
+    a second call resumes at step 8 with no launch; one step from the
+    trained state on the kernel
+    path and the plain path (dropout from one seed): the same loss and
+    bitwise the same gradients. (c) The 2 + 6 + 3 launches of that step
+    recorded (ball query at K = 16, 32, 128 and 32, 64, 128; the scatter
+    323 channels wide, two channel slices): FPS equal in 3 launches, ball
+    query in 3, the scatter bitwise np.add.at; each timed with its plan,
+    plain version, bound and (scatter) index_add_, under the path
+    `classify`; then the step under torch.profiler. (d) The shape
+    benchmark: data/synthetic_shapes.py (64 + 16 meshes of each of 10
+    families, seed 0), data/preproc_modelnet.py (4096 points a mesh), then
+    run_classifier on r5's recipe (MSG, 512 points, batch 16, lr 1e-3, val
+    after each epoch) for 4 epochs: the launches of 160 steps and 4
+    sweeps, the val accuracy of each epoch, at least 0.9 after the last.
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -158,7 +183,8 @@ config-#4 eval batch (one scene for B2) and one config-#4 train step
 launches count every phase's main-path runs, phase 12's as its wrappers
 see them (the warm-up block and the capture), and
 traink_replayed_step_launches and _device_ms a replayed step's launches
-and device time by the profiler; the last line names the device.
+and device time by the profiler (path classify: phase 13); the last line
+names the device.
 """
 
 from __future__ import annotations
@@ -179,7 +205,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpu3dsad_torch import eval_detector, ops, train_detector, train_lib
+from tpu3dsad_torch import (
+    eval_detector,
+    ops,
+    train_classifier,
+    train_detector,
+    train_lib,
+)
 from tpu3dsad_torch.config import (
     Config,
     DataConfig,
@@ -187,14 +219,22 @@ from tpu3dsad_torch.config import (
     TrainConfig,
     parse_cli,
 )
-from tpu3dsad_torch.data import get_dataset, kitti, synthetic_indoor
+from tpu3dsad_torch.data import (
+    get_dataset,
+    kitti,
+    preproc_modelnet,
+    synthetic_indoor,
+    synthetic_shapes,
+)
 from tpu3dsad_torch.data.device_pipeline import (
     decode_compact_votes,
     synthetic_detection_batch,
 )
 from tpu3dsad_torch.data.packed import pack_dataset
+from tpu3dsad_torch.data.synthetic import classification_batch
 from tpu3dsad_torch.data.synthetic_outdoor import write_dataset
 from tpu3dsad_torch.eval.ap import APCalculator, box3d_iou_oriented
+from tpu3dsad_torch.models.classifier import MSG_SA1, MSG_SA2, build_classifier
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
 from tpu3dsad_torch.ops import sorted as sorted_bq
 from tpu3dsad_torch.ops.boxes import oriented_bev_iou
@@ -2171,6 +2211,302 @@ def phase_train_k(card: str, hostfed_work: Path) -> dict:
     return {"counts": total, "eager_ms": eager_ms, **replayed, "host": host}
 
 
+# config #1, the PointNet++ classifier (BASELINE config #1: ModelNet40, 40
+# classes, 1024 points a cloud): (a) the SSG model answers CLS_REQUESTS
+# clouds one at a time after a warm-up; (b) run_classifier trains MSG on
+# synthetic clouds, CLS_B a step, for one epoch cut from the reference's
+# 100 steps to CLS_STEPS, then its 8-batch val sweep
+CLS_N, CLS_CLASSES, CLS_B, CLS_REQUESTS = 1024, 40, 16, 20
+CLS_STEPS, CLS_VAL = 8, train_classifier.SYNTHETIC_VAL_BATCHES
+# launches of one forward; an MSG training step adds SA2's three groupings'
+# backward, scatters 323 channels wide (xyz + 64 + 128 + 128 features)
+CLS_SERVE = dict(fps=2, ball_query=2)
+CLS_FORWARD = dict(fps=2, ball_query=6)
+CLS_STEP = dict(fps=2, ball_query=6, scatter=3)
+# (d) the shape benchmark, r5's recipe
+# (docs/experiments/r5_classifier10_shapes_cpu.jsonl): 64 + 16 meshes a
+# family, sampled to 4096 points, MSG at 512 points, b = 16, lr 1e-3, val
+# after each epoch; val acc >= 0.9 after the last (r5: 0.9625, 0.9875,
+# 1.0, 1.0 over epochs 0-3)
+SHAPES_TRAIN, SHAPES_TEST, SHAPES_EPOCHS, SHAPES_TARGET = 64, 16, 4, 0.9
+SHAPES_ARGS = ["preset=classifier", "model.classifier_msg=true",
+               "data.name=modelnet", "data.num_points=512",
+               "train.batch_size=16", "train.lr=1e-3",
+               f"train.num_epochs={SHAPES_EPOCHS}", "train.eval_every=1",
+               "train.lr_decay_steps=(12,18,22)",
+               "train.lr_decay_rates=(0.3,0.3,0.3)", "train.ckpt_every=5",
+               "train.log_every=10"]
+
+
+@contextlib.contextmanager
+def synthetic_epoch(steps: int):
+    """run_classifier's synthetic epoch cut to `steps` within the block."""
+    full = train_classifier.SYNTHETIC_STEPS_PER_EPOCH
+    train_classifier.SYNTHETIC_STEPS_PER_EPOCH = steps
+    try:
+        yield
+    finally:
+        train_classifier.SYNTHETIC_STEPS_PER_EPOCH = full
+
+
+def cls_config(*args: str) -> Config:
+    return parse_cli(["preset=classifier", f"data.num_points={CLS_N}",
+                      f"model.num_classes={CLS_CLASSES}", *args])
+
+
+def cls_clouds(count: int, batch: int, seed: int) -> list:
+    """`count` classification batches of `batch` clouds of CLS_N points
+    on the card (data/synthetic.py)."""
+    rng = np.random.default_rng(seed)
+    return [train_classifier.to_device(classification_batch(
+        rng, batch, CLS_N, CLS_CLASSES), "cuda") for _ in range(count)]
+
+
+def cls_grads_of(model, state, batch, bn_m, seed: int = 3):
+    """(loss, {name: grad}) of one classifier forward + backward in train
+    mode from `state`, dropout drawn from a card generator seeded alike on
+    every call."""
+    model.load_state_dict(state)
+    model.zero_grad(set_to_none=True)
+    model.train()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    loss, _ = train_lib.classifier_loss(model, batch, bn_m, gen)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+
+
+def profile_text(events: list, per: int = 1) -> str:
+    """Kernels, busy share and the five longest kernels (device ms) of a
+    trace, divided by `per` runs."""
+    kernels, busy, span = busy_share(events)
+    top = ", ".join(f"{name[:48]} {us / per / 1e3:.3f} ({n // per})"
+                    for name, us, n in kernel_times(events)[:5])
+    return (f"{kernels / per:.0f} kernels, busy share {busy / span:.3f} "
+            f"({busy / per / 1e3:.3f} of {span / per / 1e3:.3f} ms); "
+            f"longest: {top}")
+
+
+def cls_serve(card: str) -> dict:
+    """(a) the SSG classifier answers B = 1 clouds in eval mode."""
+    print(f"  (a) SSG, {CLS_CLASSES} classes, seeded random weights: "
+          f"1 warm-up + {CLS_REQUESTS} clouds of {CLS_N} points, one at a "
+          "time, fp32")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the package's default
+    model = build_classifier(cls_config(), CLS_CLASSES)
+    clouds = cls_clouds(CLS_REQUESTS + 1, 1, seed=11)
+    with torch.inference_mode():
+        model(clouds[0]["points"])
+        reset_counts()
+        times, outs = [], []
+        for c in clouds[1:]:
+            t0 = time.perf_counter()
+            outs.append(model(c["points"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        served = counts()
+        want = launches(**{k: v * CLS_REQUESTS for k, v in CLS_SERVE.items()})
+        if served != want:
+            raise AssertionError(f"served {served}, not {want}")
+        logits = torch.cat(outs)
+        if logits.shape != (CLS_REQUESTS, CLS_CLASSES) or not (
+                logits.isfinite().all()):
+            raise AssertionError(f"logits {tuple(logits.shape)}, finite "
+                                 f"{bool(logits.isfinite().all())}")
+        with recording() as calls:
+            kernel = model(clouds[1]["points"])
+        with ops.use_impl("plain"):
+            plain = model(clouds[1]["points"])
+        _, events = traced(lambda: [model(c["points"]) for c in clouds[1:6]])
+    # the same indices on the plain ops, and logits within rtol 1e-5,
+    # atol 1e-6 (the same torch ops on the same indices)
+    if not torch.allclose(kernel, plain, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"logits: kernel path vs plain path max |diff| "
+                             f"{(kernel - plain).abs().max().item()}")
+    tally = Tally()
+    for name, (args, kw) in zip(("sa1", "sa2"), calls["fps"]):
+        fps_case(tally, "request", name, *args, kw.get("mask"))
+    for name, (args, kw) in zip(("sa1", "sa2"), calls["ball_query"]):
+        bq_case(tally, "request", name, *args, kw.get("mask"))
+    med = statistics.median(times)
+    print(f"  plain-ops rerun of cloud 1: FPS and ball-query indices equal, "
+          f"logits max |diff| {(kernel - plain).abs().max().item():.3g}; "
+          f"kernels of one cloud: {tally.paths['request']['ms']:.3f} ms "
+          f"(plain {tally.paths['request']['plain_ms']:.3f})")
+    print(f"  ms a cloud {', '.join(f'{t * 1e3:.3f}' for t in times)}; "
+          f"median {med * 1e3:.3f} ms = {1 / med:.2f} clouds/s on {card}")
+    print(f"  one cloud under torch.profiler (5 clouds): "
+          f"{profile_text(events, 5)}")
+    return {"counts": served, "median_ms": med * 1e3}
+
+
+def cls_train(card: str, work: Path, tallies: dict) -> dict:
+    """(b) MSG training through run_classifier, a resume, and one step on
+    the kernel and the plain path; (c) the recorded launches of one step
+    against their plain versions, timed under the path `classify`."""
+    cfg = cls_config("model.classifier_msg=true", "data.name=synthetic",
+                     f"train.batch_size={CLS_B}", "train.num_epochs=1",
+                     "train.log_every=4", f"train.ckpt_dir={work}")
+    print(f"  (b) run_classifier: MSG, {CLS_CLASSES} classes, {CLS_B} x "
+          f"{CLS_N} points, one synthetic epoch cut to {CLS_STEPS} steps, "
+          f"and {CLS_VAL} val batches")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with synthetic_epoch(CLS_STEPS):
+        reset_counts()
+        result = train_classifier.run_classifier(cfg)
+        trained = counts()
+        peak = torch.cuda.max_memory_allocated()
+        reset_counts()
+        again = train_classifier.run_classifier(cfg)
+        resumed = counts()
+    want = launches(**{k: CLS_STEP[k] * CLS_STEPS
+                       + CLS_FORWARD.get(k, 0) * CLS_VAL for k in CLS_STEP})
+    if trained != want:
+        raise AssertionError(f"launches {trained} != {want}")
+    losses = [h["loss"] for h in result.history]
+    if result.step != CLS_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"steps {result.step}, losses {losses}")
+    model = result.model
+    state = copy.deepcopy(model.state_dict())
+    fresh = build_classifier(cfg, CLS_CLASSES).state_dict()
+    for kind in ("weight", "running_mean", "running_var"):
+        if all(torch.equal(state[k], fresh[k]) for k in state
+               if k.endswith(kind)):
+            raise AssertionError(f"no {kind} moved in training")
+    steps_ms = [h["seconds"] * 1e3 for h in result.history[1:]]
+    (ev,) = result.evals
+    print(f"  launches {trained}; losses "
+          f"{[round(x, 4) for x in losses]}; val acc "
+          f"{ev['val_acc']:.4f} over {ev['n_scenes']} clouds; median step "
+          f"{statistics.median(steps_ms):.3f} ms (steps 2-{CLS_STEPS}, "
+          f"host batch and copy included; first step "
+          f"{result.history[0]['seconds'] * 1e3:.3f} ms); val sweep "
+          f"{ev['seconds'] * 1e3:.3f} ms; peak memory allocated "
+          f"{peak / 2**30:.3f} GiB on {card}")
+    if ((again.start_step, again.step) != (CLS_STEPS, CLS_STEPS)
+            or resumed != launches() or any(
+                not torch.equal(v, state[k])
+                for k, v in again.model.state_dict().items())):
+        raise AssertionError("the second call did not resume the checkpoint")
+    print(f"  parameters and BN statistics moved; a second call resumed at "
+          f"step {again.start_step} with the saved state and no launch")
+
+    batch = cls_clouds(1, CLS_B, seed=12)[0]
+    bn_m = train_lib.bn_momentum_at(cfg.train, 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    lk, gk = cls_grads_of(model, state, batch, bn_m)
+    one = counts()
+    with ops.use_impl("plain"):
+        lp, gp = cls_grads_of(model, state, batch, bn_m)
+    if one != launches(**CLS_STEP) or counts() != one:
+        raise AssertionError(f"one MSG step: launches {one} then {counts()}")
+    if not torch.equal(lk, lp):
+        raise AssertionError(f"MSG step loss: kernel path {lk.item()!r} vs "
+                             f"plain path {lp.item()!r}")
+    for name, g in gp.items():
+        if (at := bits_differ(gk[name], g)) is not None:
+            raise AssertionError(f"MSG step grad {name}: kernel path != "
+                                 f"plain path {at}")
+    print(f"  one MSG step (dropout 0.5, one generator seed), kernel path "
+          f"vs plain path: loss {lk.item():.6f} equal; {len(gp)} gradients "
+          "bitwise equal")
+
+    print("  (c) the launches of one MSG step, recorded, against their "
+          "plain versions (exact; scatter bitwise np.add.at), timed")
+    with recording() as calls:
+        cls_grads_of(model, state, batch, bn_m)
+    found = {k: len(v) for k, v in calls.items()}
+    if found != {**CLS_STEP, "three_nn": 0}:
+        raise AssertionError(f"one MSG step made {found} calls")
+    scales = [f"sa{lvl}.{s}" for lvl, sa in ((1, MSG_SA1), (2, MSG_SA2))
+              for s in range(len(sa["radii"]))]
+    for name, (args, kw) in zip(("sa1", "sa2"), calls["fps"]):
+        fps_case(tallies["fps"], "classify", name, *args, kw.get("mask"),
+                 compares=3)
+    for name, (args, kw) in zip(scales, calls["ball_query"]):
+        bq_case(tallies["ball_query"], "classify", name, *args,
+                kw.get("mask"))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for args, _ in calls["scatter"]:
+        scatter_case(tallies["scatter"], "classify", *args, gen)
+    del calls
+    _, events = traced(lambda: cls_grads_of(model, state, batch, bn_m))
+    print(f"  one MSG step (forward + backward, fp32) under torch.profiler: "
+          f"{profile_text(events)}")
+    return {"counts": trained, "median_ms": statistics.median(steps_ms),
+            "peak_bytes": peak}
+
+
+def cls_shapes(card: str, work: Path) -> dict:
+    """(d) the shape benchmark end to end: synthetic_shapes, then
+    preproc_modelnet, then run_classifier on r5's recipe."""
+    print(f"  (d) the shape benchmark: {SHAPES_TRAIN} + {SHAPES_TEST} OFF "
+          f"meshes of each of {len(synthetic_shapes.SHAPE_CLASSES)} families "
+          f"(seed 0), sampled to 4096 points, then MSG at 512 points for "
+          f"{SHAPES_EPOCHS} epochs")
+    t0 = time.perf_counter()
+    written = synthetic_shapes.generate(str(work / "off"), SHAPES_TRAIN,
+                                        SHAPES_TEST, seed=0)
+    t1 = time.perf_counter()
+    converted = preproc_modelnet.export_all(str(work / "off"),
+                                            str(work / "npy"),
+                                            num_points=4096)
+    t2 = time.perf_counter()
+    print(f"  wrote {written} in {(t1 - t0) * 1e3:.3f} ms; converted "
+          f"{converted} in {(t2 - t1) * 1e3:.3f} ms")
+    cfg = parse_cli([*SHAPES_ARGS, f"data.root={work / 'npy'}",
+                     f"train.ckpt_dir={work / 'ckpt'}"])
+    reset_counts()
+    result = train_classifier.run_classifier(cfg)
+    ran = counts()
+    steps = SHAPES_TRAIN * len(synthetic_shapes.SHAPE_CLASSES) // 16
+    val = -(-SHAPES_TEST * len(synthetic_shapes.SHAPE_CLASSES) // 16)
+    want = launches(**{k: CLS_STEP[k] * steps * SHAPES_EPOCHS
+                       + CLS_FORWARD.get(k, 0) * val * SHAPES_EPOCHS
+                       for k in CLS_STEP})
+    if ran != want:
+        raise AssertionError(f"launches {ran} != {want}")
+    curve = [round(e["val_acc"], 4) for e in result.evals]
+    per_epoch = [sum(h["seconds"] for h in result.history[i:i + steps])
+                 for i in range(0, len(result.history), steps)]
+    print(f"  launches {ran}; val acc by epoch {curve} (r5 on the CPU: "
+          f"0.9625, 0.9875, 1.0, 1.0); train seconds an epoch "
+          f"{[round(s, 3) for s in per_epoch]} ({steps} steps, host loader "
+          f"included); val sweeps ms "
+          f"{[round(e['seconds'] * 1e3, 3) for e in result.evals]} on {card}")
+    if len(curve) != SHAPES_EPOCHS or curve[-1] < SHAPES_TARGET:
+        raise AssertionError(f"val acc {curve}: the last below "
+                             f"{SHAPES_TARGET}")
+    return {"counts": ran, "val_acc": curve}
+
+
+def phase_classify(card: str, tallies: dict, work: Path) -> dict:
+    print("== config #1, the classifier: serving, MSG training, its "
+          "launches against plain, the shape benchmark")
+    seconds = []
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    try:
+        served = timed(cls_serve, card)
+        trained = timed(cls_train, card, work / "msg", tallies)
+        shapes = timed(cls_shapes, card, work / "shapes")
+    finally:
+        train_lib.apply_runtime_config(Config())
+    print(f"  phase 13 seconds: (a) {seconds[0]:.1f}, (b) + (c) "
+          f"{seconds[1]:.1f}, (d) {seconds[2]:.1f}")
+    total = {k: served["counts"][k] + trained["counts"][k]
+             + shapes["counts"][k] for k in served["counts"]}
+    return {"counts": total, "serve": served, "train": trained,
+            "shapes": shapes}
+
+
 def main() -> None:
     card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2199,6 +2535,9 @@ def main() -> None:
             "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t,
             "fps_flat": flat_t})
         trained_k = phase_train_k(card, work / "hostfed")
+        classified = phase_classify(card, {
+            "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t},
+            work / "classify")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -2210,7 +2549,7 @@ def main() -> None:
              "eval4": {**evaluated["exact"]["counts"],
                        "sorted": evaluated["sorted"]["counts"]["sorted"]},
              "hostfed": hostfed["counts"], "train4": trained4["counts"],
-             "traink": trained_k["counts"]}
+             "traink": trained_k["counts"], "classify": classified["counts"]}
 
     def entry(name, counter, source, replaces, tally):
         times = tally.summary()
@@ -2245,8 +2584,9 @@ def main() -> None:
     print("kernel ms / plain_ms / library_ms / bound_ms: summed over the "
           "main-path shapes of one served request (32 x 20480), one "
           "config-#3 training step (8 x 40960), one config-#4 eval batch "
-          "(8 x 16384; fps_flat: one scene) and one config-#4 train step "
-          "(train4, 8 x 16384; fps_flat: one loader scene), each path's "
+          "(8 x 16384; fps_flat: one scene), one config-#4 train step "
+          "(train4, 8 x 16384; fps_flat: one loader scene) and one config-#1 "
+          f"MSG train step (classify, {CLS_B} x {CLS_N}), each path's "
           f"own under by_path; launches: the {REQUESTS} served requests, the "
           f"{TRAIN_STEPS} training steps, one config-#4 sweep of "
           f"{EVAL_SCENES} scenes (exact grouping; sorted_ball_query: the "
@@ -2257,7 +2597,10 @@ def main() -> None:
           f"phase 12's train.steps_per_call={K_STEPS} runs (device synth "
           "and packed: the eager warm-up block and the captured step, "
           "which the counters see; traink_replayed_step_launches counts a "
-          "replayed step's launches by name with torch.profiler)")
+          "replayed step's launches by name with torch.profiler), and phase "
+          f"13's {CLS_REQUESTS} classified clouds, {CLS_STEPS} MSG steps and "
+          f"{CLS_VAL} val batches, and the shape benchmark's "
+          f"{SHAPES_EPOCHS} epochs and sweeps (classify)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

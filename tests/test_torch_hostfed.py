@@ -228,11 +228,11 @@ def test_synthetic_host_dataset_equals_reference(V):
 
 
 def test_registry_refuses_modelnet_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tget(_cfgs(["data.name=modelnet"])[0], device="cpu")
+    """modelnet is registered (tests/test_torch_classifier.py loads it):
+    like the file-backed detection sets, it refuses a missing root."""
     with pytest.raises(ValueError, match="unknown dataset"):
         tget(_cfgs(["data.name=nope"])[0], device="cpu")
-    for name in ("scannet", "sunrgbd", "packed"):
+    for name in ("scannet", "sunrgbd", "packed", "modelnet"):
         with pytest.raises(FileNotFoundError):
             tget(_cfgs([f"data.name={name}", "data.root=/nonexistent"])[0],
                  device="cpu")

@@ -261,6 +261,8 @@ OVERRIDES = [
      "ops_fast_grouping=on", "train.lr_decay_steps=()"],
     ["data.vote_candidates=1", "train.seed=3",
      "model.proposal_mode=lineage"],
+    ["preset=classifier", "model.classifier_msg=true", "model.dropout=0.2",
+     "data.name=modelnet", "data.root=/data/modelnet_npy"],
 ]
 
 

@@ -804,6 +804,11 @@ def test_training_modules_import_without_jax():
         "import tpu3dsad_torch.data.synthetic_sunrgbd\n"
         "import tpu3dsad_torch.data.augment, tpu3dsad_torch.data.synthetic\n"
         "import tpu3dsad_torch.utils.metrics, tpu3dsad_torch.ops\n"
+        "import tpu3dsad_torch.train_classifier, tpu3dsad_torch.nn\n"
+        "import tpu3dsad_torch.models.classifier\n"
+        "import tpu3dsad_torch.data.modelnet\n"
+        "import tpu3dsad_torch.data.preproc_modelnet\n"
+        "import tpu3dsad_torch.data.synthetic_shapes\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'tpu3dsad')]\n"
         "assert not bad, bad\n"

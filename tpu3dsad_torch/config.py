@@ -2,9 +2,10 @@
 key=value CLI overrides.
 
 The port keeps its own copy of the fields that whole-scene inference,
-detector training and evaluation read, with the reference's names and
-defaults (pinned equal by tests/test_torch_detector.py,
-tests/test_torch_train.py and tests/test_torch_outdoor.py), so neither the
+detector and classifier training and evaluation read, with the
+reference's names and defaults (pinned equal by
+tests/test_torch_detector.py, tests/test_torch_train.py and
+tests/test_torch_outdoor.py), so neither the
 port nor a run on the card loads any module of the JAX package. A
 reference `Config` works in its place: the port only reads these
 attributes.
@@ -28,6 +29,7 @@ import numpy as np
 
 @dataclass(frozen=True)
 class ModelConfig:
+    name: str = "detector"  # 'detector' | 'classifier'
     num_classes: int = 18
     num_heading_bins: int = 12
     num_proposals: int = 256
@@ -61,12 +63,15 @@ class ModelConfig:
     assign_far: float = 0.6
     center_loss_norm: float = 1.0
     append_height: bool = True
+    # classifier only: multi-scale grouping (pointnet2_cls_msg), else SSG
+    classifier_msg: bool = False
+    dropout: float = 0.5  # classifier head
 
 
 @dataclass(frozen=True)
 class DataConfig:
-    # 'synthetic' | 'scannet' | 'sunrgbd' | 'kitti' | 'packed' (data/packed.py);
-    # 'modelnet' waits for ROADMAP A8
+    # 'synthetic' | 'modelnet' | 'scannet' | 'sunrgbd' | 'kitti' | 'packed'
+    # (data/packed.py)
     name: str = "scannet"
     root: str = ""
     num_points: int = 40960

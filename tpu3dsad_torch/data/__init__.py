@@ -1,5 +1,6 @@
 """Datasets and the input pipeline (tpu3dsad/data): synthetic, ScanNet,
-SUN RGB-D, KITTI-style outdoor and packed splits. Every loader gives
+SUN RGB-D, KITTI-style outdoor and packed splits, and ModelNet-style
+classification clouds. Every loader gives
 fixed-shape padded numpy batches with masks; `Batcher` makes them ahead on
 a thread and `packed.device_prefetch` copies them to the card. The
 synthetic dataset can also make its train batches on the card

@@ -4,8 +4,9 @@
 Every dataset exposes mean_sizes [NC,3], class_names, num_classes,
 steps_per_epoch(batch_size), train_batch(rng, batch_size) -> a padded
 numpy dict, and val_batches(rng, batch_size) -> an iterator of them.
-Registered: synthetic, scannet, sunrgbd, kitti, packed. ModelNet
-classification waits for ROADMAP A8.
+Registered: synthetic, scannet, sunrgbd, kitti, packed, and modelnet,
+the classification dataset (data/modelnet.py: train_batch, val_batches,
+num_classes and steps_per_epoch, no boxes).
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def get_dataset(cfg, *, device="cuda"):
 
         return PackedDetectionDataset(cfg)
     if name == "modelnet":
-        raise NotImplementedError(
-            "data.name='modelnet': classification is not ported yet "
-            "(ROADMAP A8)")
+        from tpu3dsad_torch.data.modelnet import ModelNetClassificationDataset
+
+        return ModelNetClassificationDataset(cfg)
     raise ValueError(f"unknown dataset {name!r}")

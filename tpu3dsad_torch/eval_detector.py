@@ -1,12 +1,14 @@
 """Evaluation entry point: restore a checkpoint, run the val sweep, print
-AP (the detector branch of the reference's eval.py).
+AP (the reference's eval.py).
 
     python -m tpu3dsad_torch.eval_detector preset=outdoor data.root=DIR \\
         data.device_preproc=true train.ckpt_dir=DIR [key=value ...]
 
 Runs on the card unless the caller asks for the CPU (`run_eval(...,
-device="cpu")`). Prints one JSON line {"ckpt_step": ..., **metrics}. The
-classifier branch waits for ROADMAP A8.
+device="cpu")`). Prints one JSON line {"ckpt_step": ..., **metrics}.
+With model.name=classifier (preset=classifier) main evaluates the
+classifier instead (train_classifier.run_eval_classifier: val_acc and
+val_loss).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from tpu3dsad_torch import train_lib
 from tpu3dsad_torch.config import describe, parse_cli
 from tpu3dsad_torch.data import get_dataset
 from tpu3dsad_torch.eval.parse import parse_predictions
+from tpu3dsad_torch.train_classifier import run_eval_classifier
 from tpu3dsad_torch.train_detector import build_detector, evaluate
 
 
@@ -50,6 +53,8 @@ def run_eval(cfg, *, device="cuda") -> dict:
 def main(argv) -> dict:
     cfg = parse_cli(argv)
     print(describe(cfg), file=sys.stderr)
+    if cfg.model.name == "classifier":
+        return run_eval_classifier(cfg)
     return run_eval(cfg)
 
 

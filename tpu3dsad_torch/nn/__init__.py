@@ -1,13 +1,15 @@
-"""PyTorch modules: shared MLP, masked BatchNorm, set abstraction, feature
-propagation (tpu3dsad/nn)."""
+"""PyTorch modules: shared MLP, FC head, masked BatchNorm, set abstraction,
+GroupAll, feature propagation (tpu3dsad/nn)."""
 
 from tpu3dsad_torch.nn.feature_propagation import FeaturePropagation
-from tpu3dsad_torch.nn.mlp import SharedMLP, init_like_flax_
+from tpu3dsad_torch.nn.mlp import MLPHead, SharedMLP, init_like_flax_
 from tpu3dsad_torch.nn.norm import MaskedBatchNorm
-from tpu3dsad_torch.nn.set_abstraction import SetAbstraction
+from tpu3dsad_torch.nn.set_abstraction import GroupAll, SetAbstraction
 
 __all__ = [
     "FeaturePropagation",
+    "GroupAll",
+    "MLPHead",
     "MaskedBatchNorm",
     "SetAbstraction",
     "SharedMLP",

@@ -1,8 +1,10 @@
-"""Shared MLP blocks (tpu3dsad/nn/mlp.py) and flax-like initialisation.
+"""Shared MLP blocks and the classifier's FC head (tpu3dsad/nn/mlp.py),
+and flax-like initialisation.
 
 The lineage's 1x1 convs over channels-first tensors are, channels-last,
 plain Linear layers applied over the last axis. Module names follow the
-flax tree (dense_{i}, bn_{i}) so weights bridge by name.
+flax tree (dense_{i}, bn_{i}; fc_{i}, bn_{i}, out) so weights bridge by
+name.
 """
 
 from __future__ import annotations
@@ -58,3 +60,50 @@ class SharedMLP(nn.Module):
                                          mask=mask, momentum=bn_momentum)
             x = torch.relu(x)
         return x
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax's nn.Dropout in training: keep each entry with probability
+    1 - p, drawn from `generator` (never torch's global RNG), and scale
+    the kept ones by 1 / (1 - p); p = 0 returns x, p = 1 zeros."""
+    if p == 0.0:
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep_prob = 1.0 - p
+    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = draw < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
+class MLPHead(nn.Module):
+    """FC head: (Linear without bias, BN over [B, C] rows, ReLU, dropout)
+    per width, then the `out` Linear with bias (the classifier tail,
+    tpu3dsad/nn/mlp.py:46-63). Dropout runs in training mode only, on
+    the generator the caller passes."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 num_out: int, dropout: float = 0.5):
+        super().__init__()
+        self.n = len(channels)
+        self.p = dropout
+        for i, ch in enumerate(channels):
+            self.add_module(f"fc_{i}", nn.Linear(in_channels, ch, bias=False))
+            self.add_module(f"bn_{i}", MaskedBatchNorm(ch))
+            in_channels = ch
+        self.out = nn.Linear(in_channels, num_out)
+
+    def forward(self, x: torch.Tensor, *,
+                bn_momentum: float | torch.Tensor = 0.9,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x [B, C] -> [B, num_out]."""
+        for i in range(self.n):
+            x = getattr(self, f"bn_{i}")(getattr(self, f"fc_{i}")(x),
+                                         momentum=bn_momentum)
+            x = torch.relu(x)
+            if self.training:
+                x = dropout(x, self.p, generator)
+        return self.out(x)

@@ -1,9 +1,10 @@
-"""Set abstraction, SSG and MSG (tpu3dsad/nn/set_abstraction.py:63-108).
+"""Set abstraction, SSG and MSG, and GroupAll
+(tpu3dsad/nn/set_abstraction.py:63-134).
 
 Sample (FPS) -> group (ball query at one or more radii) -> shared MLP ->
 masked max-pool per group. Pad slots and groups around invalid centers
-never win the pool. GroupAll and the context-parallel branch are not
-ported yet (ROADMAP A8 and A11).
+never win the pool. GroupAll pools the whole cloud into one feature. The
+context-parallel branch is not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -58,3 +59,26 @@ class SetAbstraction(nn.Module):
             pooled.append(ops.masked_max(h, gmask, 2))
         new_features = torch.cat(pooled, -1) if len(pooled) > 1 else pooled[0]
         return new_xyz, new_features, inds, new_mask
+
+
+class GroupAll(nn.Module):
+    """Every point in one group: xyz and features concatenated, the shared
+    MLP under the mask, then the masked max over points -> [B, C] (the
+    last SA level of the classifier). in_features: channels of the
+    per-point features (0 for none). The reference's use_xyz=False has no
+    caller and is not ported."""
+
+    def __init__(self, mlp: Sequence[int], in_features: int = 0):
+        super().__init__()
+        self.mlp = SharedMLP(in_features + 3, mlp)
+        self.out_channels = mlp[-1]
+
+    def forward(self, xyz, features=None, *, mask=None, bn_momentum=0.9):
+        """xyz [B,N,3], features [B,N,C], mask [B,N] -> [B, mlp[-1]]; a
+        cloud with no valid point pools to 0."""
+        grouped = xyz if features is None else torch.cat([xyz, features], -1)
+        gmask = (torch.ones(xyz.shape[:2], dtype=torch.bool,
+                            device=xyz.device)
+                 if mask is None else mask.bool())
+        h = self.mlp(grouped, mask=gmask, bn_momentum=bn_momentum)
+        return ops.masked_max(h, gmask, 1)

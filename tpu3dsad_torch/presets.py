@@ -39,9 +39,12 @@ PRESETS: dict[str, list[str]] = {
         "train.lr_decay_rates=(0.3,0.3,0.3)",
         "train.num_epochs=1200",
     ],
+    # benchmark config #1: the PointNet++ SSG classifier, 1024-point clouds
+    "classifier": [
+        "model.name=classifier",
+        "data.num_points=1024",
+    ],
 }
-# the reference's "classifier" preset (config #1) waits for the classifier
-# (ROADMAP A8)
 
 
 def expand(overrides: list[str]) -> list[str]:

@@ -71,13 +71,6 @@ def build_detector(cfg, mean_sizes=None, *, device="cuda"):
         generator=torch.Generator().manual_seed(cfg.train.seed))
 
 
-def _refuse_unported(cfg) -> None:
-    if tuple(cfg.train.mesh_shape) not in ((-1,), (1,)):
-        raise NotImplementedError(
-            f"train.mesh_shape={cfg.train.mesh_shape}: training on a device "
-            "mesh is not ported yet (ROADMAP A11)")
-
-
 def run_detector(cfg, *, device="cuda") -> TrainResult:
     """Train the detector of `cfg` (a Config) on `device`, the card unless
     the caller asks for the CPU; resume from cfg.train.ckpt_dir if it holds
@@ -97,7 +90,7 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
     bs = cfg.train.batch_size
     steps_per_epoch, k = train_lib.round_steps_per_epoch(
         dataset.steps_per_epoch(bs), cfg.train.steps_per_call)
-    _refuse_unported(cfg)
+    train_lib.refuse_unported(cfg)
     train_lib.apply_runtime_config(cfg)
 
     model = build_detector(cfg, dataset.mean_sizes, device=device)

@@ -1,6 +1,7 @@
 """Training library (tpu3dsad/train_lib.py): runtime knobs (grouping,
-precision), schedules, the optimizer, the detector train step and the
-k-step block (a CUDA graph on the card), the eval step, checkpoints.
+precision), schedules, the optimizer, the classifier's train and eval
+steps, the detector train step and the k-step block (a CUDA graph on the
+card), the detector eval step, checkpoints.
 
 The optimizer is optax's chain written in tensor ops, which differs from
 torch's helpers in two places: the learning rate of update k (0-based) is
@@ -21,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tpu3dsad_torch import ops
 from tpu3dsad_torch.data.augment import resolve_aug
@@ -46,6 +48,14 @@ def apply_runtime_config(cfg) -> None:
     ops.set_fast_grouping(bool(cfg.ops_fast_grouping))
     ops.set_fast_mode(cfg.ops_fast_mode)
     torch.backends.cuda.matmul.allow_tf32 = bool(cfg.train.bf16_matmul)
+
+
+def refuse_unported(cfg) -> None:
+    """Raise before any work for what the port's training does not run."""
+    if tuple(cfg.train.mesh_shape) not in ((-1,), (1,)):
+        raise NotImplementedError(
+            f"train.mesh_shape={cfg.train.mesh_shape}: training on a device "
+            "mesh is not ported yet (ROADMAP A11)")
 
 
 def round_steps_per_epoch(steps_per_epoch: int,
@@ -197,6 +207,48 @@ class Optimizer:
 def make_optimizer(cfg, steps_per_epoch: int, params) -> Optimizer:
     """cfg: a TrainConfig."""
     return Optimizer(cfg, steps_per_epoch, params)
+
+
+def classifier_loss(model, batch: dict, bn_momentum,
+                    generator: torch.Generator | None = None):
+    """Forward in the model's current mode (dropout draws from
+    `generator`), then cross entropy on the integer labels: (loss,
+    {"loss", "acc"}) (tpu3dsad/train_lib.py:160-175)."""
+    logits = model(batch["points"], mask=batch["mask"],
+                   bn_momentum=bn_momentum, generator=generator)
+    labels = batch["labels"].long()
+    loss = F.cross_entropy(logits, labels)
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"loss": loss, "acc": acc}
+
+
+def classifier_train_step(model, optimizer: Optimizer, batch: dict,
+                          generator: torch.Generator, bn_momentum) -> dict:
+    """One classifier step in train mode: forward, loss, backward, and the
+    update of the parameters and the BN running averages in place;
+    returns the metrics as detached 0-d tensors."""
+    model.train()
+    optimizer.zero_grad()
+    loss, metrics = classifier_loss(model, batch, bn_momentum, generator)
+    loss.backward()
+    optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def classifier_eval_step(model, batch: dict) -> dict:
+    """{"acc", "loss", "n_valid"} of a batch in eval mode, leaving out the
+    items batch["scene_mask"] marks as tail padding (iter_val_batches)."""
+    model.eval()
+    logits = model(batch["points"], mask=batch["mask"])
+    labels = batch["labels"].long()
+    correct = (logits.argmax(-1) == labels).float()
+    ce = F.cross_entropy(logits, labels, reduction="none")
+    sm = batch.get("scene_mask")
+    w = torch.ones_like(correct) if sm is None else sm.float()
+    denom = w.sum().clamp_min(1.0)
+    return {"acc": (correct * w).sum() / denom,
+            "loss": (ce * w).sum() / denom, "n_valid": w.sum()}
 
 
 def detector_loss(model, cfg, batch: dict, bn_momentum):
