@@ -167,6 +167,27 @@ Phases, in order; any failure raises and the script exits nonzero:
     run_classifier on r5's recipe (MSG, 512 points, batch 16, lr 1e-3, val
     after each epoch) for 4 epochs: the launches of 160 steps and 4
     sweeps, the val accuracy of each epoch, at least 0.9 after the last.
+14. the exported serving program (serving.export_detector: torch.export
+    of forward + decode + NMS with FPS and ball query as the custom ops
+    of ops/library.py). Phase 4's server, config #5 at 32 x 20480,
+    exported and loaded (its export, save and load seconds and bytes;
+    the graph's op nodes 5 fps + 7 ball_query + 2 fp32_cross), one
+    warm-up request, then
+    5 requests: the six outputs bitwise the eager program's, 5 FPS and 7
+    ball-query launches a loaded request, no scatter; ms a request loaded
+    and eager (medians). An export under ops_fast_grouping=true
+    ops_fast_mode=sorted adds one morton_codes node and one sorted call a
+    request, bitwise eager. Then phase 4's model as a checkpoint:
+    serving.main ckpt= ... out= at train.batch_size=1, run= on raw scenes
+    of 50000 (subsampled) and 12000 (padded) points, detection for
+    detection the eager program on prepare_scene_batch's tensors, 5 + 7
+    launches a scene; the same for a ScanNet colour model on 0-255
+    colours (source_dataset=scannet: run= scales them by 1/256); then
+    python -m tpu3dsad_torch.demo on the first checkpoint in its own
+    process: its files, its scene the synthetic train_batch of
+    default_rng(7), its detections the eager program's (classes equal,
+    the floats within 1e-5). The loaded programs' launches go to the
+    path serve_export of the kernels line (serve_export_launches).
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -183,7 +204,8 @@ config-#4 eval batch (one scene for B2) and one config-#4 train step
 launches count every phase's main-path runs, phase 12's as its wrappers
 see them (the warm-up block and the capture), and
 traink_replayed_step_launches and _device_ms a replayed step's launches
-and device time by the profiler (path classify: phase 13); the last line
+and device time by the profiler (path classify: phase 13;
+serve_export_launches: the loaded programs of phase 14); the last line
 names the device.
 """
 
@@ -192,6 +214,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -208,6 +231,7 @@ import torch
 from tpu3dsad_torch import (
     eval_detector,
     ops,
+    serving,
     train_classifier,
     train_detector,
     train_lib,
@@ -2507,6 +2531,269 @@ def phase_classify(card: str, tallies: dict, work: Path) -> dict:
             "shapes": shapes}
 
 
+# phase 14: the exported serving program. Config #5's CLI export is B = 1
+# (train.batch_size=1), as a scene at a time is served through run=; the
+# colour model is ScanNet's (18 classes, its mean sizes), exported with
+# source_dataset=scannet so run= scales 0-255 colours by 1/256
+SERVE_ARGS = ["model.num_classes=10", "data.name=synthetic",
+              f"data.num_points={N}", "train.batch_size=1"]
+COLOUR_ARGS = ["data.name=scannet", "data.use_color=true",
+               f"data.num_points={N}", "train.batch_size=1"]
+CLI_SCENES = (50000, 12000)  # raw points: subsampled, padded
+SERVED = dict(fps=5, ball_query=7)  # launches a request
+# custom-op nodes of the exported program: the kernels' and the fp32 cross
+# terms of FP1 and FP2's three_nn
+PROGRAM_OPS = {"fps": 5, "ball_query": 7, "fp32_cross": 2}
+
+
+@contextlib.contextmanager
+def timed_calls(seconds: dict, module, *names: str):
+    """Within the block, add the host seconds of each call of
+    module.<name> to seconds[name]."""
+    originals = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = (seconds.get(name, 0.0)
+                                 + time.perf_counter() - t0)
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield seconds
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def graph_calls(path: str) -> dict:
+    """{op: nodes} of the custom ops in the program saved at `path`."""
+    calls = {}
+    for node in serving.load(path).graph.nodes:
+        target = str(node.target)
+        if node.op == "call_function" and target.startswith("tpu3dsad_torch"):
+            name = target.split(".")[1]
+            calls[name] = calls.get(name, 0) + 1
+    return calls
+
+
+def synced_ms(fn):
+    """(fn(), host ms of the call through a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def export_checked(cfg, model, path: str, want_calls: dict) -> dict:
+    """export_detector at B x N with its export and save seconds, the load
+    seconds, and the program's custom-op nodes, which must be want_calls."""
+    seconds = {}
+    with timed_calls(seconds, torch.export, "export", "save"):
+        manifest = serving.export_detector(cfg, model, model.mean_sizes, B,
+                                           path)
+    t0 = time.perf_counter()
+    program = serving.load(path).module()
+    seconds["load"] = time.perf_counter() - t0
+    calls = graph_calls(path)
+    if calls != want_calls:
+        raise AssertionError(f"exported graph's op nodes {calls} != "
+                             f"{want_calls}")
+    print(f"  exported {B} x {N}: export {seconds['export']:.3f} s, save "
+          f"{seconds['save']:.3f} s, load {seconds['load']:.3f} s, "
+          f"{manifest['bytes']} bytes; nodes {calls}")
+    return {"program": program, "seconds": seconds,
+            "bytes": manifest["bytes"], "calls": calls}
+
+
+def serve_artifact(card: str, work: Path) -> dict:
+    """(a) config #5 exported at B = 32 and loaded: bitwise the eager
+    program on 5 requests, 5 + 7 launches a request; then one request of
+    an export under the sorted tier."""
+    cfg, model, infer = build_server()
+    cfg = dataclasses.replace(cfg, data=DataConfig(name="synthetic",
+                                                   num_points=N))
+    warmup, *batches = make_requests(REQUESTS + 1, seed=14)
+    art = export_checked(cfg, model, str(work / "serve.pt2"), PROGRAM_OPS)
+    program = art["program"]
+    with torch.no_grad():
+        program(*warmup)
+    infer(*warmup)
+    reset_counts()
+    loaded, loaded_ms = [], []
+    for pts, mask in batches:
+        with torch.no_grad():
+            out, ms = synced_ms(lambda: program(pts, mask))
+        loaded.append(out)
+        loaded_ms.append(ms)
+    served = counts()
+    if served != launches(**{k: v * REQUESTS for k, v in SERVED.items()}):
+        raise AssertionError(f"loaded program's launches {served} != 5, 7 "
+                             "and 0 a request")
+    eager_ms = []
+    for (pts, mask), out in zip(batches, loaded):
+        want, ms = synced_ms(lambda: infer(pts, mask))
+        eager_ms.append(ms)
+        require_bitwise("loaded vs eager request", out, want)
+    kept = [int(o["keep"].sum()) for o in loaded]
+    print(f"  {REQUESTS} requests: loaded bitwise eager (6 outputs), "
+          f"launches {served}, kept {kept}; ms a request loaded "
+          f"{[round(t, 3) for t in loaded_ms]} (median "
+          f"{statistics.median(loaded_ms):.3f}), eager "
+          f"{[round(t, 3) for t in eager_ms]} (median "
+          f"{statistics.median(eager_ms):.3f}) on {card}")
+
+    train_lib.apply_runtime_config(parse_cli(SORTED_ARGS))
+    try:
+        fast = export_checked(cfg, model, str(work / "sorted.pt2"),
+                              {**PROGRAM_OPS, "morton_codes": 1})
+        with torch.no_grad():
+            fast["program"](*warmup)
+            reset_counts()
+            out = fast["program"](*batches[0])
+        got = counts()
+        want = infer(*batches[0])
+    finally:
+        train_lib.apply_runtime_config(Config())
+    if got != launches(fps=5, ball_query=7, sorted=1):
+        raise AssertionError(f"sorted program's launches {got}")
+    require_bitwise("sorted loaded vs eager request", out, want)
+    print(f"  sorted tier (SA1): loaded bitwise eager, launches {got}")
+    total = {k: served[k] + got[k] for k in served}
+    return {"counts": total, "seconds": art["seconds"], "bytes": art["bytes"],
+            "loaded_ms": statistics.median(loaded_ms),
+            "eager_ms": statistics.median(eager_ms),
+            "sorted_seconds": fast["seconds"], "model": model, "cfg": cfg}
+
+
+def cli_output(argv: list) -> dict:
+    """The last line serving.main prints, as JSON."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serving.main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def cli_round_trip(label: str, args: list, model, colours: bool,
+                   work: Path) -> dict:
+    """(b) ckpt= ... out= on a checkpoint of `model`, then run= on each of
+    CLI_SCENES: detection for detection the eager program on
+    prepare_scene_batch's tensors, 5 + 7 launches a scene."""
+    cfg = parse_cli(args)
+    ckpt = str(work / f"ckpt_{label}")
+    optimizer = train_lib.make_optimizer(cfg.train, 1, model.parameters())
+    train_lib.save_checkpoint(ckpt, model, optimizer, 1)
+    out = str(work / f"{label}.pt2")
+    t0 = time.perf_counter()
+    report = cli_output([f"ckpt={ckpt}", f"out={out}", *args])
+    seconds = time.perf_counter() - t0
+    if (report["ckpt_step"], report["batch_size"], report["with_features"],
+            report["platforms"]) != (1, 1, colours, ["cuda"]):
+        raise AssertionError(f"{label} export report {report}")
+    infer = build_inference_fn(cfg, model, model.mean_sizes,
+                               with_features=colours)
+    rng = np.random.default_rng(15)
+    total = launches()
+    found = []
+    for points in CLI_SCENES:
+        raw = rng.uniform(-3, 3, (points, 3))
+        if colours:
+            raw = np.concatenate([raw, rng.uniform(0, 255, (points, 3))], 1)
+        scene = work / f"{label}_{points}.npy"
+        np.save(scene, raw.astype(np.float32))
+        reset_counts()
+        dets = cli_output([f"run={out}", f"scene={scene}"])["detections"]
+        got = counts()
+        if got != launches(**SERVED):
+            raise AssertionError(f"{label} run= launches {got}")
+        total = {k: total[k] + got[k] for k in total}
+        args_in = serving.prepare_scene_batch(
+            np.load(scene), report)
+        want = serving.detections(infer(*args_in))
+        if dets != want:
+            raise AssertionError(f"{label} run= on {points} points: "
+                                 f"{len(dets)} detections != eager "
+                                 f"{len(want)} (or their values differ)")
+        found.append(len(dets))
+    print(f"  CLI {label}: export {seconds:.3f} s ({report['bytes']} bytes, "
+          f"source {report['source_dataset']!r}); run= on {CLI_SCENES} "
+          f"points: {found} detections, each equal to the eager program's; "
+          f"launches {total}")
+    return {"counts": total, "ckpt": ckpt, "seconds": seconds}
+
+
+def demo_check(ckpt: str, model, work: Path) -> None:
+    """(c) python -m tpu3dsad_torch.demo on config #5's checkpoint: its
+    files, its scene (the synthetic train_batch of default_rng(7)), and its
+    detections against the eager program on that scene, in this process
+    (the same classes; the floats within 1e-5, another process)."""
+    out = work / "demo"
+    args = [f"train.ckpt_dir={ckpt}", *SERVE_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu3dsad_torch.demo",
+                           f"out={out}", *args], capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"demo failed:\n{proc.stderr[-4000:]}")
+    with open(out / "detections.json") as f:
+        result = json.load(f)
+    cfg = parse_cli(args)
+    batch = get_dataset(cfg).train_batch(np.random.default_rng(7), 1)
+    if not np.array_equal(np.load(out / "points.npy"), batch["points"][0]):
+        raise AssertionError("demo scene != train_batch(default_rng(7), 1)")
+    infer = build_inference_fn(cfg, model, model.mean_sizes)
+    want = serving.detections(infer(
+        torch.from_numpy(batch["points"]).cuda(),
+        torch.from_numpy(batch["point_mask"]).cuda()))
+    got = result["detections"]
+    if result["ckpt_step"] != 1 or len(got) != len(want) or any(
+            g["class"] != w["class"] for g, w in zip(got, want)):
+        raise AssertionError(f"demo: step {result['ckpt_step']}, "
+                             f"{len(got)} detections, eager {len(want)}")
+    worst = max((abs(np.subtract(g[k], w[k])).max() for g, w in zip(got, want)
+                 for k in ("center", "size", "heading", "score")),
+                default=0.0)
+    if worst > 1e-5:
+        raise AssertionError(f"demo detections differ by {worst}")
+    files = sorted(p.name for p in out.iterdir())
+    need = {"detections.json", "points.npy", "points.ply", "gt_boxes.obj"}
+    if got:
+        need.add("pred_boxes.obj")
+    if not need <= set(files):
+        raise AssertionError(f"demo wrote {files}")
+    print(f"  demo: {seconds:.1f} s in its own process, {len(got)} "
+          f"detections (max |diff| {worst:.3g} against this process's), "
+          f"files {files}")
+
+
+def phase_serve_export(card: str, work: Path) -> dict:
+    print(f"== the exported serving program: config #5 exported at {B} x "
+          f"{N}, loaded, against the eager program; the export / run CLI "
+          "and the demo")
+    work.mkdir(parents=True)
+    train_lib.apply_runtime_config(Config())  # the CLIs' matmul precision
+    art = serve_artifact(card, work)
+    (work / "scannet").mkdir()  # a ScanNet root for its mean sizes
+    colour_cfg = parse_cli([*COLOUR_ARGS, f"data.root={work / 'scannet'}"])
+    colour = build_detector(colour_cfg, get_dataset(colour_cfg).mean_sizes)
+    clis = [cli_round_trip("points", SERVE_ARGS, art["model"], False, work),
+            cli_round_trip("colour", [*COLOUR_ARGS,
+                                      f"data.root={work / 'scannet'}"],
+                           colour, True, work)]
+    demo_check(clis[0]["ckpt"], art["model"], work)
+    total = {k: art["counts"][k] + sum(c["counts"][k] for c in clis)
+             for k in art["counts"]}
+    return {**{k: v for k, v in art.items() if k not in ("model", "cfg")},
+            "counts": total, "cli_seconds": [c["seconds"] for c in clis]}
+
+
 def main() -> None:
     card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2538,6 +2825,7 @@ def main() -> None:
         classified = phase_classify(card, {
             "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t},
             work / "classify")
+        exported = phase_serve_export(card, work / "export")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -2549,7 +2837,8 @@ def main() -> None:
              "eval4": {**evaluated["exact"]["counts"],
                        "sorted": evaluated["sorted"]["counts"]["sorted"]},
              "hostfed": hostfed["counts"], "train4": trained4["counts"],
-             "traink": trained_k["counts"], "classify": classified["counts"]}
+             "traink": trained_k["counts"], "classify": classified["counts"],
+             "serve_export": exported["counts"]}
 
     def entry(name, counter, source, replaces, tally):
         times = tally.summary()
@@ -2559,6 +2848,7 @@ def main() -> None:
                 "replaces": replaces,
                 "launches": sum(c[counter] for c in paths.values()),
                 "hostfed_launches": paths["hostfed"][counter],
+                "serve_export_launches": paths["serve_export"][counter],
                 "traink_replayed_step_launches": sum(
                     n for k, n in trained_k["replay_launches"].items()
                     if REPLAY_KERNELS[k][0] == counter) // K_STEPS,
@@ -2600,7 +2890,10 @@ def main() -> None:
           "replayed step's launches by name with torch.profiler), and phase "
           f"13's {CLS_REQUESTS} classified clouds, {CLS_STEPS} MSG steps and "
           f"{CLS_VAL} val batches, and the shape benchmark's "
-          f"{SHAPES_EPOCHS} epochs and sweeps (classify)")
+          f"{SHAPES_EPOCHS} epochs and sweeps (classify), and phase 14's "
+          f"loaded programs: {REQUESTS} requests at {B} x {N}, one under the "
+          "sorted tier, and 4 run= scenes at B = 1 (path serve_export, "
+          "under serve_export_launches)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

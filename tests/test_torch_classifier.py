@@ -555,6 +555,73 @@ def test_run_classifier_on_cpu_logs_checkpoints_resumes_and_evaluates(
             cuda_scatter.launches) == before  # the CPU took the plain ops
 
 
+def _consumed(monkeypatch):
+    """The numpy batches run_classifier hands its train and eval steps, in
+    order: {"train": [...], "val": [...]}."""
+    seen = {"train": [], "val": []}
+    train_step = train_lib.classifier_train_step
+    eval_step = train_lib.classifier_eval_step
+
+    def host(batch):
+        return {k: v.numpy() for k, v in batch.items()}
+
+    def train(model, optimizer, batch, *args):
+        seen["train"].append(host(batch))
+        return train_step(model, optimizer, batch, *args)
+
+    def evaluate(model, batch):
+        seen["val"].append(host(batch))
+        return eval_step(model, batch)
+
+    monkeypatch.setattr(train_lib, "classifier_train_step", train)
+    monkeypatch.setattr(train_lib, "classifier_eval_step", evaluate)
+    return seen
+
+
+def _same_batches(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.mark.parametrize("source", ["synthetic", "modelnet"])
+def test_run_classifier_consumes_the_reference_batch_stream(
+        shapes, tmp_path, monkeypatch, source):
+    """The reference draws one example batch from rng_np before its loop
+    (train.py:69), so its step i trains on draw i + 1 and its val sweep
+    draws after the last step. run_classifier's train and val batches are
+    those draws, bitwise (synthetic: 2 steps, 2 val batches; modelnet: the
+    5 steps of an epoch of 20 items, then the val clouds' subsets)."""
+    args = ["preset=classifier", "train.batch_size=2", "data.num_points=64",
+            f"train.ckpt_dir={tmp_path}", "train.num_epochs=1"]
+    if source == "modelnet":
+        args += ["data.name=modelnet", f"data.root={shapes[0] / 'npy'}",
+                 "train.batch_size=4"]
+    else:
+        args += ["data.name=synthetic", "model.num_classes=4"]
+        monkeypatch.setattr(train_classifier, "SYNTHETIC_STEPS_PER_EPOCH", 2)
+        monkeypatch.setattr(train_classifier, "SYNTHETIC_VAL_BATCHES", 2)
+    cfg, jcfg = _cfgs(args)
+    seen = _consumed(monkeypatch)
+    run_classifier(cfg, device="cpu")
+
+    rng = np.random.default_rng(jcfg.train.seed)
+    bs = jcfg.train.batch_size
+    if source == "modelnet":
+        ds = jmodelnet.ModelNetClassificationDataset(jcfg)
+        steps = ds.steps_per_epoch(bs)
+        draws = [ds.train_batch(rng, bs) for _ in range(1 + steps)]
+        val = list(ds.val_batches(rng, bs))
+    else:
+        draws = [classification_batch(rng, bs, 64, 4) for _ in range(5)]
+        val = draws[3:]
+    _same_batches(seen["train"], draws[1:len(seen["train"]) + 1])
+    assert len(seen["train"]) == (5 if source == "modelnet" else 2)
+    _same_batches(seen["val"], val)
+
+
 def test_classifier_entry_points_dispatch_and_refuse(monkeypatch, tmp_path):
     """eval_detector.main sends model.name=classifier to
     run_eval_classifier; train_classifier.main refuses the detector; a

@@ -3,7 +3,10 @@
 FPS, ball query and the row scatter-add each exist twice behind this API:
 a hand-written CUDA kernel (ops/cuda, the counterpart of the reference's
 impl='pallas') and its plain PyTorch version (ops/plain, the counterpart of
-impl='xla'). Dispatch goes by the tensor's device:
+impl='xla'). FPS and ball query (with the sorted tier's Morton codes) are
+reached through the custom operators of ops/library.py, so that
+torch.export keeps each call as one node. Dispatch goes by the tensor's
+device:
 
   * a CPU tensor takes the plain version;
   * a CUDA tensor launches the kernel, and a kernel that cannot be built or
@@ -40,10 +43,9 @@ import contextlib
 
 import torch
 
+from tpu3dsad_torch.ops import library as _library
 from tpu3dsad_torch.ops import plain as _plain
 from tpu3dsad_torch.ops import sorted as _sorted
-from tpu3dsad_torch.ops.cuda import ball_query as _cuda_bq
-from tpu3dsad_torch.ops.cuda import fps as _cuda_fps
 from tpu3dsad_torch.ops.cuda import scatter as _cuda_scatter
 from tpu3dsad_torch.ops.masked import masked_max
 from tpu3dsad_torch.ops.plain import interp_weights, three_nn
@@ -103,10 +105,7 @@ def _use_kernel(t: torch.Tensor) -> bool:
 def furthest_point_sample(xyz, npoint, *, mask=None):
     """xyz [B,N,3] -> idx [B,npoint] int32. Seed index 0; mask-aware.
     The picks are integers outside the autograd graph."""
-    xyz = xyz.detach()
-    if _use_kernel(xyz):
-        return _cuda_fps.furthest_point_sample(xyz, npoint, mask=mask)
-    return _plain.furthest_point_sample(xyz, npoint, mask=mask)
+    return _library.fps(xyz.detach(), npoint, mask)
 
 
 def _sorted_tier(xyz, nsample, exact) -> bool:
@@ -130,9 +129,7 @@ def ball_query(xyz, centers, radius, nsample, *, mask=None, exact=None):
     if _sorted_tier(xyz, nsample, exact):
         return _sorted.sorted_ball_query(xyz, centers, radius, nsample,
                                          mask=mask)
-    if _use_kernel(xyz):
-        return _cuda_bq.ball_query(xyz, centers, radius, nsample, mask=mask)
-    return _plain.ball_query(xyz, centers, radius, nsample, mask=mask)
+    return _library.ball_query(xyz, centers, radius, nsample, mask)
 
 
 def scatter_rows(g, idx, n):

@@ -1,0 +1,99 @@
+"""FPS, ball query and the sorted tier's Morton codes as PyTorch custom
+operators (torch.library), so that an eager call and a program exported
+by torch.export run the same functions:
+
+  * tpu3dsad_torch::fps(xyz, npoint, mask?) -> idx int32 [B, npoint]: B1,
+    and B2 for one cloud of more than cuda.fps.FLAT_MIN_N points;
+  * tpu3dsad_torch::ball_query(xyz, centers, radius, nsample, mask?,
+    perm?, perm_c?) -> (idx int32 [B, M, K], cnt int32 [B, M]): B3, and,
+    given the two Z-order permutations, the sorted tier's scan (B4);
+  * tpu3dsad_torch::morton_codes(xyz, centers, mask?) -> (codes_x int32
+    [B, N], codes_c int32 [B, M]): the sorted tier's keys.
+
+Each op has one implementation that dispatches as the ops API does
+(ops._use_kernel): on a CUDA tensor it launches the kernel through its
+wrapper in ops/cuda, which counts the launch (a ball query given
+permutations also counts one sorted call, ops.sorted.launches), and on a
+CPU tensor, or inside ops.use_impl("plain"), it runs the plain version.
+So a kernel's launches count alike in an eager program and in a loaded
+one. Its fake version checks the arguments and gives the output shapes,
+so torch.export traces each call as one node. A program that holds these
+nodes finds them only once this module is imported (import
+tpu3dsad_torch.ops).
+
+The ops have no autograd formula: their outputs are integers, and the ops
+API detaches their inputs.
+"""
+
+from typing import Optional
+
+import torch
+from torch import Tensor
+
+from tpu3dsad_torch.ops import plain as _plain
+from tpu3dsad_torch.ops import sorted as _sorted
+from tpu3dsad_torch.ops.args import check_ball_query, check_fps
+from tpu3dsad_torch.ops.cuda import ball_query as _cuda_bq
+from tpu3dsad_torch.ops.cuda import fps as _cuda_fps
+
+
+def _kernel(t: Tensor) -> bool:
+    from tpu3dsad_torch import ops  # the device dispatch and use_impl
+
+    return ops._use_kernel(t)
+
+
+@torch.library.custom_op("tpu3dsad_torch::fps", mutates_args=())
+def fps(xyz: Tensor, npoint: int, mask: Optional[Tensor] = None) -> Tensor:
+    if _kernel(xyz):
+        return _cuda_fps.furthest_point_sample(xyz, npoint, mask=mask)
+    return _plain.furthest_point_sample(xyz, npoint, mask=mask)
+
+
+@fps.register_fake
+def _(xyz, npoint, mask=None):
+    check_fps(xyz, npoint, mask)
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
+
+
+@torch.library.custom_op("tpu3dsad_torch::ball_query", mutates_args=())
+def ball_query(xyz: Tensor, centers: Tensor, radius: float, nsample: int,
+               mask: Optional[Tensor] = None, perm: Optional[Tensor] = None,
+               perm_c: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+    if (perm is None) != (perm_c is None):
+        raise ValueError("perm and perm_c go together")
+    if _kernel(xyz):
+        if perm is None:
+            return _cuda_bq.ball_query(xyz, centers, radius, nsample,
+                                       mask=mask)
+        out = _cuda_bq.ball_query(xyz, centers, radius, nsample, mask,
+                                  perm=perm, perm_c=perm_c)
+        _sorted.launches += 1
+        return out
+    if perm is None:
+        return _plain.ball_query(xyz, centers, radius, nsample, mask=mask)
+    return _sorted.permuted_ball_query(xyz, centers, radius, nsample, mask,
+                                       perm, perm_c)
+
+
+@ball_query.register_fake
+def _(xyz, centers, radius, nsample, mask=None, perm=None, perm_c=None):
+    check_ball_query(xyz, centers, nsample, mask)
+    B, M = centers.shape[:2]
+    return (xyz.new_empty((B, M, nsample), dtype=torch.int32),
+            xyz.new_empty((B, M), dtype=torch.int32))
+
+
+@torch.library.custom_op("tpu3dsad_torch::morton_codes", mutates_args=())
+def morton_codes(xyz: Tensor, centers: Tensor,
+                 mask: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+    if _kernel(xyz):
+        return _cuda_bq.morton_codes(xyz, centers, mask)
+    return _sorted.z_keys(xyz, centers, mask)
+
+
+@morton_codes.register_fake
+def _(xyz, centers, mask=None):
+    check_ball_query(xyz, centers, 1, mask)
+    return (xyz.new_empty(xyz.shape[:2], dtype=torch.int32),
+            xyz.new_empty(centers.shape[:2], dtype=torch.int32))

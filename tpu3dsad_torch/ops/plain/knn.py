@@ -3,7 +3,9 @@
 Squared distances in the |a|² + |b|² − 2ab form in fp32, clamped at 0.
 The cross term is a matrix product pinned to full fp32 in both directions
 (TF32 off inside it, whatever train.bf16_matmul set for the MLPs), as the
-reference pins it at Precision.HIGHEST (ops/xla/common.py);
+reference pins it at Precision.HIGHEST (ops/xla/common.py); the forward
+product is the custom op tpu3dsad_torch::fp32_cross, so an exported
+program pins it too;
 masked supports sit at +inf; the 3 nearest come from a stable sort, so
 distance ties go to the lower support index as `lax.top_k` gives them.
 The main path's largest call is [32, 1024, 512], so the [B, M, N] matrix
@@ -29,14 +31,28 @@ def fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+@torch.library.custom_op("tpu3dsad_torch::fp32_cross", mutates_args=(),
+                         schema="(Tensor a, Tensor b) -> Tensor")
+def fp32_cross(a, b):
+    """a [B,M,3] @ b [B,N,3]^T with TF32 off. A custom op, so that a
+    program exported by torch.export keeps the switch (a node of this op
+    where a plain bmm would run at the process's matmul precision)."""
+    with fp32_matmul():
+        return torch.bmm(a, b.transpose(-1, -2))
+
+
+@fp32_cross.register_fake
+def _(a, b):
+    return a.new_empty((a.shape[0], a.shape[1], b.shape[1]))
+
+
 class _Fp32Cross(torch.autograd.Function):
     """a [B,M,3] @ b [B,N,3]^T with fp32 products forward and backward."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        with fp32_matmul():
-            return torch.bmm(a, b.transpose(-1, -2))
+        return fp32_cross(a, b)
 
     @staticmethod
     def backward(ctx, grad):

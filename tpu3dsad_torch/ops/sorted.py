@@ -18,27 +18,33 @@ spatial one. Bitwise the reference's arithmetic:
     can join no ball); indices map back through the permutation, empty
     balls give 0, rows return to the caller's center order.
 
-Two implementations, by the tensor's device (ops._use_kernel):
+One path: the Morton codes of points and centers (the op
+tpu3dsad_torch::morton_codes), torch.sort(stable=True) of each (the
+reference sorts in XLA, outside its kernel), then the ball query given
+both permutations (the op tpu3dsad_torch::ball_query). The ops dispatch
+by the tensor's device (ops._use_kernel, ops/library.py):
 
-  * on the card, three launches and the two sorts: the Morton codes of
-    points and centers in one kernel (ops/cuda/ball_query.morton_codes),
-    torch.sort(stable=True) of each (the reference sorts in XLA, outside
-    its kernel), then the B3 kernel given both permutations: its pre-pass
-    stages the points in Z order (masked ones never join a ball, as the
-    1e9 points cannot), its tile skip leaves out the tiles far from each
-    center, and its epilogue writes the caller's indices and rows;
-  * the plain version: `sorted_views` (the glue above in torch), the plain
-    exact tier, `map_back`. The CPU and use_impl("plain") run it.
+  * on the card, two kernel launches besides the sorts: the codes in one
+    kernel (ops/cuda/ball_query.morton_codes), then the B3 kernel given
+    the permutations: its pre-pass stages the points in Z order (masked
+    ones never join a ball, as the 1e9 points cannot), its tile skip
+    leaves out the tiles far from each center, and its epilogue writes
+    the caller's indices and rows;
+  * the plain versions: `z_keys`, then `permuted_ball_query`, which is
+    the glue above in torch (`sorted_views`), the plain exact tier and
+    `map_back`. The CPU and use_impl("plain") run them.
 
-`launches` counts the calls that launched the kernels.
+`launches` counts the calls that launched the kernels; the ball-query op
+adds to it where it launches the scan given permutations (ops/library.py),
+so an exported program counts its sorted calls too.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu3dsad_torch.ops import library
 from tpu3dsad_torch.ops.args import check_ball_query
-from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.plain import ball_query as plain_ball_query
 
 # the reference engages the sorted tier only at support sizes >= 8192
@@ -97,16 +103,21 @@ def sorted_views(xyz, centers, mask=None):
     """-> (xs [B,N,3], cs [B,M,3], perm [B,N], inv_c [B,M]): the points
     (invalid ones at 1e9) and centers in Z order; xs[b, k] is point
     perm[b, k], and center j sits at sorted row inv_c[b, j]."""
+    codes_x, codes_c = z_keys(xyz, centers, mask)
+    return permuted_views(xyz, centers, mask,
+                          torch.sort(codes_x, dim=1, stable=True).indices,
+                          torch.sort(codes_c, dim=1, stable=True).indices)
+
+
+def permuted_views(xyz, centers, mask, perm, perm_c):
+    """sorted_views' result for given permutations perm [B,N] and perm_c
+    [B,M] of the points and of the centers."""
     B, N, _ = xyz.shape
     M = centers.shape[1]
-    codes_x, codes_c = z_keys(xyz, centers, mask)
     x = xyz.float() if mask is None else torch.where(
         mask.bool()[..., None], xyz.float(), 1e9)
-    c = centers.float()
-    perm = torch.sort(codes_x, dim=1, stable=True).indices
     xs = torch.gather(x, 1, perm[..., None].expand(B, N, 3))
-    perm_c = torch.sort(codes_c, dim=1, stable=True).indices
-    cs = torch.gather(c, 1, perm_c[..., None].expand(B, M, 3))
+    cs = torch.gather(centers.float(), 1, perm_c[..., None].expand(B, M, 3))
     rows = torch.arange(M, device=xyz.device).expand(B, M)
     inv_c = torch.empty_like(perm_c).scatter_(1, perm_c, rows)
     return xs.contiguous(), cs.contiguous(), perm, inv_c
@@ -122,27 +133,27 @@ def map_back(idx_s, cnt_s, perm, inv_c):
     return idx.int(), torch.gather(cnt_s, 1, inv_c).int()
 
 
+def permuted_ball_query(xyz, centers, radius, nsample, mask, perm, perm_c):
+    """The plain version of the kernel's scan given permutations: the exact
+    tier on permuted_views, mapped back."""
+    xs, cs, perm, inv_c = permuted_views(xyz, centers, mask, perm, perm_c)
+    idx_s, cnt_s = plain_ball_query(xs, cs, radius, nsample)
+    return map_back(idx_s, cnt_s, perm, inv_c)
+
+
 def sorted_ball_query(xyz, centers, radius, nsample, *, mask=None):
     """xyz [B,N,3], centers [B,M,3] -> (idx [B,M,K] int32, cnt [B,M] int32)
     with exact membership and counts, slots in Z order."""
-    from tpu3dsad_torch import ops  # the device dispatch
-
-    global launches
     check_ball_query(xyz, centers, nsample, mask)
-    if not ops._use_kernel(xyz):
-        xs, cs, perm, inv_c = sorted_views(xyz, centers, mask)
-        idx_s, cnt_s = plain_ball_query(xs, cs, radius, nsample)
-        return map_back(idx_s, cnt_s, perm, inv_c)
     perm, perm_c = z_order(xyz, centers, mask)
-    out = cuda_bq.ball_query(xyz, centers, radius, nsample, mask,
-                             perm=perm, perm_c=perm_c)
-    launches += 1
-    return out
+    return library.ball_query(xyz, centers, radius, nsample, mask, perm,
+                              perm_c)
 
 
 def z_order(xyz, centers, mask=None):
-    """On the card: (perm [B,N], perm_c [B,M]) int64, the stable sorts of
-    the points' and the centers' Morton codes (one kernel for the codes)."""
-    codes_x, codes_c = cuda_bq.morton_codes(xyz, centers, mask)
+    """(perm [B,N], perm_c [B,M]) int64, the stable sorts of the points'
+    and the centers' Morton codes (the op tpu3dsad_torch::morton_codes: one
+    kernel on the card, z_keys elsewhere)."""
+    codes_x, codes_c = library.morton_codes(xyz, centers, mask)
     return (torch.sort(codes_x, dim=1, stable=True).indices,
             torch.sort(codes_c, dim=1, stable=True).indices)

@@ -112,6 +112,9 @@ def run_classifier(cfg, *, device="cuda") -> ClassifierResult:
             return (make_batch() for _ in range(SYNTHETIC_VAL_BATCHES))
 
     model = build_classifier(cfg, num_classes, device=device)
+    # the reference draws an example batch to initialise its model
+    # (train.py:69), on a resume too; drawing it keeps the stream the same
+    make_batch()
     optimizer = train_lib.make_optimizer(cfg.train, steps_per_epoch,
                                          model.parameters())
     start_step = train_lib.restore_checkpoint(cfg.train.ckpt_dir, model,
