@@ -188,6 +188,31 @@ Phases, in order; any failure raises and the script exits nonzero:
     default_rng(7), its detections the eager program's (classes equal,
     the floats within 1e-5). The loaded programs' launches go to the
     path serve_export of the kernels line (serve_export_launches).
+15. from raw releases, through the port's own tools. (a) Raw files
+    written here from a seed: 32 train + 8 val ScanNet scans of 60000
+    vertices (binary PLY, aggregation, segments, axis alignment, the
+    label TSV) and 8 + 2 KITTI scans of 120000 points (velodyne, labels,
+    calib), converted by python -m tpu3dsad_torch.data.preproc_scannet
+    (every scan subsampled to the 50000 cap) and preproc_kitti, each in
+    its own process; data.validate passes on both; ms a scene. (b) A
+    lineage checkpoint.tar for config #3's model in lineage mode (seeded
+    tensors under the lineage's names and shapes) through python -m
+    tpu3dsad_torch.utils.import_torch: nothing skipped, each placed
+    tensor bitwise its source. (c) tpu3dsad_torch.train.main on the
+    converted scans from the import (ops_impl=pallas, profile_dir,
+    tb_dir): it resumes at step 1, 8 steps of 5 / 5 / 7 launches and 2
+    sweeps of one batch (5 / 5), finite losses, a trace in profile_dir,
+    an event file in tb_dir or, without tensorboard, the note on stderr;
+    eval_detector.main on the result (0 <= mAP <= 1); serving.main
+    export at B = 1 and run= on a converted val scene: 5 + 5 launches,
+    the detections those of the plain ops. (c') train.steps_per_call=2
+    from scratch with the first epoch profiled: the CUDA graph captured
+    under an active profiler, finite losses. (d) tpu3dsad_torch.train.main
+    at preset=outdoor on the converted KITTI scans with B2 in the loader,
+    one step: B2 once per scene it caches, 5 / 7 / 9 launches. (e)
+    ops.knn at [2, 16384, 16384], k = 16, past its slab limit: the
+    indices of the direct path forced on the same inputs. Its launches
+    go to the path from_raw (from_raw_launches).
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -214,6 +239,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import io
 import json
 import re
@@ -236,6 +262,7 @@ from tpu3dsad_torch import (
     train_detector,
     train_lib,
 )
+from tpu3dsad_torch import train as train_entry
 from tpu3dsad_torch.config import (
     Config,
     DataConfig,
@@ -246,7 +273,9 @@ from tpu3dsad_torch.config import (
 from tpu3dsad_torch.data import (
     get_dataset,
     kitti,
+    preproc_kitti,
     preproc_modelnet,
+    preproc_scannet,
     synthetic_indoor,
     synthetic_shapes,
 )
@@ -257,6 +286,7 @@ from tpu3dsad_torch.data.device_pipeline import (
 from tpu3dsad_torch.data.packed import pack_dataset
 from tpu3dsad_torch.data.synthetic import classification_batch
 from tpu3dsad_torch.data.synthetic_outdoor import write_dataset
+from tpu3dsad_torch.data.validate import validate_root
 from tpu3dsad_torch.eval.ap import APCalculator, box3d_iou_oriented
 from tpu3dsad_torch.models.classifier import MSG_SA1, MSG_SA2, build_classifier
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
@@ -268,10 +298,12 @@ from tpu3dsad_torch.ops.cuda import fps as cuda_fps
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
+from tpu3dsad_torch.ops.plain import knn as plain_knn
 from tpu3dsad_torch.ops.plain import scatter_rows as plain_scatter
 from tpu3dsad_torch.ops.plain.ball_query import radius_sq
 from tpu3dsad_torch.serving import build_inference_fn
 from tpu3dsad_torch.train_detector import build_detector, run_detector
+from tpu3dsad_torch.utils import import_torch
 
 B, N = 32, 20480  # BASELINE config #5, as bench.py runs it
 REQUESTS = 5
@@ -2794,7 +2826,552 @@ def phase_serve_export(card: str, work: Path) -> dict:
             "counts": total, "cli_seconds": [c["seconds"] for c in clis]}
 
 
+# phase 15: from a raw release to a trained, evaluated and served model
+# through the port's own tools. ScanNet: RAW_SCANNET train + val raw scans
+# of RAW_VERTS vertices, above the converter's 50000 cap so that every
+# scene is subsampled; KITTI: RAW_KITTI train + val velodyne scans of
+# RAW_KITTI_N points (config #4's ~120k). The raw files are written here
+# from a seed, in the layouts the converters document.
+RAW_SCANNET, RAW_VERTS = (32, 8), 60000
+RAW_KITTI, RAW_KITTI_N = (8, 2), 120000
+# raw category -> nyu40 id of each fixture object: six benchmark classes
+# and one annotated instance outside the benchmark
+RAW_OBJECTS = {"chair": 5, "table": 7, "bed": 4, "sofa": 6, "cabinet": 3,
+               "bookshelf": 10, "wall": 1}
+# the imported lineage detector on the converted ScanNet scenes (config
+# #3's model and data, batch 8 x 40960 points): 4 steps an epoch
+RAW_MODEL = ["model.name=detector", "data.name=scannet",
+             "model.proposal_mode=lineage"]
+RAW_EPOCHS = 2
+RAW_STEPS = RAW_SCANNET[0] // TRAIN_B * RAW_EPOCHS
+# the lineage head: one proposal grouping in place of the bank's three
+LINEAGE_FORWARD = dict(fps=5, ball_query=5)
+LINEAGE_STEP = dict(fps=5, ball_query=5, scatter=7)
+# k of the run that captures a step's CUDA graph under the profiler
+RAW_K = 2
+# ops.knn on the card above its 2^28-distance slab limit
+KNN_B, KNN_N, KNN_K = 2, 16384, 16
+# KITTI's camera extrinsics: cam x = -velo y, cam y = -velo z, cam z =
+# velo x, and the sensor offset
+KITTI_TR = np.array([[0.0, -1.0, 0.0, 0.00],
+                     [0.0, 0.0, -1.0, -0.08],
+                     [1.0, 0.0, 0.0, -0.27]])
+# (type, (l, w, h)) of the KITTI fixture's objects; Van and DontCare are
+# dropped by the converter
+KITTI_OBJECTS = [("Car", (3.9, 1.6, 1.5)), ("Pedestrian", (0.8, 0.6, 1.8)),
+                 ("Cyclist", (1.8, 0.6, 1.7)), ("Van", (5.0, 2.0, 2.2))]
+REPO = Path(__file__).resolve().parent
+
+
+def write_raw_scannet(root: Path, seed: int = 0) -> tuple[str, str]:
+    """Raw ScanNet scans under root/scans (binary little-endian PLY with
+    rgb, alpha and a face element; aggregation, over-segmentation and an
+    axis-alignment meta) with the label TSV and the split lists. Each scan:
+    len(RAW_OBJECTS) boxes of points, two segments each, over a floor of
+    four unaggregated segments. Returns (scans, labels)."""
+    rng = np.random.default_rng(seed)
+    scans, names = root / "scans", list(RAW_OBJECTS)
+    labels = root / "scannetv2-labels.combined.tsv"
+    labels.parent.mkdir(parents=True, exist_ok=True)
+    labels.write_text(
+        "id\traw_category\tcategory\tnyu40id\tnyu40class\n" + "".join(
+            f"{i}\t{n}\t{n}\t{nyu}\t{n}\n"
+            for i, (n, nyu) in enumerate(RAW_OBJECTS.items())))
+    vertex = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                       ("red", "u1"), ("green", "u1"), ("blue", "u1"),
+                       ("alpha", "u1")])
+    per = RAW_VERTS * 2 // 3 // len(names)
+    floor = RAW_VERTS - per * len(names)
+    scenes = [f"scene{i:04d}_00" for i in range(sum(RAW_SCANNET))]
+    for scene in scenes:
+        centers = rng.uniform([-2.5, -2.5, 0.3], [2.5, 2.5, 1.0],
+                              (len(names), 3))
+        sizes = rng.uniform(0.4, 1.8, (len(names), 3))
+        xyz = np.concatenate(
+            [c + (rng.random((per, 3)) - 0.5) * s
+             for c, s in zip(centers, sizes)]
+            + [rng.uniform([-3, -3, 0], [3, 3, 0.02], (floor, 3))])
+        table = np.zeros(RAW_VERTS, vertex)
+        for i, axis in enumerate("xyz"):
+            table[axis] = xyz[:, i]
+        colour = np.repeat(rng.integers(0, 256, (len(names) + 1, 3)),
+                           [per] * len(names) + [floor], axis=0)
+        for i, chan in enumerate(("red", "green", "blue")):
+            table[chan] = colour[:, i]
+        table["alpha"] = 255
+        segs = np.concatenate([
+            np.repeat(np.arange(len(names)) * 2, per)
+            + np.tile(np.arange(per) % 2, len(names)),
+            1000 + np.arange(floor) % 4])
+        angle = rng.uniform(-np.pi, np.pi)
+        align = np.eye(4)
+        align[:2, :2] = [[np.cos(angle), -np.sin(angle)],
+                         [np.sin(angle), np.cos(angle)]]
+        align[:3, 3] = rng.uniform(-1, 1, 3)
+        d = scans / scene
+        d.mkdir(parents=True)
+        header = ["ply", "format binary_little_endian 1.0",
+                  f"element vertex {RAW_VERTS}"]
+        header += [f"property {'float' if n in 'xyz' else 'uchar'} {n}"
+                   for n in vertex.names]
+        header += ["element face 1", "property list uchar int vertex_indices",
+                   "end_header"]
+        with open(d / f"{scene}_vh_clean_2.ply", "wb") as f:
+            f.write(("\n".join(header) + "\n").encode())
+            f.write(table.tobytes())
+            f.write(b"\x03" + np.arange(3, dtype="<i4").tobytes())
+        (d / f"{scene}.aggregation.json").write_text(json.dumps({
+            "segGroups": [{"id": o, "objectId": o, "label": name,
+                           "segments": [2 * o, 2 * o + 1]}
+                          for o, name in enumerate(names)]}))
+        (d / f"{scene}_vh_clean_2.0.010000.segs.json").write_text(
+            json.dumps({"segIndices": segs.tolist()}))
+        (d / f"{scene}.txt").write_text(
+            f"numVertices = {RAW_VERTS}\naxisAlignment = "
+            + " ".join(f"{v:.6f}" for v in align.reshape(-1)) + "\n")
+    (root / "train.txt").write_text(
+        "\n".join(scenes[:RAW_SCANNET[0]]) + "\n")
+    (root / "val.txt").write_text("\n".join(scenes[RAW_SCANNET[0]:]) + "\n")
+    return str(scans), str(labels)
+
+
+def write_raw_kitti(root: Path, seed: int = 0) -> str:
+    """Raw KITTI object files under root/training: velodyne scans of
+    RAW_KITTI_N points (a ground plane in the crop range, points in each
+    box, a tenth outside the range), camera-frame labels of 8 objects (a
+    DontCare line too) and calib with a slightly turned R0_rect; the split
+    lists beside. Returns root."""
+    rng = np.random.default_rng(seed)
+    split = root / "training"
+    for d in ("velodyne", "label_2", "calib"):
+        (split / d).mkdir(parents=True)
+    ids = [f"{i:06d}" for i in range(sum(RAW_KITTI))]
+    for idx in ids:
+        lines, parts = [], []
+        r0 = np.eye(3)
+        a = rng.normal(0.0, 0.01)
+        r0[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        n_box = 8
+        in_box = RAW_KITTI_N // 4 // n_box
+        for o in range(n_box):
+            typ, (length, w, h) = KITTI_OBJECTS[o % len(KITTI_OBJECTS)]
+            center = np.array([rng.uniform(6, 60), rng.uniform(-25, 25),
+                               -1.7 + h / 2])
+            yaw = rng.uniform(-np.pi, np.pi)
+            local = (rng.random((in_box, 3)) - 0.5) * [length, w, h]
+            c, s = np.cos(yaw), np.sin(yaw)
+            parts.append(local @ np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]])
+                         + center)
+            bottom = center - [0, 0, h / 2]
+            rect = r0 @ (KITTI_TR[:, :3] @ bottom + KITTI_TR[:, 3])
+            lines.append(f"{typ} 0.00 0 0.00 0 0 50 50 {h:.2f} {w:.2f} "
+                         f"{length:.2f} {rect[0]:.2f} {rect[1]:.2f} "
+                         f"{rect[2]:.2f} {-yaw - np.pi / 2:.2f}")
+        lines.append("DontCare -1 -1 -10 0 0 50 50 -1 -1 -1 -1000 -1000 "
+                     "-1000 -10")
+        rest = RAW_KITTI_N - in_box * n_box
+        outside = rest // 10
+        parts.append(rng.uniform([0, -40, -1.75], [70.4, 40, -1.65],
+                                 (rest - outside, 3)))
+        parts.append(rng.uniform([-20, -60, -3], [90, 60, 3], (outside, 3)))
+        xyz = np.concatenate(parts)
+        pc = np.concatenate([xyz, rng.random((RAW_KITTI_N, 1))], 1)
+        pc.astype(np.float32).tofile(split / "velodyne" / f"{idx}.bin")
+        (split / "label_2" / f"{idx}.txt").write_text("\n".join(lines) + "\n")
+        (split / "calib" / f"{idx}.txt").write_text(
+            "".join(f"P{i}: " + " ".join(["0"] * 12) + "\n" for i in range(4))
+            + "R0_rect: " + " ".join(f"{v:.9f}" for v in r0.reshape(-1))
+            + "\nTr_velo_to_cam: "
+            + " ".join(f"{v:.9f}" for v in KITTI_TR.reshape(-1)) + "\n")
+    (root / "train.txt").write_text("\n".join(ids[:RAW_KITTI[0]]) + "\n")
+    (root / "val.txt").write_text("\n".join(ids[RAW_KITTI[0]:]) + "\n")
+    return str(root)
+
+
+def lineage_names() -> dict:
+    """{lineage name: (the port's key, trailing 1s of the lineage conv
+    weight)} of the lineage-mode detector, as the lineage's VoteNet names
+    its tensors (the proposal MLP's BatchNorms inside BNMomentum)."""
+    names = {}
+
+    def conv(src, dst, ones, bias):
+        names[f"{src}.weight"] = (f"{dst}.weight", ones)
+        if bias:
+            names[f"{src}.bias"] = (f"{dst}.bias", 0)
+
+    def bn(src, dst):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            names[f"{src}.{leaf}"] = (f"{dst}.{leaf}", 0)
+
+    for src, dense, norm in import_torch._rules():
+        conv(f"{src}.conv", dense, 2, False)
+        bn(f"{src}.bn", norm)
+    for j in range(2):
+        conv(f"vgen.conv{j + 1}", f"voting.dense_{j}", 1, True)
+        bn(f"vgen.bn{j + 1}", f"voting.bn_{j}")
+    conv("vgen.conv3", "voting.out", 1, True)
+    for j in range(3):
+        src = f"pnet.vote_aggregation.mlp_module.layer{j}"
+        conv(f"{src}.conv", f"proposal.sa_mlp.dense_{j}", 2, False)
+        bn(f"{src}.bn.bn", f"proposal.sa_mlp.bn_{j}")
+    for j in range(2):
+        conv(f"pnet.conv{j + 1}", f"proposal.head_{j}", 1, True)
+        bn(f"pnet.bn{j + 1}", f"proposal.head_bn_{j}")
+    conv("pnet.conv3", "proposal.head_out", 1, True)
+    return names
+
+
+def write_lineage_checkpoint(cfg, path: Path, seed: int = 0) -> dict:
+    """A lineage checkpoint.tar for the lineage-mode detector of cfg:
+    seeded tensors under lineage_names() at the lineage's shapes (conv
+    weights [out, in, 1(, 1)]), with each BatchNorm's num_batches_tracked.
+    Returns {lineage name: tensor} of the weights."""
+    template = build_detector(cfg, device="cpu").state_dict()
+    names = lineage_names()
+    if sorted(key for key, _ in names.values()) != sorted(template):
+        raise AssertionError("the lineage names do not cover the detector")
+    rng = np.random.default_rng(seed)
+    weights = {}
+    for name, (key, ones) in names.items():
+        shape = tuple(template[key].shape)
+        if name.endswith("running_var"):
+            value = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith(("bn.weight", "bn1.weight", "bn2.weight")):
+            value = rng.uniform(0.8, 1.2, shape)
+        elif len(shape) == 2:  # a conv weight, by its fan-in
+            value = rng.standard_normal(shape) / np.sqrt(shape[1])
+        else:
+            value = rng.normal(0.0, 0.1, shape)
+        weights[name] = torch.from_numpy(
+            value.astype(np.float32).reshape(shape + (1,) * ones))
+    tracked = {n.rsplit(".", 1)[0] + ".num_batches_tracked": torch.tensor(7)
+               for n in weights if n.endswith("running_var")}
+    torch.save({"epoch": 7, "model_state_dict": {**weights, **tracked}},
+               path)
+    return weights
+
+
+def run_module(module: str, args: list) -> tuple[dict, float]:
+    """python -m <module> <args> in its own process: (the JSON of its last
+    stdout line, wall seconds). Its exit code must be 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
+
+
+class TeeStderr(io.StringIO):
+    """stderr kept as it is written, and passed on."""
+
+    def write(self, text):
+        sys.__stderr__.write(text)
+        return super().write(text)
+
+
+def raw_convert(work: Path) -> dict:
+    """(a) Both raw releases written and converted by the port's
+    converters, each in its own process; both outputs validated. Prints
+    the host ms a scene (the process's wall, interpreter start and imports
+    included, and export_scene alone in this process)."""
+    t0 = time.perf_counter()
+    scans, labels = write_raw_scannet(work / "raw_scannet")
+    kitti_raw = write_raw_kitti(work / "raw_kitti")
+    print(f"  wrote {sum(RAW_SCANNET)} raw ScanNet scans of {RAW_VERTS} "
+          f"vertices and {sum(RAW_KITTI)} KITTI scans of {RAW_KITTI_N} "
+          f"points in {time.perf_counter() - t0:.3f} s")
+    scannet_out, kitti_out = str(work / "scannet"), str(work / "kitti")
+    raw = work / "raw_scannet"
+    report, s_scannet = run_module("tpu3dsad_torch.data.preproc_scannet", [
+        f"scans={scans}", f"labels={labels}", f"out={scannet_out}",
+        f"train_list={raw / 'train.txt'}", f"val_list={raw / 'val.txt'}"])
+    if report["written"] != {"train": RAW_SCANNET[0],
+                             "val": RAW_SCANNET[1]}:
+        raise AssertionError(f"preproc_scannet wrote {report}")
+    raw = work / "raw_kitti"
+    report, s_kitti = run_module("tpu3dsad_torch.data.preproc_kitti", [
+        f"root={kitti_raw}", f"out={kitti_out}",
+        f"train_list={raw / 'train.txt'}", f"val_list={raw / 'val.txt'}"])
+    if report["written"] != {"train": RAW_KITTI[0], "val": RAW_KITTI[1]}:
+        raise AssertionError(f"preproc_kitti wrote {report}")
+    for name, root in (("scannet", scannet_out), ("kitti", kitti_out)):
+        rep = validate_root(name, root)
+        if rep.errors:
+            raise AssertionError(f"validate {name}: {rep.errors[:5]}")
+    vert = np.load(Path(scannet_out) / "train" / "scene0000_00_vert.npy")
+    if vert.shape != (min(RAW_VERTS, 50000), 6):  # the converter's cap
+        raise AssertionError(f"a converted scene is {vert.shape}")
+    label_map = preproc_scannet.read_label_mapping(labels)
+    in_process = []
+    for scene in ("scene0000_00", "scene0001_00", "scene0002_00"):
+        t0 = time.perf_counter()
+        preproc_scannet.export_scene(f"{scans}/{scene}", scene, label_map)
+        in_process.append((time.perf_counter() - t0) * 1e3)
+    in_kitti = []
+    for idx in ("000000", "000001", "000002"):
+        t0 = time.perf_counter()
+        preproc_kitti.export_scene(kitti_raw, "training", idx)
+        in_kitti.append((time.perf_counter() - t0) * 1e3)
+    ms = {"scannet_process_ms_a_scene": s_scannet * 1e3 / sum(RAW_SCANNET),
+          "kitti_process_ms_a_scene": s_kitti * 1e3 / sum(RAW_KITTI),
+          "scannet_export_scene_ms": statistics.median(in_process),
+          "kitti_export_scene_ms": statistics.median(in_kitti)}
+    print(f"  converted: preproc_scannet {s_scannet:.3f} s for "
+          f"{sum(RAW_SCANNET)} scans ({ms['scannet_process_ms_a_scene']:.3f} "
+          f"ms a scene, process start included; export_scene alone "
+          f"{ms['scannet_export_scene_ms']:.3f} ms), preproc_kitti "
+          f"{s_kitti:.3f} s for {sum(RAW_KITTI)} "
+          f"({ms['kitti_process_ms_a_scene']:.3f} ms a scene; export_scene "
+          f"{ms['kitti_export_scene_ms']:.3f} ms); data.validate passes on "
+          "both")
+    return {"scannet": scannet_out, "kitti": kitti_out, "ms": ms}
+
+
+def raw_import(work: Path, root: str) -> str:
+    """(b) A seeded lineage checkpoint.tar through the importer's own
+    process: nothing skipped, and each placed tensor bitwise its source.
+    Returns the checkpoint directory."""
+    cfg = parse_cli([*RAW_MODEL, f"data.root={root}"])
+    tar, out = work / "checkpoint.tar", work / "imported"
+    weights = write_lineage_checkpoint(cfg, tar)
+    report, seconds = run_module("tpu3dsad_torch.utils.import_torch", [
+        f"ckpt={tar}", f"out={out}", *RAW_MODEL, f"data.root={root}"])
+    if (report["skipped"], report["copied"], report["total_source_tensors"]
+            ) != ([], len(weights), len(weights)):
+        raise AssertionError(f"import report {report}")
+    state = torch.load(out / "ckpt_1.pt", map_location="cpu",
+                       weights_only=True)
+    if state["step"] != 1:
+        raise AssertionError(f"imported step {state['step']}")
+    for name, (key, _) in lineage_names().items():
+        placed = state["model"][key]
+        if not torch.equal(placed, weights[name].reshape(placed.shape)):
+            raise AssertionError(f"{name} -> {key} is not its source")
+    print(f"  imported {report['copied']} lineage tensors in {seconds:.3f} s "
+          "(its process), none skipped, each bitwise its source")
+    return str(out)
+
+
+def raw_train(work: Path, root: str, ckpt: str) -> dict:
+    """(c) The import fine-tuned through the train entry, in this process:
+    RAW_EPOCHS epochs with a sweep after each, the first one profiled,
+    TensorBoard asked for; then eval_detector.main on the result, and the
+    export / run CLI on a converted val scene against the plain ops."""
+    profile, tb = work / "profile", work / "tb"
+    args = [*RAW_MODEL, f"data.root={root}", f"train.ckpt_dir={ckpt}",
+            f"train.num_epochs={RAW_EPOCHS}", "train.eval_every=1",
+            "train.log_every=4", f"train.profile_dir={profile}",
+            f"train.tb_dir={tb}", "ops_impl=pallas"]
+    torch.cuda.synchronize()
+    reset_counts()
+    err = TeeStderr()
+    with stage_clock({"forward+parse": []}) as t, \
+            contextlib.redirect_stderr(err):
+        result = train_entry.main(args)
+    got = counts()
+    sweeps = len(t["scenes"])
+    want = {k: LINEAGE_STEP.get(k, 0) * RAW_STEPS
+            + LINEAGE_FORWARD.get(k, 0) * sweeps for k in counts()}
+    print(f"  train entry launches: {got} ({RAW_STEPS} steps, {sweeps} sweep "
+          "batches)")
+    losses = [h["loss"] for h in result.history]
+    if (result.start_step, result.step) != (1, 1 + RAW_STEPS) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"steps {result.start_step} -> {result.step}, "
+                             f"losses {losses}")
+    if got != want or t["scenes"] != [RAW_SCANNET[1]] * RAW_EPOCHS:
+        raise AssertionError(f"launches {got} != {want}; sweep batches of "
+                             f"{t['scenes']} scenes")
+    trace = profile / "trace.json"
+    if not trace.is_file() or trace.stat().st_size == 0:
+        raise AssertionError(f"no trace in {profile}")
+    if importlib.util.find_spec("tensorboard") is None:
+        if "tensorboard unavailable" not in err.getvalue():
+            raise AssertionError("no note that tensorboard is missing")
+        tb_text = "tensorboard does not import: the note on stderr"
+    else:
+        if not list(tb.glob("events.out.tfevents.*")):
+            raise AssertionError(f"no TensorBoard event file in {tb}")
+        tb_text = "an event file in tb_dir"
+    for ev in result.evals:
+        if not (np.isfinite(ev["val_loss"]) and 0 <= ev["mAP@0.25"] <= 1):
+            raise AssertionError(f"sweep {ev}")
+    warm = result.history[1:]
+    med = statistics.median(h["seconds"] for h in warm) * 1e3
+    wait = statistics.median(h["wait"] for h in warm) * 1e3
+    sweep_ms = [ev["seconds"] * 1e3 for ev in result.evals]
+    first = [h["seconds"] * 1e3 for h in result.history[:RAW_STEPS // 2]]
+    later = [h["seconds"] * 1e3 for h in result.history[RAW_STEPS // 2:]]
+    print(f"  resumed at step {result.start_step}, trained to "
+          f"{result.step}: losses {[round(x, 4) for x in losses]}; median "
+          f"step {med:.3f} ms (steps 3-{result.step}), wait {wait:.3f} ms; "
+          f"the profiled epoch's steps {[round(x, 3) for x in first]} ms, "
+          f"the next epoch's {[round(x, 3) for x in later]} ms; sweeps "
+          f"{[round(x, 3) for x in sweep_ms]} ms, mAP@0.25 "
+          f"{[ev['mAP@0.25'] for ev in result.evals]}; trace "
+          f"{trace.stat().st_size} bytes; {tb_text}")
+
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        evaluated = eval_detector.main([*RAW_MODEL, f"data.root={root}",
+                                        f"train.ckpt_dir={ckpt}"])
+    eval_counts = counts()
+    if (evaluated["ckpt_step"] != result.step or eval_counts != launches(
+            **LINEAGE_FORWARD) or not 0 <= evaluated["mAP@0.25"] <= 1
+            or not np.isfinite(evaluated["val_loss"])):
+        raise AssertionError(f"eval_detector.main: {evaluated}, launches "
+                             f"{eval_counts}")
+    print(f"  eval_detector.main: ckpt_step {evaluated['ckpt_step']}, "
+          f"mAP@0.25 {evaluated['mAP@0.25']}, val_loss "
+          f"{evaluated['val_loss']}, launches {eval_counts}")
+
+    program = str(work / "imported.pt2")
+    t0 = time.perf_counter()
+    report = cli_output([f"ckpt={ckpt}", f"out={program}", *RAW_MODEL,
+                         f"data.root={root}", "train.batch_size=1"])
+    export_s = time.perf_counter() - t0
+    scene = sorted(Path(root, "val").glob("*_vert.npy"))[0]
+    reset_counts()
+    dets = cli_output([f"run={program}", f"scene={scene}"])["detections"]
+    serve_counts = counts()
+    with ops.use_impl("plain"):
+        plain = cli_output([f"run={program}", f"scene={scene}"])["detections"]
+    if serve_counts != launches(**LINEAGE_FORWARD) or dets != plain or \
+            report["ckpt_step"] != result.step:
+        raise AssertionError(f"served the import: launches {serve_counts}, "
+                             f"{len(dets)} detections vs plain {len(plain)}, "
+                             f"report {report}")
+    print(f"  serving.main: exported step {report['ckpt_step']} in "
+          f"{export_s:.3f} s; run= on {scene.name}: {len(dets)} detections, "
+          f"equal to the plain ops'; launches {serve_counts}")
+    total = {k: got[k] + eval_counts[k] + serve_counts[k] for k in got}
+    return {"counts": total, "step_ms": med, "wait_ms": wait,
+            "profiled_step_ms": first, "later_step_ms": later,
+            "sweep_ms": sweep_ms, "eval_map": evaluated["mAP@0.25"],
+            "export_s": export_s}
+
+
+def raw_capture_profiled(work: Path, root: str) -> dict:
+    """(c') train.steps_per_call=RAW_K from scratch with the profiler on:
+    its first epoch holds the eager block and the captured step, so the
+    CUDA graph is captured under an active profiler."""
+    profile = work / "profile_k"
+    args = [*RAW_MODEL, f"data.root={root}", f"train.ckpt_dir={work / 'k'}",
+            "train.num_epochs=1", "train.eval_every=10",
+            f"train.steps_per_call={RAW_K}", f"train.profile_dir={profile}"]
+    reset_counts()
+    result = train_entry.main(args)
+    got = counts()
+    steps = RAW_SCANNET[0] // TRAIN_B
+    # the counters see the eager block and the captured step, not a replay
+    want = launches(**{k: v * (RAW_K + 1) for k, v in LINEAGE_STEP.items()})
+    losses = [h["loss"] for h in result.history]
+    if result.step != steps or not np.isfinite(losses).all() or got != want \
+            or not (profile / "trace.json").is_file():
+        raise AssertionError(f"k={RAW_K} under the profiler: step "
+                             f"{result.step}, losses {losses}, launches "
+                             f"{got} != {want}")
+    print(f"  train.steps_per_call={RAW_K} with the first epoch profiled: "
+          f"the graph captured under the profiler; losses "
+          f"{[round(x, 4) for x in losses]}, launches {got}, trace "
+          f"{(profile / 'trace.json').stat().st_size} bytes")
+    return {"counts": got}
+
+
+def raw_outdoor(work: Path, root: str) -> dict:
+    """(d) Config #4 from the converted KITTI scenes through the train
+    entry, one epoch of one step: B2 once per scene the loader caches."""
+    args = ["preset=outdoor", f"data.root={root}", "data.device_preproc=true",
+            "train.num_epochs=1", "train.log_every=1",
+            f"train.ckpt_dir={work / 'outdoor'}"]
+    reset_counts()
+    with stage_clock({"b2": [(kitti, "device_fps")],
+                      "forward+parse": []}) as t:
+        result = train_entry.main(args)
+    got = counts()
+    written = len(fps_caches(root))
+    want = launches(**STEP4["fps"], fps_flat=written)
+    losses = [h["loss"] for h in result.history]
+    if got != want or len(t["b2"]) != written or not written or \
+            result.step != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"outdoor from raw: launches {got} != {want}, "
+                             f"{len(t['b2'])} device_fps, step "
+                             f"{result.step}, losses {losses}")
+    b2 = statistics.median(t["b2"]) * 1e3
+    print(f"  config #4 from the converted scenes: loss {losses[0]:.6f}, "
+          f"step {result.history[0]['seconds'] * 1e3:.3f} ms; B2 once per "
+          f"scene cached ({written}), {b2:.3f} ms a scene; launches {got}")
+    return {"counts": got, "b2_ms": b2,
+            "step_ms": result.history[0]["seconds"] * 1e3}
+
+
+def raw_knn(gen) -> dict:
+    """(e) ops.knn at [KNN_B, KNN_N, KNN_N], k = KNN_K, past the slab
+    limit, against the direct path forced on the same inputs."""
+    query, support = cloud(gen, KNN_B, KNN_N), cloud(gen, KNN_B, KNN_N)
+    if KNN_B * KNN_N * KNN_N <= plain_knn._SLAB_LIMIT:
+        raise AssertionError("the knn shape does not reach the slab scan")
+    valid = torch.ones(KNN_B, KNN_N, dtype=torch.bool, device="cuda")
+    d_scan, i_scan = ops.knn(query, support, KNN_K)
+    d_dir, i_dir = plain_knn._knn_direct(query, support, KNN_K, valid)
+    require_equal("knn idx: slab scan vs direct", i_scan, i_dir)
+    err = (d_scan - d_dir).abs().max().item()
+    scan_ms = cuda_ms(lambda: ops.knn(query, support, KNN_K), 3)
+    direct_ms = cuda_ms(
+        lambda: plain_knn._knn_direct(query, support, KNN_K, valid), 3)
+    print(f"  ops.knn [{KNN_B}, {KNN_N}, {KNN_N}] k = {KNN_K}: the slab scan "
+          f"({-(-KNN_N // (plain_knn._SLAB_LIMIT // (KNN_B * KNN_N)))} slabs)"
+          f" picks the direct path's indices, max |d2 diff| {err}; scan "
+          f"{scan_ms:.3f} ms, direct {direct_ms:.3f} ms")
+    return {"scan_ms": scan_ms, "direct_ms": direct_ms, "max_abs_err": err}
+
+
+def phase_from_raw(card: str, gen, work: Path) -> dict:
+    print(f"== from raw releases: {sum(RAW_SCANNET)} ScanNet scans and "
+          f"{sum(RAW_KITTI)} KITTI scans converted, a lineage checkpoint "
+          "imported, fine-tuned through the train entry, evaluated, served; "
+          f"config #4 from the converted scans; ops.knn on {card}")
+    print("  importable here: " + ", ".join(
+        f"{name} {importlib.util.find_spec(name) is not None}"
+        for name in ("PIL", "tensorboard")) + " (preproc_sunrgbd needs PIL; "
+          "it is checked by its CPU tests, not here)")
+    work.mkdir(parents=True)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        data = timed("a", raw_convert, work)
+        ckpt = timed("b", raw_import, work, data["scannet"])
+        trained = timed("c", raw_train, work, data["scannet"], ckpt)
+        captured = timed("c'", raw_capture_profiled, work, data["scannet"])
+        outdoor = timed("d", raw_outdoor, work, data["kitti"])
+        knn = timed("e", raw_knn, gen)
+    finally:
+        train_lib.apply_runtime_config(Config())
+    print("  phase 15 seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in seconds.items()))
+    total = {k: trained["counts"][k] + captured["counts"][k]
+             + outdoor["counts"][k] for k in trained["counts"]}
+    return {"counts": total, "seconds": seconds, "convert_ms": data["ms"],
+            "train": trained, "outdoor": outdoor, "knn": knn}
+
+
 def main() -> None:
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(phase: str) -> None:
+        """Record the seconds since the last phase ended."""
+        laps[phase] = time.perf_counter() - t0 - sum(laps.values())
+
     card = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
     work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_outdoor_"))
@@ -2803,29 +3380,45 @@ def main() -> None:
         train_calls = capture_train_step(gen)
         eval_loads, eval_calls = capture_eval_batch(outdoor)
         serve_calls = capture_request()
+        lap("1")
         fps_t = phase_fps(gen, train_calls, eval_calls)
+        lap("2")
         bq_t = phase_ball_query(gen, serve_calls, train_calls, eval_calls)
+        lap("3")
         served = phase_serve(card)
+        lap("4")
         scatter_t = phase_scatter(gen, train_calls)
+        lap("5")
         nn_calls = train_calls["three_nn"]
         train_sa1 = train_calls["ball_query"][0]
         serve_sa1 = serve_calls["ball_query"][0]
         del serve_calls
         del train_calls  # keep the recorded tensors out of training's peak
         trained = phase_train(card, gen, nn_calls)
+        lap("6")
         flat_t = phase_fps_flat(gen, eval_loads["fps"][0])
+        lap("7")
         del eval_loads
         sorted_t = phase_sorted(gen, eval_calls, serve_sa1, train_sa1)
+        lap("8")
         evaluated = phase_eval(card, outdoor)
+        lap("9")
         hostfed = phase_hostfed(card, work / "hostfed")
+        lap("10")
         trained4 = phase_outdoor_train(card, {
             "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t,
             "fps_flat": flat_t})
+        lap("11")
         trained_k = phase_train_k(card, work / "hostfed")
+        lap("12")
         classified = phase_classify(card, {
             "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t},
             work / "classify")
+        lap("13")
         exported = phase_serve_export(card, work / "export")
+        lap("14")
+        from_raw = phase_from_raw(card, gen, work / "raw")
+        lap("15")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -2838,7 +3431,8 @@ def main() -> None:
                        "sorted": evaluated["sorted"]["counts"]["sorted"]},
              "hostfed": hostfed["counts"], "train4": trained4["counts"],
              "traink": trained_k["counts"], "classify": classified["counts"],
-             "serve_export": exported["counts"]}
+             "serve_export": exported["counts"],
+             "from_raw": from_raw["counts"]}
 
     def entry(name, counter, source, replaces, tally):
         times = tally.summary()
@@ -2849,6 +3443,7 @@ def main() -> None:
                 "launches": sum(c[counter] for c in paths.values()),
                 "hostfed_launches": paths["hostfed"][counter],
                 "serve_export_launches": paths["serve_export"][counter],
+                "from_raw_launches": paths["from_raw"][counter],
                 "traink_replayed_step_launches": sum(
                     n for k, n in trained_k["replay_launches"].items()
                     if REPLAY_KERNELS[k][0] == counter) // K_STEPS,
@@ -2893,7 +3488,15 @@ def main() -> None:
           f"{SHAPES_EPOCHS} epochs and sweeps (classify), and phase 14's "
           f"loaded programs: {REQUESTS} requests at {B} x {N}, one under the "
           "sorted tier, and 4 run= scenes at B = 1 (path serve_export, "
-          "under serve_export_launches)")
+          "under serve_export_launches), and phase 15's lineage import "
+          f"fine-tuned for {RAW_STEPS} steps with its {RAW_EPOCHS} sweeps, "
+          f"evaluated and served once, its steps_per_call={RAW_K} run (the "
+          "eager block and the captured step) and the config-#4 step from "
+          "the converted KITTI scans with B2 in its loader (path from_raw, "
+          "under from_raw_launches)")
+    print("seconds by phase (1: the build and the recordings): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items())
+          + f"; in all {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -571,14 +571,19 @@ def test_demo_on_a_checkpoint_matches_the_served_program(tmp_path):
 
 
 def test_entry_points_import_without_jax():
-    """serving, demo and utils.dump load neither JAX nor the JAX package,
-    and the serving CLI asks for its arguments."""
+    """serving, demo, utils.dump, the train entry, the importer and the
+    raw-release converters load neither JAX, nor the JAX package, nor the
+    tests, and the serving CLI asks for its arguments."""
     code = (
         "import sys\n"
         "import tpu3dsad_torch.serving, tpu3dsad_torch.demo\n"
         "import tpu3dsad_torch.utils.dump, tpu3dsad_torch.ops.library\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'tpu3dsad')]\n"
+        "import tpu3dsad_torch.train, tpu3dsad_torch.utils.import_torch\n"
+        "import tpu3dsad_torch.data.preproc_scannet\n"
+        "import tpu3dsad_torch.data.preproc_kitti\n"
+        "import tpu3dsad_torch.data.preproc_sunrgbd\n"
+        "bad = [m for m in sys.modules if m.split('.')[0]\n"
+        "       in ('jax', 'flax', 'optax', 'tpu3dsad', 'tests')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -111,6 +111,12 @@ class TrainConfig:
     ckpt_every: int = 1  # epochs; the last epoch always saves
     log_every: int = 10  # steps
     eval_every: int = 10  # epochs; then the val sweep and the best mAP
+    # a torch.profiler trace (CPU + CUDA) of the first epoch run, written
+    # as a Chrome trace into this directory (train_detector.run_detector)
+    profile_dir: str = ""
+    # TensorBoard scalars beside the JSON lines, where
+    # torch.utils.tensorboard imports (utils/metrics.py)
+    tb_dir: str = ""
     mesh_shape: tuple[int, ...] = (-1,)  # one device only (ROADMAP A11)
     # TF32 for the MLP products on the card; distances stay fp32
     # (train_lib.apply_runtime_config)
@@ -139,6 +145,12 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    # 'xla' | 'pallas', accepted so that the reference's command lines
+    # parse; any other value raises (train_lib.apply_runtime_config). It
+    # selects nothing here: the port picks its kernels by the tensor's
+    # device, and ops.use_impl("plain") is the one way to ask for the
+    # plain ops
+    ops_impl: str = "xla"
     # exact grouping unless set: the reference's default fast tier
     # (approx_max_k) is the TPU's (module docstring)
     ops_fast_grouping: bool = False

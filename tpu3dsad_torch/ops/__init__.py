@@ -18,8 +18,8 @@ gather and group are torch.gather forward, as in the reference's XLA tier;
 their backward is `scatter_rows` (the role of ops/xla/group.py's
 _make_take_rows with the 'pallas' scatter), so every gather/group/
 three_interpolate whose source needs a gradient runs the scatter kernel in
-a backward pass on the card. three_nn is plain PyTorch, outside any Pallas
-kernel in the reference.
+a backward pass on the card. knn and three_nn are plain PyTorch on every
+device: the reference's are XLA functions, outside any Pallas kernel.
 
 Grouping is exact (first K in index order) unless fast grouping is on
 (`set_fast_grouping`, or `exact=False` per call), as in the reference's
@@ -49,6 +49,7 @@ from tpu3dsad_torch.ops import sorted as _sorted
 from tpu3dsad_torch.ops.cuda import scatter as _cuda_scatter
 from tpu3dsad_torch.ops.masked import masked_max
 from tpu3dsad_torch.ops.plain import interp_weights, three_nn
+from tpu3dsad_torch.ops.plain.knn import knn as _plain_knn
 
 _VALID_IMPLS = ("auto", "plain")
 _impl = "auto"
@@ -132,6 +133,14 @@ def ball_query(xyz, centers, radius, nsample, *, mask=None, exact=None):
     return _library.ball_query(xyz, centers, radius, nsample, mask)
 
 
+def knn(query, support, k, *, support_mask=None):
+    """-> (d2 [B,M,k] fp32, idx [B,M,k] int32): the k nearest valid
+    supports, ties to the lower index; masked supports sit at +inf.
+    Above 2^28 distances the support is scanned in slabs
+    (ops/plain/knn.py)."""
+    return _plain_knn(query, support, k, support_mask)
+
+
 def scatter_rows(g, idx, n):
     """g [B,U,C], idx [B,U] int -> [B,n,C] fp32: out[b, idx[b,u]] += g[b,u];
     indices < 0 or >= n add nothing."""
@@ -199,6 +208,7 @@ __all__ = [
     "get_fast_mode",
     "group",
     "interp_weights",
+    "knn",
     "masked_max",
     "query_and_group",
     "scatter_rows",

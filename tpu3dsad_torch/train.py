@@ -1,0 +1,40 @@
+"""Training entry point for the detector and the classifier (the
+reference's root train.py).
+
+    python -m tpu3dsad_torch.train model.name=detector data.name=scannet \\
+        data.root=/data/scannet [key=value ...]
+    python -m tpu3dsad_torch.train preset=classifier [key=value ...]
+
+Config overrides are `section.key=value` pairs (tpu3dsad_torch/config.py,
+presets in presets.py). The config goes to stderr, then model.name picks
+train_detector.run_detector or train_classifier.run_classifier. Runs on
+the card; `main(argv, device="cpu")` runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from tpu3dsad_torch import train_lib
+from tpu3dsad_torch.config import describe, parse_cli
+from tpu3dsad_torch.train_classifier import run_classifier
+from tpu3dsad_torch.train_detector import run_detector
+
+RUNNERS = {"detector": run_detector, "classifier": run_classifier}
+
+
+def main(argv, *, device="cuda"):
+    """Train the model of the command line `argv`; returns the runner's
+    result (train_detector.TrainResult or
+    train_classifier.ClassifierResult)."""
+    cfg = parse_cli(argv)
+    print(describe(cfg), file=sys.stderr)
+    train_lib.apply_runtime_config(cfg)
+    runner = RUNNERS.get(cfg.model.name)
+    if runner is None:
+        raise SystemExit(f"unknown model.name={cfg.model.name}")
+    return runner(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -11,7 +11,10 @@ data.device_synth=true, are made on the card (inside the block at k > 1).
 The loss is read once a call. JSON log lines at the `log_every` steps and
 at each epoch's end; checkpoints with auto-resume; every `eval_every`
 epochs the val sweep, its metrics logged under eval/, and the best-mAP
-snapshot kept (train_lib.save_best_checkpoint).
+snapshot kept (train_lib.save_best_checkpoint). train.tb_dir adds
+TensorBoard scalars (utils/metrics.py); train.profile_dir traces the
+first epoch run with torch.profiler into <profile_dir>/trace.json, and a
+resumed run with no epoch left closes the profiler all the same.
 
 evaluate: the val sweep of a dataset's host val batches -> AP table, on
 one device.
@@ -23,6 +26,7 @@ device mesh (ROADMAP A11).
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from dataclasses import dataclass, field, replace
@@ -153,21 +157,48 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
             return {n: v.reshape(1)
                     for n, v in step(batch, generator, bn_momentum).items()}
 
-    logger = MetricsLogger()
+    logger = MetricsLogger(cfg.train.tb_dir)
     result = TrainResult(model, optimizer, start_step, start_step)
+    profiler = _start_profiler(cfg.train.profile_dir, device)
     try:
         for epoch in range(start_step // steps_per_epoch,
                            cfg.train.num_epochs):
             _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train,
                          step_gen, logger, result)
+            if profiler is not None:  # the first epoch run only
+                _stop_profiler(profiler, cfg.train.profile_dir)
+                profiler = None
             if (epoch + 1) % cfg.train.eval_every == 0:
                 _evaluate_and_keep_best(cfg, epoch, dataset, eval_step,
                                         parse, logger, result)
     finally:
+        if profiler is not None:  # no epoch left to run on a resume
+            _stop_profiler(profiler, cfg.train.profile_dir)
         if batcher is not None:
             batches.close()
             batcher.close()
+    logger.flush()
     return result
+
+
+def _start_profiler(profile_dir: str, device):
+    """A running torch.profiler over the CPU and, on the card, CUDA
+    activity, or None where profile_dir is empty."""
+    if not profile_dir:
+        return None
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str) -> None:
+    """Stop the profiler and write its Chrome trace into profile_dir."""
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
 def _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train, step_gen,

@@ -34,6 +34,10 @@ from tpu3dsad_torch.losses import detection_loss
 from tpu3dsad_torch.utils.constants import device_constant
 
 
+# the reference's ops tiers, which its command lines name
+OPS_IMPLS = ("xla", "pallas")
+
+
 def apply_runtime_config(cfg) -> None:
     """Set the process-wide knobs a Config carries, every one on every
     call, so a second Config in one process never inherits the first's:
@@ -44,7 +48,12 @@ def apply_runtime_config(cfg) -> None:
         three_interpolate); False keeps full fp32. Distances stay fp32
         either way (ops/plain/knn.py pins them). The CPU is not affected.
 
-    Unlike the reference, no environment variable takes part."""
+    ops_impl is checked ('xla' or 'pallas', else a ValueError, as the
+    reference's ops.set_default_impl raises) and changes nothing. Unlike
+    the reference, no environment variable takes part."""
+    if cfg.ops_impl not in OPS_IMPLS:
+        raise ValueError(
+            f"ops_impl must be one of {OPS_IMPLS}, got {cfg.ops_impl!r}")
     ops.set_fast_grouping(bool(cfg.ops_fast_grouping))
     ops.set_fast_mode(cfg.ops_fast_mode)
     torch.backends.cuda.matmul.allow_tf32 = bool(cfg.train.bf16_matmul)
