@@ -213,6 +213,36 @@ Phases, in order; any failure raises and the script exits nonzero:
     ops.knn at [2, 16384, 16384], k = 16, past its slab limit: the
     indices of the direct path forced on the same inputs. Its launches
     go to the path from_raw (from_raw_launches).
+16. parallelism (tpu3dsad_torch/parallel) on this one card: ranks are
+    processes started by parallel.launch.spawn, every one on cuda:0,
+    joined by gloo on CUDA tensors, asked for by name (NCCL puts one rank
+    on a card; compute runs on the card, the collectives go through the
+    host). (a) Data parallelism: config #3, 8 x 40960 points split over
+    2 ranks of 4 scenes, 3 steps in fp32, each step from the state before
+    it of a world-1 run here on the same batches: the loss within rtol
+    1e-5 (or 4 x the distance of world 1 with its scenes in reverse
+    order, the same sums in another order, where FPS picks on the votes
+    flip: both named), parameters within 2e-2, the train-mode gradients'
+    relative L2 distance under 1e-2 (or 4 x that floor), the eval-mode
+    gradients within the port's per-tensor bar, the ranks' states
+    bitwise equal, 5 / 7 / 9 launches a rank a step; rank 0's first step
+    recorded, its FPS and ball-query launches equal to plain and its
+    scatters bitwise np.add.at. Printed: ms a step at world 1 and 2, the
+    gradient all-reduce's ms (one flat buffer), peak memory. (b) The val
+    sweep of 2 batches at world 2: every metric within rtol 1e-5 of world
+    1's. (c) Context parallelism: config #4's model (preset=outdoor, its
+    published widths, cp_stages=2) on one KITTI-style scene of 122880
+    points with a masked tail, B = 1, 2 ranks: seed_inds, seed_xyz,
+    proposal_xyz, raw_params and objectness_scores bitwise the unsharded
+    forward (B1, B3); one collective a pick; rank 0's kernel launches
+    equal to plain; launches a rank, ms of the forward and a pick. (d)
+    Hybrid DP x CP on a 2 x 2 mesh of 4 ranks: config #4's SA1 stage and
+    a kNN at B = 2 x 122880, bitwise the unsharded ops. (e) The user's
+    entry: python -m torch.distributed.run --standalone
+    --nproc-per-node=1 -m tpu3dsad_torch.train, NCCL, 2 config-#3 steps
+    from 16 ScanNet-format scenes: exit 0. A failing rank fails the
+    phase. Its ranks' launches go to the path parallel
+    (parallel_launches).
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -277,6 +307,7 @@ from tpu3dsad_torch.data import (
     preproc_modelnet,
     preproc_scannet,
     synthetic_indoor,
+    synthetic_outdoor,
     synthetic_shapes,
 )
 from tpu3dsad_torch.data.device_pipeline import (
@@ -288,6 +319,7 @@ from tpu3dsad_torch.data.synthetic import classification_batch
 from tpu3dsad_torch.data.synthetic_outdoor import write_dataset
 from tpu3dsad_torch.data.validate import validate_root
 from tpu3dsad_torch.eval.ap import APCalculator, box3d_iou_oriented
+from tpu3dsad_torch.eval.parse import parse_predictions
 from tpu3dsad_torch.models.classifier import MSG_SA1, MSG_SA2, build_classifier
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
 from tpu3dsad_torch.ops import sorted as sorted_bq
@@ -301,6 +333,13 @@ from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.ops.plain import knn as plain_knn
 from tpu3dsad_torch.ops.plain import scatter_rows as plain_scatter
 from tpu3dsad_torch.ops.plain.ball_query import radius_sq
+from tpu3dsad_torch.parallel import (
+    collectives,
+    launch,
+    make_mesh,
+    point_sharded,
+    shard_batch,
+)
 from tpu3dsad_torch.serving import build_inference_fn
 from tpu3dsad_torch.train_detector import build_detector, run_detector
 from tpu3dsad_torch.utils import import_torch
@@ -1366,8 +1405,8 @@ def stage_clock(stages: dict):
             setattr(owner, attr, timed)
     make_step = train_lib.make_detector_eval_step
 
-    def counted_step(model, cfg):
-        step = make_step(model, cfg)
+    def counted_step(model, cfg, mesh=None):
+        step = make_step(model, cfg, mesh)
 
         def run(batch):
             seen["scenes"].append(int(batch["scene_mask"].sum()))
@@ -3365,6 +3404,609 @@ def phase_from_raw(card: str, gen, work: Path) -> dict:
             "train": trained, "outdoor": outdoor, "knn": knn}
 
 
+# ------------------------------------------------ phase 16: parallelism
+
+# ranks are processes spawned here (parallel.launch.spawn), every one on
+# cuda:0, joined by gloo on CUDA tensors, asked for by name: NCCL puts one
+# rank on a card. Data parallelism: config #3 at 8 x 40960 split over 2
+# ranks, PAR_STEPS steps and a sweep of PAR_SWEEP batches, in fp32 (TF32
+# products differ with the rows a GEMM holds). Context parallelism: config
+# #4's model at its published widths on one scene of CP_N points with a
+# masked tail, SA1 and SA2 point-sharded over 2 ranks. Hybrid: a 2 x 2
+# mesh, config #4's SA1 stage and a kNN at B = 2 x CP_N.
+PAR_BACKEND, PAR_WORLD, PAR_STEPS, PAR_SWEEP = "gloo", 2, 3, 2
+PAR_DEVICE = "cuda"  # every rank's: cuda:0
+PAR_FP32 = ["train.bf16_matmul=false"]
+CP_N, CP_TAIL = 122880, 1000
+CP_ARGS = ["preset=outdoor", "model.cp_stages=2", *PAR_FP32]
+CP_KEYS = ("seed_inds", "seed_xyz", "proposal_xyz", "raw_params",
+           "objectness_scores")
+HYBRID_B, HYBRID_KNN_M, HYBRID_KNN_K = 2, 1024, 3
+# the entry's run: 16 + 2 ScanNet-format scenes, 2 steps of 8
+ENTRY_SCENES = (16, 2)
+
+
+def par_config(ckpt_dir: str) -> Config:
+    """Config #3 (train_config) in fp32, for the DP comparisons."""
+    cfg = train_config(ckpt_dir)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, bf16_matmul=False))
+
+
+def cp_model_config() -> Config:
+    return parse_cli(CP_ARGS)
+
+
+# The gradients of world 2 against world 1. With BatchNorm on its running
+# statistics (test_dp.py's comparison), per tensor: max |a - b| <= 1e-4 x
+# its max |grad| + 1e-6 x the model's largest |grad| (the port's bar for
+# a train step, tests/test_torch_train.py). A train-mode step's gradients
+# pass BatchNorm's batch statistics, whose backward cancels over every
+# row (the rows' gradients sum to zero), so fp32 sums in another order
+# move single entries far (15% of a tensor's max at config #3 on the
+# card): there the whole gradient's relative L2 distance must stay under
+# TRAIN_GRAD_L2, or 4 x the floor, the distance of world 1 with its scenes
+# in reverse order (the same sums in another order), where that is more;
+# a wrong sum or denominator (a factor of 2) breaks either.
+EVAL_GRAD_BAR, TRAIN_GRAD_L2 = (1e-4, 1e-6), 1e-2
+
+
+def picks_hook(model) -> dict:
+    """{"picks": the last forward's proposal picks}, kept by a forward hook
+    (the picks are FPS over the votes: where fp32 sums in another order
+    move a vote, a pick can flip)."""
+    seen = {}
+    model.register_forward_hook(
+        lambda m, args, out: seen.update(picks=host(out["proposal_inds"])))
+    return seen
+
+
+def l2_distance(got: dict, want: dict) -> float:
+    """|got - want| / |want| over every gradient entry."""
+    num = sum(float((got[k].float() - v.float()).square().sum())
+              for k, v in want.items())
+    den = sum(float(v.float().square().sum()) for v in want.values())
+    return (num / den) ** 0.5
+
+
+def grads_close(label: str, got: dict, want: dict, bar) -> tuple:
+    """Raise unless every gradient tensor is within `bar` (RTOL, GTOL);
+    returns (the worst share of the bar, the worst |a - b| over the
+    tensor's max |grad| among tensors above 1% of the model's largest,
+    the worst |a - b|)."""
+    rtol, gtol = bar
+    gmax = max(v.abs().max().item() for v in want.values())
+    share = rel = worst = 0.0
+    for k, v in want.items():
+        err = (got[k].float() - v.float()).abs().max().item()
+        vmax = v.abs().max().item()
+        limit = rtol * vmax + gtol * gmax
+        if err > limit:
+            raise AssertionError(f"{label}: gradient {k} differs by {err:.3g}"
+                                 f" > {limit:.3g}")
+        share = max(share, err / limit if limit else 0.0)
+        if vmax >= 1e-2 * gmax:
+            rel = max(rel, err / vmax)
+        worst = max(worst, err)
+    return share, rel, worst
+
+
+def eval_grads(model, cfg, batch, group=None) -> dict:
+    """The gradients of the detection loss with BatchNorm on its running
+    statistics (test_dp.py's comparison), summed over `group`."""
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    with collectives.data_parallel(group):
+        loss, _ = train_lib.detector_loss(model, cfg, batch, 0.9)
+        loss.backward()
+    grads = [p.grad for p in model.parameters()]
+    collectives.all_reduce_coalesced(grads, group)
+    return {n: host(p.grad) for n, p in model.named_parameters()}
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host ms a call over `iters` calls, from a synchronised start
+    to a synchronised end (a collective through the host blocks it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t on the host (never an alias of a tensor the run goes on
+    to change)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def max_diff(got: dict, want: dict) -> float:
+    return max((got[k].float() - v.float()).abs().max().item()
+               for k, v in want.items())
+
+
+def compare_recorded(label: str, calls: dict, gen) -> None:
+    """The recorded FPS and ball-query launches equal to their plain
+    versions, the scatter launches bitwise np.add.at (check_scatter)."""
+    for args, kw in calls["fps"]:
+        require_equal(f"{label} fps", cuda_fps.furthest_point_sample(
+            *args, **kw), plain_fps(*args, **kw))
+    for args, kw in calls["ball_query"]:
+        got, want = cuda_bq.ball_query(*args, **kw), plain_bq(*args, **kw)
+        require_equal(f"{label} ball query idx", got[0], want[0])
+        require_equal(f"{label} ball query cnt", got[1], want[1])
+    for args, kw in calls["scatter"]:
+        check_scatter(label, *args, gen)
+    print(f"  {label}: {len(calls['fps'])} FPS and "
+          f"{len(calls['ball_query'])} ball-query launches equal to plain, "
+          f"{len(calls['scatter'])} scatters bitwise np.add.at")
+
+
+def dp_rank_steps(rank: int, mesh, work: Path) -> dict:
+    """PAR_STEPS steps, each from the world-1 run's state before it, on
+    this rank's rows of its batch: loss, ms, launches, gradients, state."""
+    cfg = par_config(str(work / "dp2"))
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg, device=PAR_DEVICE)
+    optimizer = train_lib.make_optimizer(
+        cfg.train, TRAIN_STEPS, model.parameters(), train_lib.data_axis(mesh))
+    step = train_lib.make_detector_steps(model, optimizer, cfg)
+    gen = torch.Generator(device=PAR_DEVICE).manual_seed(cfg.train.seed + 1)
+    bn_m = train_lib.bn_momentum_at(cfg.train, 0)
+    seen = picks_hook(model)
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(PAR_STEPS):
+        state = torch.load(work / f"state_{i}.pt", map_location=PAR_DEVICE)
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        batch = shard_batch(torch.load(work / f"batch_{i}.pt",
+                                       map_location=PAR_DEVICE), mesh)
+        record = (recording() if rank == 0 and i == 0
+                  else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        with record as calls:
+            metrics = step(batch, gen, bn_m)
+            loss = metrics["loss"].item()
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append({"loss": loss, "ms": ms, "counts": counts(),
+                    "picks": seen["picks"],
+                    "grads": {n: host(p.grad) for n, p in
+                              model.named_parameters()},
+                    "state": {k: host(v) for k, v in
+                              model.state_dict().items()}})
+        if calls is not None:
+            compare_recorded(f"rank 0, DP step 1 ({TRAIN_B // PAR_WORLD} "
+                             f"scenes)", calls, gen)
+    peak = torch.cuda.max_memory_allocated()
+    grads = [p.grad for p in model.parameters()]
+    sync = cuda_ms(lambda: collectives.all_reduce_coalesced(
+        grads, mesh.group("data")), 5)
+    model.load_state_dict(torch.load(work / "state_0.pt",
+                                     map_location=PAR_DEVICE)["model"])
+    batch = shard_batch(torch.load(work / "batch_0.pt",
+                                   map_location=PAR_DEVICE), mesh)
+    return {"steps": out, "peak_bytes": peak, "allreduce_ms": sync,
+            "allreduce_floats": sum(g.numel() for g in grads),
+            "eval_grads": eval_grads(model, cfg, batch,
+                                     train_lib.data_axis(mesh))}
+
+
+def dp_rank_sweep(mesh, work: Path) -> dict:
+    cfg = par_config(str(work / "sweep2"))
+    model = build_detector(cfg, device=PAR_DEVICE)
+    model.load_state_dict(torch.load(work / "state_0.pt",
+                                     map_location=PAR_DEVICE)["model"])
+    eval_step = train_lib.make_detector_eval_step(model, cfg, mesh)
+
+    def parse(end_points):
+        return parse_predictions(end_points, model.mean_sizes,
+                                 cfg.model.num_heading_bins, cfg.eval)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = train_detector.evaluate(cfg, model, get_dataset(cfg),
+                                      eval_step, parse,
+                                      num_batches=PAR_SWEEP, mesh=mesh)
+    return {"metrics": metrics, "counts": counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def cp_rank(rank: int, work: Path) -> dict:
+    """The CP forward over a ('points',) mesh of the ranks: end points,
+    launches, collectives, ms; and the sharded FPS of SA1 alone, timed."""
+    mesh = make_mesh((-1,), ("points",))
+    cfg = cp_model_config()
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg, device=PAR_DEVICE)
+    scene = torch.load(work / "cp_scene.pt", map_location=PAR_DEVICE)
+    record = recording() if rank == 0 else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    reset_counts()
+    calls0 = collectives.calls
+    t0 = time.perf_counter()
+    with record as calls, torch.no_grad():
+        ep = model(scene["points"], mask=scene["mask"], cp_mesh=mesh)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    found = {"counts": counts(), "collectives": collectives.calls - calls0,
+             "ms": ms, "end_points": {k: ep[k].cpu() for k in CP_KEYS}}
+    if calls is not None:
+        compare_recorded("rank 0, CP forward", calls,
+                         torch.Generator(device=PAR_DEVICE).manual_seed(3))
+        found["sharded_level_bq"] = [tuple(a[0].shape) for a, _ in
+                                     calls["ball_query"][:cfg.model.cp_stages]]
+    npoint = cfg.model.sa_npoints[0]
+    torch.distributed.barrier()
+    calls0 = collectives.calls
+    _, fps_ms = once_ms(lambda: point_sharded.sharded_fps(
+        scene["points"], npoint, mesh, mask=scene["mask"]))
+    found["fps_ms"] = fps_ms
+    found["fps_collectives"] = collectives.calls - calls0
+    record = torch.zeros(1, 5, device=PAR_DEVICE)  # one pick's [B, 5]
+    found["collective_ms"] = host_ms(lambda: collectives.all_gather(
+        record, mesh.group("points")), 200)
+    return found
+
+
+def par_rank(rank: int, world: int, work: str) -> dict:
+    """Phase 16 (a)-(c) on one rank of PAR_WORLD."""
+    work = Path(work)
+    torch.cuda.set_device(0)
+    mesh = make_mesh((-1,), ("data",))
+    return {"dp": dp_rank_steps(rank, mesh, work),
+            "sweep": dp_rank_sweep(mesh, work),
+            "cp": cp_rank(rank, work)}
+
+
+def hybrid_rank(rank: int, world: int, work: str) -> dict:
+    """Phase 16 (d): config #4's SA1 stage and a kNN on a 2 x 2 mesh
+    ('data', 'points'), this rank's rows."""
+    torch.cuda.set_device(0)
+    mesh = make_mesh((2, 2), ("data", "points"))
+    cfg = cp_model_config()
+    c = torch.load(Path(work) / "hybrid.pt", map_location=PAR_DEVICE)
+    m = cfg.model
+    torch.distributed.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    sa = point_sharded.sharded_sa_stage(
+        c["xyz"], c["feats"], m.sa_npoints[0], m.sa_radii[0],
+        m.sa_nsamples[0], mesh, mask=c["mask"], batch_axis="data")
+    knn = point_sharded.sharded_knn(c["query"], c["xyz"], HYBRID_KNN_K, mesh,
+                                    support_mask=c["mask"], batch_axis="data")
+    torch.cuda.synchronize()
+    return {"sa": [t.cpu() for t in sa], "knn": [t.cpu() for t in knn],
+            "counts": counts(), "ms": (time.perf_counter() - t0) * 1e3,
+            "coords": (mesh.axis_index("data"), mesh.axis_index("points"))}
+
+
+def dp_world_one(work: Path) -> dict:
+    """The world-1 run the ranks are held to: PAR_STEPS steps of config #3
+    (fp32) on batches made here, each step's starting state and batch
+    saved for the ranks; then the sweep from the first state."""
+    cfg = par_config(str(work / "dp1"))
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg, device=PAR_DEVICE)
+    optimizer = train_lib.make_optimizer(cfg.train, TRAIN_STEPS,
+                                         model.parameters())
+    step = train_lib.make_detector_steps(model, optimizer, cfg)
+    gen = torch.Generator(device=PAR_DEVICE).manual_seed(cfg.train.seed + 1)
+    data_gen = torch.Generator(device=PAR_DEVICE).manual_seed(16)
+    bn_m = train_lib.bn_momentum_at(cfg.train, 0)
+    seen = picks_hook(model)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(PAR_STEPS):
+        torch.save({"model": model.state_dict(),
+                    "optimizer": optimizer.state_dict()},
+                   work / f"state_{i}.pt")
+        batch = synthetic_detection_batch(data_gen, TRAIN_B, TRAIN_N, 18,
+                                          vote_candidates=3)
+        torch.save(batch, work / f"batch_{i}.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch, gen, bn_m)["loss"].item()
+        steps.append({"loss": loss, "picks": seen["picks"],
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "grads": {n: p.grad.clone() for n, p in
+                                model.named_parameters()},
+                      "state": copy.deepcopy(model.state_dict())})
+    peak = torch.cuda.max_memory_allocated()
+    floor = []
+    for i, w in enumerate(steps):  # the same steps, scenes in reverse
+        state = torch.load(work / f"state_{i}.pt")
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        batch = torch.load(work / f"batch_{i}.pt")
+        loss = step({k: v.flip(0) for k, v in batch.items()}, gen,
+                    bn_m)["loss"].item()
+        floor.append({
+            "grads": l2_distance({n: p.grad for n, p in
+                                  model.named_parameters()}, w["grads"]),
+            "loss": abs(loss - w["loss"]),
+            "flips": int((seen["picks"].flip(0) != w["picks"]).sum())})
+    model.load_state_dict(torch.load(work / "state_0.pt")["model"])
+    grads = eval_grads(model, cfg, torch.load(work / "batch_0.pt"))
+    eval_step = train_lib.make_detector_eval_step(model, cfg)
+
+    def parse(end_points):
+        return parse_predictions(end_points, model.mean_sizes,
+                                 cfg.model.num_heading_bins, cfg.eval)
+
+    t0 = time.perf_counter()
+    sweep = train_detector.evaluate(cfg, model, get_dataset(cfg), eval_step,
+                                    parse, num_batches=PAR_SWEEP)
+    return {"steps": steps, "peak_bytes": peak, "sweep": sweep,
+            "sweep_seconds": time.perf_counter() - t0, "eval_grads": grads,
+            "floor": floor}
+
+
+def cp_world_one(work: Path) -> dict:
+    """One KITTI-style scene of CP_N points (a masked tail of CP_TAIL),
+    saved for the ranks, and the unsharded forward on it (B1, B3)."""
+    pc, _ = synthetic_outdoor.outdoor_scene(np.random.default_rng(4), CP_N)
+    points = torch.from_numpy(pc[None, :, :3].copy()).to(PAR_DEVICE)
+    mask = torch.ones(1, CP_N, dtype=torch.bool, device=PAR_DEVICE)
+    mask[:, CP_N - CP_TAIL:] = False
+    torch.save({"points": points, "mask": mask}, work / "cp_scene.pt")
+    cfg = cp_model_config()
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg, device=PAR_DEVICE)
+    reset_counts()
+    with torch.no_grad():
+        ep, ms = once_ms(lambda: model(points, mask=mask))
+    found = {"end_points": {k: ep[k] for k in CP_KEYS}, "ms": ms,
+             "counts": counts()}
+    _, found["fps_ms"] = once_ms(lambda: ops.furthest_point_sample(
+        points, cfg.model.sa_npoints[0], mask=mask))
+    return found
+
+
+def hybrid_world_one(work: Path) -> dict:
+    """B = HYBRID_B scenes of CP_N points (masked tails) with one feature
+    channel, saved for the ranks; the unsharded SA1 stage and kNN."""
+    m = cp_model_config().model
+    rng = np.random.default_rng(5)
+    xyz = torch.from_numpy(np.stack([
+        synthetic_outdoor.outdoor_scene(rng, CP_N)[0][:, :3]
+        for _ in range(HYBRID_B)])).to(PAR_DEVICE)
+    feats = torch.from_numpy(rng.standard_normal(
+        (HYBRID_B, CP_N, 1)).astype(np.float32)).to(PAR_DEVICE)
+    mask = torch.ones(HYBRID_B, CP_N, dtype=torch.bool, device=PAR_DEVICE)
+    mask[0, CP_N - CP_TAIL:] = False
+    mask[1, CP_N - 3 * CP_TAIL:] = False
+    query = xyz[:, :HYBRID_KNN_M].contiguous()
+    torch.save({"xyz": xyz, "feats": feats, "mask": mask, "query": query},
+               work / "hybrid.pt")
+    inds = ops.furthest_point_sample(xyz, m.sa_npoints[0], mask=mask)
+    new_xyz = ops.gather(xyz, inds)
+    grouped, _, gmask = ops.query_and_group(
+        xyz, new_xyz, m.sa_radii[0], m.sa_nsamples[0], features=feats,
+        mask=mask, normalize_xyz=True, exact=True)
+    new_mask = mask.gather(1, inds.long())
+    gmask = gmask & new_mask[:, :, None]
+    knn = ops.knn(query, xyz, HYBRID_KNN_K, support_mask=mask)
+    return {"sa": [new_xyz, grouped, inds, gmask, new_mask], "knn": knn}
+
+
+def entry_run(work: Path) -> dict:
+    """python -m torch.distributed.run --standalone --nproc-per-node=1 -m
+    tpu3dsad_torch.train on config #3 from 16 + 2 ScanNet-format scenes
+    (2 steps of 8), NCCL: exit 0, the rank's line, 2 logged steps and the
+    checkpoint."""
+    root, ckpt = work / "entry_scenes", work / "entry_ckpt"
+    synthetic_indoor.write_dataset(str(root), scenes=ENTRY_SCENES[0],
+                                   val_scenes=ENTRY_SCENES[1],
+                                   num_points=HOSTFED_RAW)
+    args = ["model.name=detector", "data.name=scannet", f"data.root={root}",
+            f"train.batch_size={TRAIN_B}", "train.num_epochs=1",
+            "train.eval_every=2", "train.log_every=1",
+            f"train.ckpt_dir={ckpt}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=1", "-m", "tpu3dsad_torch.train", *args],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    joined = [line for line in proc.stderr.splitlines()
+              if line.startswith("rank 0 of 1: backend nccl")]
+    steps = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{") and "train/loss" in line]
+    if (not joined or [s["step"] for s in steps] != [1, 2]
+            or not np.isfinite([s["train/loss"] for s in steps]).all()
+            or not (ckpt / "ckpt_2.pt").exists()):
+        raise AssertionError(f"torchrun: joined {joined}, steps {steps}, "
+                             f"checkpoint {list(ckpt.glob('*'))}")
+    print(f"  (e) torchrun --standalone --nproc-per-node=1 -m "
+          f"tpu3dsad_torch.train: '{joined[0]}', 2 steps, losses "
+          f"{[s['train/loss'] for s in steps]}, ckpt_2.pt, {seconds:.1f} s "
+          "in all")
+    return {"seconds": seconds}
+
+
+def phase_parallel(card: str, work: Path) -> dict:
+    print(f"== parallelism on one card: {PAR_WORLD} ranks (DP, config #3 "
+          f"{TRAIN_B} x {TRAIN_N}; CP, config #4's model on {CP_N} points) "
+          f"and 4 (hybrid 2 x 2), backend {PAR_BACKEND} on CUDA tensors "
+          f"(asked for by name: NCCL takes one rank a card); then torchrun "
+          f"with NCCL; on {card}")
+    work.mkdir(parents=True)
+    try:
+        return parallel_runs(work)
+    finally:
+        train_lib.apply_runtime_config(Config())
+
+
+def parallel_runs(work: Path) -> dict:
+    seconds = {}
+    t0 = time.perf_counter()
+    one = dp_world_one(work)
+    cp_one = cp_world_one(work)
+    hy_one = hybrid_world_one(work)
+    seconds["world 1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = launch.spawn(par_rank, PAR_WORLD, backend=PAR_BACKEND,
+                         device=PAR_DEVICE, args=(str(work),))
+    seconds["2 ranks"] = time.perf_counter() - t0
+
+    # (a) DP training
+    print(f"  (a) DP: {PAR_STEPS} steps, each from world 1's state before "
+          "it; ranks hold their rows of its batch")
+    total = {k: 0 for k in counts()}
+    for i, w in enumerate(one["steps"]):
+        for rank, r in enumerate(ranks):
+            s = r["dp"]["steps"][i]
+            if s["counts"] != launches(fps=5, ball_query=7, scatter=9):
+                raise AssertionError(f"rank {rank} step {i + 1}: launches "
+                                     f"{s['counts']} != 5 / 7 / 9")
+            rows = slice(rank * s["picks"].shape[0],
+                         (rank + 1) * s["picks"].shape[0])
+            flips = int((s["picks"] != w["picks"][rows]).sum())
+            floor = one["floor"][i]
+            if abs(s["loss"] - w["loss"]) > max(1e-5 * abs(w["loss"]),
+                                                4 * floor["loss"]):
+                raise AssertionError(
+                    f"rank {rank} step {i + 1}: loss {s['loss']} vs world 1 "
+                    f"{w['loss']} ({flips} proposal picks flipped; world 1 "
+                    f"reversed: {floor['loss']:.3g} apart, "
+                    f"{floor['flips']} flipped)")
+            dist = l2_distance(s["grads"], {k: v.cpu() for k, v in
+                                            w["grads"].items()})
+            if dist > max(TRAIN_GRAD_L2, 4 * floor["grads"]):
+                raise AssertionError(f"rank {rank} step {i + 1}: gradients "
+                                     f"{dist:.3g} apart (L2, relative; the "
+                                     f"floor {floor['grads']:.3g})")
+            pdiff = max_diff(s["state"], {k: v.cpu() for k, v in
+                                          w["state"].items()})
+            if pdiff >= 2e-2:
+                raise AssertionError(f"rank {rank} step {i + 1}: parameters "
+                                     f"differ by {pdiff}")
+            total = {k: total[k] + s["counts"][k] for k in total}
+        if any(not torch.equal(v, ranks[1]["dp"]["steps"][i]["state"][k])
+               for k, v in ranks[0]["dp"]["steps"][i]["state"].items()):
+            raise AssertionError(f"step {i + 1}: the ranks' states differ")
+        flips = [int((r["dp"]["steps"][i]["picks"] != w["picks"][
+            rank * TRAIN_B // PAR_WORLD:(rank + 1) * TRAIN_B // PAR_WORLD]
+        ).sum()) for rank, r in enumerate(ranks)]
+        print(f"  step {i + 1}: loss world 1 {w['loss']:.6f}, world 2 "
+              f"{ranks[0]['dp']['steps'][i]['loss']:.6f} (rel "
+              f"{abs(ranks[0]['dp']['steps'][i]['loss'] / w['loss'] - 1):.3g}"
+              f"), proposal picks flipped {sum(flips)} of "
+              f"{w['picks'].numel()}; train-mode gradients {dist:.3g} apart "
+              f"(L2, relative); world 1 with its scenes reversed: loss "
+              f"{floor['loss'] / abs(w['loss']):.3g} apart (rel), "
+              f"{floor['flips']} picks flipped, gradients "
+              f"{floor['grads']:.3g}; parameters within {pdiff:.3g}; the "
+              "ranks' states bitwise equal; 5 / 7 / 9 launches a rank")
+    for rank, r in enumerate(ranks):
+        share, rel, worst = grads_close(
+            f"rank {rank} eval-mode gradients", r["dp"]["eval_grads"],
+            one["eval_grads"], EVAL_GRAD_BAR)
+    print(f"  gradients with BatchNorm on its running statistics (step 1's "
+          f"state and batch): max |world 2 - world 1| {worst:.3g}, "
+          f"{rel:.3g} of a tensor's max, {share:.3f} of the bar")
+    ms1 = [s["ms"] for s in one["steps"]]
+    ms2 = [max(r["dp"]["steps"][i]["ms"] for r in ranks)
+           for i in range(PAR_STEPS)]
+    print(f"  ms a step (fp32): world 1 {[f'{m:.1f}' for m in ms1]}, world "
+          f"2 (slower rank) {[f'{m:.1f}' for m in ms2]}; the gradient "
+          f"all-reduce {ranks[0]['dp']['allreduce_ms']:.3f} ms a step "
+          f"({ranks[0]['dp']['allreduce_floats']} floats, one flat buffer); "
+          f"peak memory world 1 {one['peak_bytes'] / 2**30:.3f} GiB, a rank "
+          f"{[round(r['dp']['peak_bytes'] / 2**30, 3) for r in ranks]} GiB")
+
+    # (b) the sweep
+    for rank, r in enumerate(ranks):
+        got = r["sweep"]["metrics"]
+        for k, v in one["sweep"].items():
+            pairs = (v.items() if isinstance(v, dict) else [(None, v)])
+            for c, want in pairs:
+                have = got[k] if c is None else got[k][c]
+                if want is not None and not np.isclose(have, want,
+                                                       rtol=1e-5, atol=0):
+                    raise AssertionError(f"rank {rank} sweep {k}/{c}: "
+                                         f"{have} vs {want}")
+        total = {k: total[k] + r["sweep"]["counts"][k] for k in total}
+    flat = {k: v for k, v in one["sweep"].items() if not isinstance(v, dict)}
+    print(f"  (b) DP sweep of {PAR_SWEEP} batches: metrics within rtol 1e-5 "
+          f"of world 1's on both ranks, per class too ({flat}); "
+          f"{ranks[0]['sweep']['seconds']:.1f} s against "
+          f"{one['sweep_seconds']:.1f} s; launches rank 0 "
+          f"{ranks[0]['sweep']['counts']}")
+
+    # (c) CP
+    for rank, r in enumerate(ranks):
+        c = r["cp"]
+        for k in CP_KEYS:
+            if (at := bits_differ(c["end_points"][k].float(),
+                                  cp_one["end_points"][k].float().cpu())):
+                raise AssertionError(f"CP rank {rank} {k} != unsharded {at}")
+        picks = sum(cp_model_config().model.sa_npoints[:2])
+        if c["collectives"] != picks + 2 * 3 or \
+                c["fps_collectives"] != cp_model_config().model.sa_npoints[0]:
+            raise AssertionError(f"CP rank {rank}: {c['collectives']} "
+                                 f"collectives in the forward, "
+                                 f"{c['fps_collectives']} in SA1's FPS")
+        total = {k: total[k] + c["counts"][k] for k in total}
+    c = ranks[0]["cp"]
+    npoint = cp_model_config().model.sa_npoints[0]
+    print(f"  (c) CP forward at {CP_N} points, cp_stages=2: {CP_KEYS} "
+          f"bitwise the unsharded forward on both ranks; one collective a "
+          f"pick ({c['fps_collectives']} for SA1's {npoint} picks, the seed "
+          f"included); launches a rank {c['counts']}, 2 of the B3 ones at "
+          f"the sharded levels, on each rank's shard "
+          f"{c['sharded_level_bq']}; world 1 {cp_one['counts']} (SA1's FPS "
+          f"at B = 1 is B2); forward {c['ms']:.1f} ms against "
+          f"{cp_one['ms']:.1f} unsharded; SA1's sharded FPS "
+          f"{c['fps_ms'] / npoint * 1e3:.1f} us a pick (its collective "
+          f"alone {c['collective_ms'] * 1e3:.1f} us, rank 0) against the "
+          f"unsharded FPS's {cp_one['fps_ms'] / npoint * 1e3:.1f}")
+
+    # (d) hybrid
+    t0 = time.perf_counter()
+    hybrid = launch.spawn(hybrid_rank, 4, backend=PAR_BACKEND,
+                          device=PAR_DEVICE, args=(str(work),))
+    seconds["4 ranks"] = time.perf_counter() - t0
+    for rank, r in enumerate(hybrid):
+        d, _ = r["coords"]
+        for name, got, want in (
+                [(f"sa[{j}]", g, w) for j, (g, w) in
+                 enumerate(zip(r["sa"], hy_one["sa"]))]
+                + [(f"knn[{j}]", g, w) for j, (g, w) in
+                   enumerate(zip(r["knn"], hy_one["knn"]))]):
+            want = want[d:d + 1].cpu()
+            if got.dtype.is_floating_point:
+                at = bits_differ(got, want)
+                if at:
+                    raise AssertionError(f"hybrid rank {rank} {name}: {at}")
+            else:
+                require_equal(f"hybrid rank {rank} {name}", got, want)
+        total = {k: total[k] + r["counts"][k] for k in total}
+    print(f"  (d) hybrid 2 x 2 at B = {HYBRID_B} x {CP_N}: the SA1 stage and "
+          f"kNN (k = {HYBRID_KNN_K} of {HYBRID_KNN_M}) bitwise the unsharded "
+          f"ops on every rank; {max(r['ms'] for r in hybrid):.1f} ms; "
+          f"launches a rank {hybrid[0]['counts']}")
+
+    t0 = time.perf_counter()
+    entry = entry_run(work)
+    seconds["torchrun"] = time.perf_counter() - t0
+    print("  phase 16 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                              for k, v in seconds.items()))
+    return {"counts": total, "seconds": seconds, "entry": entry,
+            "ms_world1": ms1, "ms_world2": ms2,
+            "allreduce_ms": ranks[0]["dp"]["allreduce_ms"]}
+
+
 def main() -> None:
     laps, t0 = {}, time.perf_counter()
 
@@ -3419,6 +4061,8 @@ def main() -> None:
         lap("14")
         from_raw = phase_from_raw(card, gen, work / "raw")
         lap("15")
+        parallel = phase_parallel(card, work / "parallel")
+        lap("16")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -3432,7 +4076,7 @@ def main() -> None:
              "hostfed": hostfed["counts"], "train4": trained4["counts"],
              "traink": trained_k["counts"], "classify": classified["counts"],
              "serve_export": exported["counts"],
-             "from_raw": from_raw["counts"]}
+             "from_raw": from_raw["counts"], "parallel": parallel["counts"]}
 
     def entry(name, counter, source, replaces, tally):
         times = tally.summary()
@@ -3444,6 +4088,7 @@ def main() -> None:
                 "hostfed_launches": paths["hostfed"][counter],
                 "serve_export_launches": paths["serve_export"][counter],
                 "from_raw_launches": paths["from_raw"][counter],
+                "parallel_launches": paths["parallel"][counter],
                 "traink_replayed_step_launches": sum(
                     n for k, n in trained_k["replay_launches"].items()
                     if REPLAY_KERNELS[k][0] == counter) // K_STEPS,
@@ -3493,7 +4138,10 @@ def main() -> None:
           f"evaluated and served once, its steps_per_call={RAW_K} run (the "
           "eager block and the captured step) and the config-#4 step from "
           "the converted KITTI scans with B2 in its loader (path from_raw, "
-          "under from_raw_launches)")
+          f"under from_raw_launches), and phase 16's ranks, summed over "
+          f"them: {PAR_STEPS} DP steps and a {PAR_SWEEP}-batch sweep on "
+          f"{PAR_WORLD} ranks, the CP forward on {PAR_WORLD} and the hybrid "
+          "SA1 stage on 4 (path parallel, under parallel_launches)")
     print("seconds by phase (1: the build and the recordings): " + ", ".join(
         f"{k} {v:.1f}" for k, v in laps.items())
           + f"; in all {time.perf_counter() - t0:.1f}")

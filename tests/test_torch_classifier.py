@@ -625,7 +625,8 @@ def test_run_classifier_consumes_the_reference_batch_stream(
 def test_classifier_entry_points_dispatch_and_refuse(monkeypatch, tmp_path):
     """eval_detector.main sends model.name=classifier to
     run_eval_classifier; train_classifier.main refuses the detector; a
-    device mesh is refused before any work."""
+    mesh larger than the process group (here none: a world of 1) is
+    refused before any work."""
     seen = []
     monkeypatch.setattr(eval_detector, "run_eval_classifier",
                         lambda cfg: seen.append(cfg) or {})
@@ -636,7 +637,7 @@ def test_classifier_entry_points_dispatch_and_refuse(monkeypatch, tmp_path):
         train_classifier.main(["preset=scannet"])
     cfg, _ = _cfgs(["preset=classifier", f"train.ckpt_dir={tmp_path / 'c'}",
                     "train.mesh_shape=(2,)"])
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="holds 2 ranks"):
         run_classifier(cfg, device="cpu")
     assert not (tmp_path / "c").exists()
 

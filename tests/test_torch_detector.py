@@ -245,11 +245,16 @@ def test_class_mean_sizes_equal_reference(num_classes):
 
 
 def test_port_imports_without_jax():
-    """Neither JAX nor any module of the JAX package is loaded."""
+    """Neither JAX nor any module of the JAX package is loaded, by the
+    inference slice or by the parallel package (mesh, launch, collectives,
+    the point-sharded ops)."""
     code = (
         "import sys\n"
         "import tpu3dsad_torch, tpu3dsad_torch.serving, tpu3dsad_torch.ops\n"
         "import tpu3dsad_torch.models.detector, tpu3dsad_torch.utils.bridge\n"
+        "import tpu3dsad_torch.parallel, tpu3dsad_torch.parallel.launch\n"
+        "import tpu3dsad_torch.parallel.point_sharded\n"
+        "import tpu3dsad_torch.parallel.collectives\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'tpu3dsad')]\n"
         "assert not bad, bad\n"

@@ -62,6 +62,7 @@ from tpu3dsad_torch.data.registry import get_dataset as tget
 from tpu3dsad_torch.data.scannet import SCANNET_MEAN_SIZES
 from tpu3dsad_torch.eval.parse import parse_predictions
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
+from tpu3dsad_torch.parallel import make_mesh
 from tpu3dsad_torch.utils.bridge import load_flax_variables, state_dict_from_flax
 
 from test_torch_detector import SMALL, to_port
@@ -455,8 +456,15 @@ def test_device_prefetch_on_the_cpu_keeps_order_and_content(packs):
     for h, d in zip(host, out):
         assert all(t.device.type == "cpu" for t in d.values())
         _equal({k: t.numpy() for k, t in d.items()}, h)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tpacked.device_prefetch(host, "cpu", mesh=object())
+    # a mesh of this one process keeps every row; one with no 'data' axis
+    # is refused (tests/test_torch_parallel_dp.py splits rows over 2 ranks)
+    out = list(tpacked.device_prefetch(iter(host), "cpu",
+                                       mesh=make_mesh((1,), ("data",))))
+    for h, d in zip(host, out):
+        _equal({k: t.numpy() for k, t in d.items()}, h)
+    with pytest.raises(ValueError, match="no axis 'data'"):
+        next(tpacked.device_prefetch(iter(host), "cpu",
+                                     mesh=make_mesh((1,), ("points",))))
     blocks = [{k: np.stack([b[k] for b in host[i:i + 2]]) for k in host[0]}
               for i in (0, 2)]
     out = list(tpacked.device_prefetch(iter(blocks), "cpu", stacked=True))

@@ -46,6 +46,9 @@ class ModelConfig:
     fp_channels: tuple[tuple[int, ...], ...] = ((256, 256), (256, 256))
     seed_feat_dim: int = 256
     cluster_radius_bank: tuple[float, ...] = (0.15, 0.3, 0.6)
+    # context parallelism: how many leading SA levels run point-sharded
+    # over a mesh passed to the model as cp_mesh (parallel/point_sharded.py)
+    cp_stages: int = 1
     cluster_nsample: int = 16
     # 'adaptive' = the radius bank; 'lineage' = the fixed-radius VoteNet
     # head (proposal_radius), which lineage checkpoints import into
@@ -117,7 +120,11 @@ class TrainConfig:
     # TensorBoard scalars beside the JSON lines, where
     # torch.utils.tensorboard imports (utils/metrics.py)
     tb_dir: str = ""
-    mesh_shape: tuple[int, ...] = (-1,)  # one device only (ROADMAP A11)
+    # the mesh of ranks (one process a rank, parallel/mesh.py): sizes with
+    # one -1 absorbing the rest, and the axes' names; training splits its
+    # batch over the axis 'data' (train_lib: data parallelism)
+    mesh_shape: tuple[int, ...] = (-1,)
+    mesh_axes: tuple[str, ...] = ("data",)
     # TF32 for the MLP products on the card; distances stay fp32
     # (train_lib.apply_runtime_config)
     bf16_matmul: bool = True

@@ -25,6 +25,7 @@ import torch
 
 from tpu3dsad_torch.config import class_mean_sizes
 from tpu3dsad_torch.ops.boxes import mod
+from tpu3dsad_torch.parallel.collectives import batch_rows
 from tpu3dsad_torch.utils.constants import device_constant
 
 
@@ -109,12 +110,15 @@ def apply_augment(batch: dict, draws: dict) -> dict:
 def augment_batch(batch: dict, generator, flip_x: bool = True,
                   flip_y: bool = True, rot_range: float = np.pi / 36,
                   scale_range=None) -> dict:
-    """Per-scene flip/rot/scale of a padded detection batch."""
-    draws = draw_augment(generator, batch["points"].shape[0], flip_x=flip_x,
-                         flip_y=flip_y, rot_range=rot_range,
-                         scale_range=scale_range,
+    """Per-scene flip/rot/scale of a padded detection batch. Under data
+    parallelism the draws are made for the global batch and cut to this
+    rank's rows (collectives.batch_rows)."""
+    rows, mine = batch_rows(batch["points"].shape[0])
+    draws = draw_augment(generator, rows, flip_x=flip_x, flip_y=flip_y,
+                         rot_range=rot_range, scale_range=scale_range,
                          device=batch["points"].device)
-    return apply_augment(batch, draws)
+    return apply_augment(batch, {k: None if v is None else v[mine]
+                                 for k, v in draws.items()})
 
 
 def expand_votes(points, owner, gt_centers, gt_sizes, gt_headings,

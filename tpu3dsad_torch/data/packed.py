@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from tpu3dsad_torch.data.pipeline import iter_val_batches
+from tpu3dsad_torch.parallel.mesh import batch_sharding
 
 _HEADER = "header.json"
 
@@ -198,13 +199,13 @@ def device_prefetch(batches, device="cuda", depth: int = 2, *, mesh=None,
     after its copy's event has completed.
 
     stacked=True marks [k, B, ...] blocks of k steps
-    (train.steps_per_call); on one device they are copied as any batch is
-    (the reference shards their axis 1 over a mesh). A device mesh
-    (ROADMAP A11) is not ported and raises."""
+    (train.steps_per_call). With a mesh (parallel/mesh.py), each batch
+    keeps this rank's rows on the mesh's 'data' axis before it is copied:
+    axis 0 of a batch, axis 1 of a stacked block (the reference's
+    batch_axis_index=1); every rank reads the same global batches."""
     if mesh is not None:
-        raise NotImplementedError(
-            "device_prefetch over a device mesh is not ported yet "
-            "(ROADMAP A11)")
+        sharding = batch_sharding(mesh, "data", 1 if stacked else 0)
+        batches = ({k: sharding(v) for k, v in b.items()} for b in batches)
     device = torch.device(device)
     if device.type == "cuda":
         return _prefetch_cuda(batches, device, depth)

@@ -6,6 +6,10 @@ AP (the reference's eval.py).
 
 Runs on the card unless the caller asks for the CPU (`run_eval(...,
 device="cpu")`). Prints one JSON line {"ckpt_step": ..., **metrics}.
+Under torchrun (`python -m torch.distributed.run --nproc-per-node=P -m
+tpu3dsad_torch.eval_detector ...`) each rank joins the process group and
+the sweep runs data-parallel over train.mesh_shape (train_detector.
+evaluate with a mesh: the same metrics; rank 0 prints).
 With model.name=classifier (preset=classifier) main evaluates the
 classifier instead (train_classifier.run_eval_classifier: val_acc and
 val_loss).
@@ -20,6 +24,8 @@ from tpu3dsad_torch import train_lib
 from tpu3dsad_torch.config import describe, parse_cli
 from tpu3dsad_torch.data import get_dataset
 from tpu3dsad_torch.eval.parse import parse_predictions
+from tpu3dsad_torch.parallel import launch
+from tpu3dsad_torch.parallel.mesh import make_mesh
 from tpu3dsad_torch.train_classifier import run_eval_classifier
 from tpu3dsad_torch.train_detector import build_detector, evaluate
 
@@ -38,15 +44,17 @@ def run_eval(cfg, *, device="cuda") -> dict:
     if step == 0:
         print("WARNING: no checkpoint found — evaluating random weights",
               file=sys.stderr)
-    eval_step = train_lib.make_detector_eval_step(model, cfg)
+    mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
+    eval_step = train_lib.make_detector_eval_step(model, cfg, mesh)
 
     def parse(end_points):
         return parse_predictions(end_points, model.mean_sizes,
                                  cfg.model.num_heading_bins, cfg.eval)
 
     out = {"ckpt_step": step,
-           **evaluate(cfg, model, dataset, eval_step, parse)}
-    print(json.dumps(out), flush=True)
+           **evaluate(cfg, model, dataset, eval_step, parse, mesh=mesh)}
+    if mesh.rank == 0:
+        print(json.dumps(out), flush=True)
     return out
 
 
@@ -55,7 +63,10 @@ def main(argv) -> dict:
     print(describe(cfg), file=sys.stderr)
     if cfg.model.name == "classifier":
         return run_eval_classifier(cfg)
-    return run_eval(cfg)
+    with launch.ranks_from_env() as ranked:
+        if ranked is None:
+            return run_eval(cfg)
+        return run_eval(cfg, device=ranked)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,11 @@ max_boxes with gt_mask, so every reduction is a masked mean.
 Minima are torch.amin, which, like jnp.min, splits the gradient evenly
 among tied minima (tied vote candidates are common: unused slots copy the
 primary owner).
+
+Under data parallelism (parallel.collectives.data_parallel) every mean is
+the global batch's: its numerator stays this rank's and its denominator is
+summed over the data group (no gradient). Each metric is then this rank's
+part of the global value, and the parts sum to it over the group.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch.nn.functional as F
 
 from tpu3dsad_torch.ops.boxes import angle_to_bin
 from tpu3dsad_torch.ops.plain.knn import pairwise_sqdist
+from tpu3dsad_torch.parallel.collectives import data_group, data_sum
 from tpu3dsad_torch.utils.constants import device_constant
 
 NEAR_THRESHOLD = 0.3
@@ -27,9 +33,21 @@ FAR_THRESHOLD = 0.6
 OBJECTNESS_CLS_WEIGHTS = (0.2, 0.8)
 
 
+def _global_count(m):
+    """The sum of m over the global batch (no gradient)."""
+    return data_sum(m.detach().sum())
+
+
+def global_mean(x):
+    """The mean of x's entries over the global batch."""
+    if data_group() is None:
+        return x.mean()
+    return x.sum() / _global_count(torch.ones_like(x))
+
+
 def _masked_mean(x, mask):
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp_min(1.0)
+    return (x * m).sum() / _global_count(m).clamp_min(1.0)
 
 
 def _ce(logits, labels):
@@ -95,7 +113,7 @@ def objectness_loss(end_points, pos, neg):
     w = (torch.where(pos, OBJECTNESS_CLS_WEIGHTS[1], 0.0)
          + torch.where(neg, OBJECTNESS_CLS_WEIGHTS[0], 0.0))
     sup = (pos | neg).to(ce.dtype)
-    return (ce * w).sum() / sup.sum().clamp_min(1.0)
+    return (ce * w).sum() / _global_count(sup).clamp_min(1.0)
 
 
 def center_loss(end_points, batch, pos, norm: float = 1.0):
@@ -193,6 +211,6 @@ def detection_loss(end_points, batch, mean_sizes, num_heading_bins,
         "sem_cls_loss": sem,
         "scale_sel_loss": sc_loss,
         "obj_acc": obj_acc,
-        "pos_ratio": pos.float().mean(),
+        "pos_ratio": global_mean(pos.float()),
     }
     return total, metrics

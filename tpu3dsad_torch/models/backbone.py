@@ -8,6 +8,7 @@ from torch import nn
 
 from tpu3dsad_torch.config import ModelConfig
 from tpu3dsad_torch.nn import FeaturePropagation, SetAbstraction
+from tpu3dsad_torch.parallel.mesh import shard_batch
 
 
 class PointNet2Backbone(nn.Module):
@@ -15,6 +16,7 @@ class PointNet2Backbone(nn.Module):
 
     def __init__(self, cfg: ModelConfig, in_features: int = 0):
         super().__init__()
+        self.cp_stages = cfg.cp_stages
         if len(cfg.sa_npoints) != 4:
             raise ValueError("the detection backbone has 4 SA levels")
         ch = in_features
@@ -32,14 +34,27 @@ class PointNet2Backbone(nn.Module):
         self.fp2 = FeaturePropagation(c2 + cfg.fp_channels[0][-1],
                                       cfg.fp_channels[1])
 
-    def forward(self, xyz, features=None, *, mask=None, bn_momentum=0.9):
+    def forward(self, xyz, features=None, *, mask=None, bn_momentum=0.9,
+                cp_mesh=None, cp_batch_axis=None):
         """Returns dict with seed_xyz [B,S,3], seed_features [B,S,D],
-        seed_inds [B,S], seed_mask [B,S] (S = cfg.sa_npoints[1])."""
+        seed_inds [B,S], seed_mask [B,S] (S = cfg.sa_npoints[1]).
+
+        cp_mesh: the first cfg.cp_stages SA levels run FPS and the grouping
+        point-sharded over its 'points' axis; after them M is small and
+        everything runs replicated. Exact, so bitwise the unsharded path
+        with exact grouping. cp_batch_axis (hybrid DP x CP): the inputs are
+        the global batch, and the outputs this rank's rows of it."""
+        if cp_mesh is not None and cp_batch_axis is not None:
+            rows = shard_batch({"xyz": xyz, "features": features,
+                                "mask": mask}, cp_mesh, cp_batch_axis)
+            xyz, features, mask = rows.values()
         sa_out = []  # (xyz, feats, inds, mask) per level
         cur = (xyz, features, None, mask)
         for i in range(4):
+            cp = cp_mesh if i < self.cp_stages else None
             cur = getattr(self, f"sa{i + 1}")(cur[0], cur[1], mask=cur[3],
-                                              bn_momentum=bn_momentum)
+                                              bn_momentum=bn_momentum,
+                                              cp_mesh=cp)
             sa_out.append(cur)
         x2, f2, i2, m2 = sa_out[1]
         x3, f3, _, m3 = sa_out[2]

@@ -21,6 +21,7 @@ from tpu3dsad_torch.models.proposal import (
 )
 from tpu3dsad_torch.models.voting import VotingModule
 from tpu3dsad_torch.nn.mlp import init_like_flax_
+from tpu3dsad_torch.parallel.mesh import shard_batch
 
 
 class SizeAdaptiveDetector(nn.Module):
@@ -77,8 +78,20 @@ class SizeAdaptiveDetector(nn.Module):
                 "available; pass device='cpu' to build it on the CPU")
         self.to(device)
 
-    def forward(self, points, features=None, *, mask=None, bn_momentum=0.9):
-        """points [B,N,3], features [B,N,C] -> end_points dict."""
+    def forward(self, points, features=None, *, mask=None, bn_momentum=0.9,
+                cp_mesh=None, cp_batch_axis=None):
+        """points [B,N,3], features [B,N,C] -> end_points dict.
+
+        cp_mesh (context parallelism; every rank of the mesh calls forward
+        with the same inputs): the first cfg.cp_stages SA levels run
+        point-sharded over its 'points' axis (models/backbone.py), exactly
+        as the unsharded forward with exact grouping. cp_batch_axis (hybrid
+        DP x CP on a 2-D mesh): the inputs are the global batch, split over
+        that axis, and the end_points are this rank's rows."""
+        if cp_mesh is not None and cp_batch_axis is not None:
+            rows = shard_batch({"points": points, "features": features,
+                                "mask": mask}, cp_mesh, cp_batch_axis)
+            points, features, mask = rows.values()
         parts = [] if features is None else [features]
         if self.cfg.append_height:
             z = points[..., 2:3]
@@ -89,7 +102,8 @@ class SizeAdaptiveDetector(nn.Module):
         features = torch.cat(parts, -1) if parts else None
 
         end_points = dict(self.backbone(points, features, mask=mask,
-                                        bn_momentum=bn_momentum))
+                                        bn_momentum=bn_momentum,
+                                        cp_mesh=cp_mesh))
         vote_xyz, vote_feat, vote_mask = self.voting(
             end_points["seed_xyz"], end_points["seed_features"],
             mask=end_points["seed_mask"], bn_momentum=bn_momentum)

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from tpu3dsad_torch.nn.norm import MaskedBatchNorm
+from tpu3dsad_torch.parallel.collectives import batch_rows
 
 # stddev of a standard normal truncated to [-2, 2]; flax's lecun_normal
 # divides by it so the truncated draw keeps variance 1/fan_in
@@ -66,7 +67,9 @@ def dropout(x: torch.Tensor, p: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """flax's nn.Dropout in training: keep each entry with probability
     1 - p, drawn from `generator` (never torch's global RNG), and scale
-    the kept ones by 1 / (1 - p); p = 0 returns x, p = 1 zeros."""
+    the kept ones by 1 / (1 - p); p = 0 returns x, p = 1 zeros. Under
+    data parallelism x [B, ...] holds this rank's rows, and the draw is
+    made for the global batch and cut to them (collectives.batch_rows)."""
     if p == 0.0:
         return x
     if p == 1.0:
@@ -74,7 +77,9 @@ def dropout(x: torch.Tensor, p: float,
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep_prob = 1.0 - p
-    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    rows, mine = batch_rows(x.shape[0])
+    draw = torch.rand((rows, *x.shape[1:]), generator=generator,
+                      device=x.device)[mine]
     keep = draw < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 

@@ -17,12 +17,22 @@ Two conventions differ from torch.nn.BatchNorm and follow the reference:
 
 Padded rows (mask False) contribute to neither statistic but are still
 normalised. The running buffers are updated in place by a train-mode call.
+
+Under data parallelism (parallel.collectives.data_parallel) the train-mode
+statistics are the global batch's, as the reference's one SPMD program
+computes them: the count and the masked sum are summed over the data
+group for the mean, then the centred sum of squares for the variance (two
+collectives; their backward sums the gradient over the group, so each
+rank's rows get the gradient of every rank's loss). Without a group
+nothing is communicated.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from tpu3dsad_torch.parallel.collectives import data_group, data_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -41,7 +51,9 @@ class MaskedBatchNorm(nn.Module):
         """x [..., C]; mask [...] bool (True = real row) -> normalised x."""
         if self.training:
             rows = x.reshape(-1, x.shape[-1])
-            if mask is None:
+            if data_group() is not None:
+                mean, var = _global_stats(rows, mask)
+            elif mask is None:
                 mean = rows.mean(0)
                 var = rows.var(0, unbiased=False)
             else:
@@ -56,3 +68,17 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+def _global_stats(rows: torch.Tensor, mask: torch.Tensor | None):
+    """(mean, biased variance) over the valid rows of every rank of the
+    data group: the count and the sum in one collective, then the centred
+    sum of squares."""
+    m = (torch.ones_like(rows[:, :1]) if mask is None
+         else mask.reshape(-1, 1).to(rows.dtype))
+    C = rows.shape[-1]
+    sums = data_sum(torch.cat([(rows * m).sum(0), m.sum().reshape(1)]))
+    cnt = sums[C].clamp_min(1.0)
+    mean = sums[:C] / cnt
+    var = data_sum((m * (rows - mean) ** 2).sum(0)) / cnt
+    return mean, var

@@ -3,8 +3,13 @@
 
 Sample (FPS) -> group (ball query at one or more radii) -> shared MLP ->
 masked max-pool per group. Pad slots and groups around invalid centers
-never win the pool. GroupAll pools the whole cloud into one feature. The
-context-parallel branch is not ported yet (ROADMAP A11).
+never win the pool. GroupAll pools the whole cloud into one feature.
+
+With cp_mesh (context parallelism), the N-touching half, FPS and the
+grouping, runs point-sharded over the mesh's 'points' axis
+(parallel/point_sharded.py: exact, so bitwise the unsharded path with
+exact grouping); the MLP and the pool run replicated on every rank of the
+points group.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from torch import nn
 
 from tpu3dsad_torch import ops
 from tpu3dsad_torch.nn.mlp import SharedMLP
+from tpu3dsad_torch.parallel import point_sharded as ps
+from tpu3dsad_torch.parallel.mesh import shard_batch
 
 
 class SetAbstraction(nn.Module):
@@ -39,17 +46,50 @@ class SetAbstraction(nn.Module):
         self.out_channels = sum(c[-1] for c in mlps)
 
     def forward(self, xyz, features=None, *, mask=None, inds=None,
-                bn_momentum=0.9):
+                bn_momentum=0.9, cp_mesh=None, cp_batch_axis=None):
         """xyz [B,N,3], features [B,N,C] -> (new_xyz [B,M,3],
-        new_features [B,M,C'], inds [B,M], new_mask [B,M])."""
+        new_features [B,M,C'], inds [B,M], new_mask [B,M]).
+
+        cp_mesh: run FPS and the grouping sharded over its 'points' axis.
+        cp_batch_axis (hybrid DP x CP): the inputs are the global batch,
+        split over that axis of cp_mesh; the outputs are this rank's
+        rows."""
+        if cp_mesh is not None:
+            return self._forward_cp(xyz, features, mask, inds, bn_momentum,
+                                    cp_mesh, cp_batch_axis)
         if inds is None:
             inds = ops.furthest_point_sample(xyz, self.npoint, mask=mask)
         new_xyz = ops.gather(xyz, inds)
         new_mask = (torch.ones(inds.shape, dtype=torch.bool, device=xyz.device)
                     if mask is None else mask.bool().gather(1, inds.long()))
+        return self._pool(xyz, features, mask, new_xyz, inds, new_mask,
+                          bn_momentum, ops.query_and_group)
+
+    def _forward_cp(self, xyz, features, mask, inds, bn_momentum, mesh,
+                    batch_axis):
+        if batch_axis is not None:
+            rows = shard_batch({"xyz": xyz, "features": features,
+                                "mask": mask, "inds": inds}, mesh, batch_axis)
+            xyz, features, mask, inds = rows.values()
+        if mask is None:
+            mask = torch.ones(xyz.shape[:2], dtype=torch.bool,
+                              device=xyz.device)
+        if inds is None:
+            inds = ps.sharded_fps(xyz, self.npoint, mesh, mask=mask)
+        new_xyz, new_mask = ps.sharded_centers(xyz, inds, mesh, mask=mask)
+
+        def group(xyz, centers, radius, nsample, **kw):
+            return ps.sharded_query_and_group(xyz, centers, radius, nsample,
+                                              mesh, **kw)
+
+        return self._pool(xyz, features, mask, new_xyz, inds, new_mask,
+                          bn_momentum, group)
+
+    def _pool(self, xyz, features, mask, new_xyz, inds, new_mask,
+              bn_momentum, query_and_group):
         pooled = []
         for s, (radius, nsample) in enumerate(zip(self.radii, self.nsamples)):
-            grouped, _, gmask = ops.query_and_group(
+            grouped, _, gmask = query_and_group(
                 xyz, new_xyz, radius, nsample, features=features, mask=mask,
                 use_xyz=self.use_xyz, normalize_xyz=self.normalize_xyz,
             )

@@ -13,8 +13,11 @@ lines: {"step", "epoch", "loss", "acc"} every `log_every` steps,
 {"step", "eval/epoch", "eval/val_acc", "eval/val_loss", "eval/n_scenes"}
 every `eval_every` epochs and after the last; it checkpoints every
 `ckpt_every` epochs and after the last, and resumes from the newest
-checkpoint. The reference's classifier path has no k-step block, and a
-device mesh is refused (ROADMAP A11).
+checkpoint. The reference's classifier path has no k-step block. With a
+process group and train.mesh_shape over the axis 'data' (data
+parallelism, train_lib), every rank draws the same global batches and
+keeps its rows; the val sweep runs whole on every rank, as the
+reference's runs unsharded; rank 0 alone prints and checkpoints.
 
 run_eval_classifier: the val accuracy of the newest checkpoint (or the
 best snapshot with eval.use_best), printed as {"ckpt_step", "val_acc",
@@ -40,6 +43,7 @@ from tpu3dsad_torch.models.classifier import (
     PointNet2Classifier,
     build_classifier,
 )
+from tpu3dsad_torch.parallel.mesh import make_mesh, shard_batch
 
 SYNTHETIC_STEPS_PER_EPOCH = 100  # train.py:63
 SYNTHETIC_VAL_BATCHES = 8  # fresh clouds stand in for a val split
@@ -86,6 +90,8 @@ def run_classifier(cfg, *, device="cuda") -> ClassifierResult:
     it holds a checkpoint."""
     train_lib.refuse_unported(cfg)
     train_lib.apply_runtime_config(cfg)
+    mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
+    lead = mesh.rank == 0
     bs = cfg.train.batch_size
     rng_np = np.random.default_rng(cfg.train.seed)
     if cfg.data.name == "modelnet":
@@ -116,10 +122,11 @@ def run_classifier(cfg, *, device="cuda") -> ClassifierResult:
     # (train.py:69), on a resume too; drawing it keeps the stream the same
     make_batch()
     optimizer = train_lib.make_optimizer(cfg.train, steps_per_epoch,
-                                         model.parameters())
+                                         model.parameters(),
+                                         train_lib.data_axis(mesh))
     start_step = train_lib.restore_checkpoint(cfg.train.ckpt_dir, model,
                                               optimizer)
-    if start_step:
+    if start_step and lead:
         print(f"resumed from step {start_step}", file=sys.stderr)
     gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
     result = ClassifierResult(model, optimizer, start_step, start_step)
@@ -129,32 +136,35 @@ def run_classifier(cfg, *, device="cuda") -> ClassifierResult:
         t0 = time.perf_counter()
         for _ in range(steps_per_epoch):
             t_step = time.perf_counter()
-            batch = to_device(make_batch(), device)
+            batch = to_device(shard_batch(make_batch(), mesh), device)
             metrics = train_lib.classifier_train_step(model, optimizer,
                                                       batch, gen, bn_m)
             m = {k: float(v) for k, v in metrics.items()}  # waits
             result.step += 1
             result.history.append({"step": result.step, **m,
                                    "seconds": time.perf_counter() - t_step})
-            if result.step % cfg.train.log_every == 0:
+            if lead and result.step % cfg.train.log_every == 0:
                 print(json.dumps({"step": result.step, "epoch": epoch, **m}),
                       flush=True)
         dt = time.perf_counter() - t0
-        print(json.dumps({
-            "epoch": epoch, "epoch_time_s": round(dt, 2),
-            "clouds_per_sec": round(steps_per_epoch * bs / dt, 2)}),
-            flush=True)
+        if lead:
+            print(json.dumps({
+                "epoch": epoch, "epoch_time_s": round(dt, 2),
+                "clouds_per_sec": round(steps_per_epoch * bs / dt, 2)}),
+                flush=True)
         if (epoch + 1) % cfg.train.eval_every == 0 or epoch == last:
             t0 = time.perf_counter()
             m = evaluate_classifier(model, val_batches(), device)
             result.evals.append({"epoch": epoch, "step": result.step,
                                  "seconds": time.perf_counter() - t0, **m})
-            print(json.dumps({
-                "step": result.step, "eval/epoch": epoch,
-                "eval/val_acc": round(m["val_acc"], 4),
-                "eval/val_loss": round(m["val_loss"], 4),
-                "eval/n_scenes": m["n_scenes"]}), flush=True)
-        if (epoch + 1) % max(1, cfg.train.ckpt_every) == 0 or epoch == last:
+            if lead:
+                print(json.dumps({
+                    "step": result.step, "eval/epoch": epoch,
+                    "eval/val_acc": round(m["val_acc"], 4),
+                    "eval/val_loss": round(m["val_loss"], 4),
+                    "eval/n_scenes": m["n_scenes"]}), flush=True)
+        if lead and ((epoch + 1) % max(1, cfg.train.ckpt_every) == 0
+                     or epoch == last):
             train_lib.save_checkpoint(cfg.train.ckpt_dir, model, optimizer,
                                       result.step)
     return result

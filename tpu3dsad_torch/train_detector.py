@@ -16,11 +16,17 @@ TensorBoard scalars (utils/metrics.py); train.profile_dir traces the
 first epoch run with torch.profiler into <profile_dir>/trace.json, and a
 resumed run with no epoch left closes the profiler all the same.
 
-evaluate: the val sweep of a dataset's host val batches -> AP table, on
-one device.
+evaluate: the val sweep of a dataset's host val batches -> AP table.
 
-Not ported yet, and refused with NotImplementedError before any step: a
-device mesh (ROADMAP A11).
+Data parallelism: with a process group of p ranks (torchrun, or
+parallel.launch.spawn) and train.mesh_shape over the axis 'data', every
+rank draws the same global batch stream from train.seed, as the
+reference's one host does, and keeps its rows (train.batch_size is the
+global batch); the step keeps the global semantics (train_lib), so the
+ranks hold one model. Rank 0 alone writes: checkpoints, the best-mAP
+snapshot, train_meta.json, JSON lines, TensorBoard and the profiler
+trace; every rank reads a resume. A mesh with train.steps_per_call > 1 is
+refused before any work (train_lib.refuse_unported).
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ from tpu3dsad_torch.eval.parse import (
     predictions_to_lists,
 )
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
+from tpu3dsad_torch.parallel import collectives
+from tpu3dsad_torch.parallel.mesh import make_mesh, shard_batch
 from tpu3dsad_torch.utils.metrics import MetricsLogger
 
 
@@ -96,22 +104,26 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
         dataset.steps_per_epoch(bs), cfg.train.steps_per_call)
     train_lib.refuse_unported(cfg)
     train_lib.apply_runtime_config(cfg)
+    mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
+    lead = mesh.rank == 0
 
     model = build_detector(cfg, dataset.mean_sizes, device=device)
     optimizer = train_lib.make_optimizer(cfg.train, steps_per_epoch,
-                                         model.parameters())
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"detector params: {n_params / 1e6:.2f}M", file=sys.stderr)
+                                         model.parameters(),
+                                         train_lib.data_axis(mesh))
     start_step = train_lib.restore_checkpoint(cfg.train.ckpt_dir, model,
                                               optimizer)
-    if start_step:
-        print(f"resumed from step {start_step}", file=sys.stderr)
-    warning = train_lib.check_and_record_train_meta(
-        cfg.train.ckpt_dir, steps_per_epoch, k, resumed=bool(start_step))
-    if warning:
-        print(warning, file=sys.stderr)
+    if lead:
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"detector params: {n_params / 1e6:.2f}M", file=sys.stderr)
+        if start_step:
+            print(f"resumed from step {start_step}", file=sys.stderr)
+        warning = train_lib.check_and_record_train_meta(
+            cfg.train.ckpt_dir, steps_per_epoch, k, resumed=bool(start_step))
+        if warning:
+            print(warning, file=sys.stderr)
 
-    eval_step = train_lib.make_detector_eval_step(model, cfg)
+    eval_step = train_lib.make_detector_eval_step(model, cfg, mesh)
 
     def parse(end_points):
         return parse_predictions(end_points, model.mean_sizes,
@@ -127,9 +139,11 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
         synth_gens = (data_gen,)
 
         def make_batch():
-            return synthetic_detection_batch(
+            # the global batch on every rank, cut to this rank's rows
+            return shard_batch(synthetic_detection_batch(
                 data_gen, bs, cfg.data.num_points, cfg.model.num_classes,
-                cfg.data.max_boxes, vote_candidates=cfg.data.vote_candidates)
+                cfg.data.max_boxes, vote_candidates=cfg.data.vote_candidates),
+                mesh)
 
         # at k > 1 the block makes its batches itself
         batches = iter(make_batch, None) if k == 1 else None
@@ -144,7 +158,7 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
 
         # host batches made ahead on a thread, copied ahead to the device
         batcher = Batcher(host_batch, seed=cfg.train.seed, prefetch=2)
-        batches = device_prefetch(batcher, device, stacked=k > 1)
+        batches = device_prefetch(batcher, device, mesh=mesh, stacked=k > 1)
     if k > 1:
         train = train_lib.make_detector_train_block(
             model, optimizer, cfg, k, aug_dataset, synth_fn=make_batch,
@@ -157,20 +171,20 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
             return {n: v.reshape(1)
                     for n, v in step(batch, generator, bn_momentum).items()}
 
-    logger = MetricsLogger(cfg.train.tb_dir)
+    logger = MetricsLogger(cfg.train.tb_dir, active=lead)
     result = TrainResult(model, optimizer, start_step, start_step)
-    profiler = _start_profiler(cfg.train.profile_dir, device)
+    profiler = _start_profiler(cfg.train.profile_dir if lead else "", device)
     try:
         for epoch in range(start_step // steps_per_epoch,
                            cfg.train.num_epochs):
             _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train,
-                         step_gen, logger, result)
+                         step_gen, logger, result, lead)
             if profiler is not None:  # the first epoch run only
                 _stop_profiler(profiler, cfg.train.profile_dir)
                 profiler = None
             if (epoch + 1) % cfg.train.eval_every == 0:
                 _evaluate_and_keep_best(cfg, epoch, dataset, eval_step,
-                                        parse, logger, result)
+                                        parse, logger, result, mesh)
     finally:
         if profiler is not None:  # no epoch left to run on a resume
             _stop_profiler(profiler, cfg.train.profile_dir)
@@ -202,10 +216,10 @@ def _stop_profiler(profiler, profile_dir: str) -> None:
 
 
 def _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train, step_gen,
-                 logger, result) -> None:
+                 logger, result, lead=True) -> None:
     """One epoch of train calls of k steps (train(batch, generator,
     bn_momentum) -> {metric: [k] tensor}), then its log line and
-    checkpoint."""
+    checkpoint (written by the lead rank only)."""
     bs = cfg.train.batch_size
     bn_m = train_lib.bn_momentum_at(cfg.train, epoch)
     t0 = time.perf_counter()
@@ -231,6 +245,8 @@ def _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train, step_gen,
                     **{n: round(v[j], 4) for n, v in values.items()}},
                     prefix="train/")
     dt = time.perf_counter() - t0
+    if not lead:
+        return
     print(json.dumps({"epoch": epoch, "epoch_time_s": round(dt, 2),
                       "scenes_per_sec": round(steps_per_epoch * bs / dt, 2)}),
           flush=True)
@@ -241,16 +257,19 @@ def _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train, step_gen,
 
 
 def _evaluate_and_keep_best(cfg, epoch, dataset, eval_step, parse, logger,
-                            result) -> None:
+                            result, mesh=None) -> None:
     """The val sweep: flat metrics logged under eval/, the per-class APs
     printed, and the model kept as the best snapshot where the first AP
-    threshold's mAP improves."""
+    threshold's mAP improves. Every rank computes the same metrics; the
+    lead rank alone prints and keeps the snapshot."""
     t0 = time.perf_counter()
-    m = evaluate(cfg, result.model, dataset, eval_step, parse)
+    m = evaluate(cfg, result.model, dataset, eval_step, parse, mesh=mesh)
     result.evals.append({"epoch": epoch, "step": result.step,
                          "seconds": time.perf_counter() - t0, **m})
     flat = {k: v for k, v in m.items() if isinstance(v, (int, float))}
     logger.log(result.step, {"epoch": epoch, **flat}, prefix="eval/")
+    if mesh is not None and mesh.rank != 0:
+        return
     per_cls = {k: v for k, v in m.items() if isinstance(v, dict)}
     if per_cls:
         print(json.dumps({"epoch": epoch, **per_cls}), flush=True)
@@ -261,14 +280,21 @@ def _evaluate_and_keep_best(cfg, epoch, dataset, eval_step, parse, logger,
         print(json.dumps({"epoch": epoch, "new_best_mAP": lead}), flush=True)
 
 
-def evaluate(cfg, model, dataset, eval_step, parse, num_batches=None):
-    """Val sweep -> AP table, on the model's device (the reference's
-    evaluate with one device and no mesh).
+def evaluate(cfg, model, dataset, eval_step, parse, num_batches=None,
+             mesh=None):
+    """Val sweep -> AP table, on the model's device
+    (tpu3dsad/train_detector.py:259-300).
 
     Each val batch goes to the device with its scene_mask, which marks the
     tail batch's padding scenes: the eval step's loss leaves them out and
     AP never scores them. parse(end_points) gives the parsed fields; their
     per-scene lists and the ground truth are scored on the host.
+
+    With a mesh, every rank reads the same val batches and runs its rows
+    of each on the 'data' axis (eval_step made with the mesh: its loss is
+    the global batch's); the fixed-shape parsed fields are gathered over
+    the data group in rank order, so every rank scores the global list in
+    the reference's scene order and returns the same metrics.
 
     Returns {"val_loss", "mAP@t", "AR@t", "per_class@t": {name: AP}} for
     every t in cfg.eval.ap_iou_threshs, rounded to 4 places."""
@@ -283,13 +309,16 @@ def evaluate(cfg, model, dataset, eval_step, parse, num_batches=None):
             break
         scene_mask = np.asarray(batch_np.pop(
             "scene_mask", np.ones(cfg.train.batch_size, bool)))
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in batch_np.items()}
-        batch["scene_mask"] = torch.from_numpy(scene_mask).to(device)
+        mine = {**batch_np, "scene_mask": scene_mask}
+        if mesh is not None:
+            mine = shard_batch(mine, mesh)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in mine.items()}
         end_points, metrics = eval_step(batch)
         losses.append(float(metrics["loss"]))
         loss_weights.append(float(scene_mask.mean()))
-        parsed = {k: v.cpu().numpy() for k, v in parse(end_points).items()}
+        parsed = {k: _gathered(v, mesh).cpu().numpy()
+                  for k, v in parse(end_points).items()}
         preds = predictions_to_lists(parsed, cfg.eval, cfg.model.num_classes)
         gts = parse_groundtruths(batch_np)
         preds = [p for p, v in zip(preds, scene_mask) if v]
@@ -305,3 +334,12 @@ def evaluate(cfg, model, dataset, eval_step, parse, num_batches=None):
         out[f"per_class@{t}"] = {k[: -len(" AP")]: round(v, 4)
                                  for k, v in m.items() if k.endswith(" AP")}
     return out
+
+
+def _gathered(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x [b, ...], this rank's rows -> the data group's rows in rank order
+    (x itself without a mesh)."""
+    if mesh is None:
+        return x
+    g = collectives.all_gather(x, mesh.group("data"))
+    return g.reshape(-1, *x.shape[1:])

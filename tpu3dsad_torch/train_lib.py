@@ -11,6 +11,19 @@ global-norm clip scales by max_norm / norm with no epsilon
 (optax.clip_by_global_norm; torch's clip_grad_norm_ adds 1e-6). Its
 count, rate and moments stay on the device, so a captured step replays
 the update.
+
+Data parallelism (train.mesh_shape over the axis 'data', one process a
+rank): the steps take this rank's rows of the global batch and keep the
+reference's one-program semantics, so a world-p step is the world-1 step
+of the same global batch up to fp32 summation order. Inside
+collectives.data_parallel, BatchNorm takes its statistics over the data
+group and the losses their denominators, so each rank's loss is its part
+of the global loss; the optimizer sums the gradients over the group in one
+flat buffer before the clip, so every rank takes the same update; draws
+for the batch (augmentation, dropout) are made for the global batch and
+cut to the rank's rows; the metrics are summed over the group. The model
+is not wrapped in DistributedDataParallel, which averages gradients and
+renames every state_dict key.
 """
 
 from __future__ import annotations
@@ -30,7 +43,9 @@ from tpu3dsad_torch.data.device_pipeline import (
     augment_batch,
     decode_compact_votes,
 )
-from tpu3dsad_torch.losses import detection_loss
+from tpu3dsad_torch.losses import detection_loss, global_mean
+from tpu3dsad_torch.parallel import collectives
+from tpu3dsad_torch.parallel.mesh import resolve_shape, world
 from tpu3dsad_torch.utils.constants import device_constant
 
 
@@ -60,11 +75,33 @@ def apply_runtime_config(cfg) -> None:
 
 
 def refuse_unported(cfg) -> None:
-    """Raise before any work for what the port's training does not run."""
-    if tuple(cfg.train.mesh_shape) not in ((-1,), (1,)):
+    """Raise before any work for what the port's training does not run: a
+    mesh of more than one rank with train.steps_per_call > 1."""
+    ranks = int(np.prod(resolve_shape(cfg.train.mesh_shape, world()[1])))
+    if ranks > 1 and cfg.train.steps_per_call > 1:
         raise NotImplementedError(
-            f"train.mesh_shape={cfg.train.mesh_shape}: training on a device "
-            "mesh is not ported yet (ROADMAP A11)")
+            f"train.steps_per_call={cfg.train.steps_per_call} on a mesh of "
+            f"{ranks} ranks (train.mesh_shape={cfg.train.mesh_shape}): a "
+            "k-step block is one CUDA graph, which cannot capture the gloo "
+            "collectives of a data-parallel step, and a capture across NCCL "
+            "ranks needs more than one card to show; run steps_per_call=1 "
+            "on a mesh (ROADMAP Queue A)")
+
+
+def data_axis(mesh):
+    """The AxisGroup of the mesh's 'data' axis (None without a mesh)."""
+    return None if mesh is None else mesh.group("data")
+
+
+def reduce_metrics(metrics: dict, group) -> dict:
+    """Each metric summed over the data group, in one collective (each
+    rank's is its part of the global value)."""
+    if group is None or group.size == 1:
+        return metrics
+    names = list(metrics)
+    total = collectives.all_reduce_sum(
+        torch.stack([metrics[n].detach().float() for n in names]), group)
+    return dict(zip(names, total.unbind()))
 
 
 def round_steps_per_epoch(steps_per_epoch: int,
@@ -139,12 +176,15 @@ class Optimizer:
     of updates made) and the moments `mu`, `nu` are tensors updated in
     place, the rate is the schedule at `count` picked on the device, and
     nothing is read back to the host. Parameters without a gradient are
-    left as they are."""
+    left as they are. With a data group (an AxisGroup), the gradients are
+    first summed over it in one flat buffer (every rank's backward leaves
+    the same parameters without a gradient, since all run one graph)."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, cfg, steps_per_epoch: int, params):
+    def __init__(self, cfg, steps_per_epoch: int, params, group=None):
         self.params = [p for p in params if p.requires_grad]
+        self.group = group
         self.schedule = lr_schedule(cfg, steps_per_epoch)
         self.clip = cfg.grad_clip
         self.weight_decay = cfg.weight_decay
@@ -164,6 +204,7 @@ class Optimizer:
         mu = [self.mu[i] for i in live]
         nu = [self.nu[i] for i in live]
         grads = [p.grad for p in params]
+        collectives.all_reduce_coalesced(grads, self.group)
         if self.clip > 0:
             norm = torch.sqrt(sum((g * g).sum() for g in grads))
             keep = norm < self.clip
@@ -213,9 +254,10 @@ class Optimizer:
         self.count.copy_(torch.as_tensor(state["count"]))
 
 
-def make_optimizer(cfg, steps_per_epoch: int, params) -> Optimizer:
-    """cfg: a TrainConfig."""
-    return Optimizer(cfg, steps_per_epoch, params)
+def make_optimizer(cfg, steps_per_epoch: int, params,
+                   group=None) -> Optimizer:
+    """cfg: a TrainConfig; group: the data axis' AxisGroup, or None."""
+    return Optimizer(cfg, steps_per_epoch, params, group)
 
 
 def classifier_loss(model, batch: dict, bn_momentum,
@@ -226,8 +268,9 @@ def classifier_loss(model, batch: dict, bn_momentum,
     logits = model(batch["points"], mask=batch["mask"],
                    bn_momentum=bn_momentum, generator=generator)
     labels = batch["labels"].long()
-    loss = F.cross_entropy(logits, labels)
-    acc = (logits.argmax(-1) == labels).float().mean()
+    # means over the global batch (this rank's part under data_parallel)
+    loss = global_mean(F.cross_entropy(logits, labels, reduction="none"))
+    acc = global_mean((logits.argmax(-1) == labels).float())
     return loss, {"loss": loss, "acc": acc}
 
 
@@ -235,13 +278,17 @@ def classifier_train_step(model, optimizer: Optimizer, batch: dict,
                           generator: torch.Generator, bn_momentum) -> dict:
     """One classifier step in train mode: forward, loss, backward, and the
     update of the parameters and the BN running averages in place;
-    returns the metrics as detached 0-d tensors."""
+    returns the metrics as detached 0-d tensors. Under the optimizer's
+    data group, `batch` holds this rank's rows of the global batch
+    (module docstring)."""
     model.train()
     optimizer.zero_grad()
-    loss, metrics = classifier_loss(model, batch, bn_momentum, generator)
-    loss.backward()
+    with collectives.data_parallel(optimizer.group):
+        loss, metrics = classifier_loss(model, batch, bn_momentum, generator)
+        loss.backward()
     optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                          optimizer.group)
 
 
 @torch.no_grad()
@@ -281,21 +328,26 @@ def make_detector_steps(model, optimizer: Optimizer, cfg,
     split passes its source dataset), runs forward, loss and backward in
     train mode, and updates the parameters and the BN running averages in
     place. bn_momentum is a float or a 0-d tensor on the model's device
-    (nn/norm.py)."""
+    (nn/norm.py). Under the optimizer's data group `batch` holds this
+    rank's rows of the global batch, the augmentation draws for the global
+    batch, and the metrics are the global batch's (module docstring)."""
     device_aug = cfg.data.device_augment and cfg.data.augment
     aug = (resolve_aug(cfg.data, aug_dataset or cfg.data.name)
            if device_aug else None)
+    group = optimizer.group
 
     def step(batch: dict, generator, bn_momentum) -> dict:
         batch = decode_compact_votes(batch, cfg.data.vote_candidates)
-        if aug is not None:
-            batch = augment_batch(batch, generator, **aug)
         model.train()
         optimizer.zero_grad()
-        loss, metrics = detector_loss(model, cfg, batch, bn_momentum)
-        loss.backward()
+        with collectives.data_parallel(group):
+            if aug is not None:
+                batch = augment_batch(batch, generator, **aug)
+            loss, metrics = detector_loss(model, cfg, batch, bn_momentum)
+            loss.backward()
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                              group)
 
     return step
 
@@ -409,12 +461,15 @@ def make_detector_train_block(model, optimizer: Optimizer, cfg, k: int,
                               synth_fn, generators)
 
 
-def make_detector_eval_step(model, cfg):
+def make_detector_eval_step(model, cfg, mesh=None):
     """The detector's eval step: step(batch) -> (end_points, metrics). It
     decodes compact votes and runs the model in eval mode without
     gradients, then the detection loss, which leaves out the scenes that
-    batch["scene_mask"] marks as padding (tpu3dsad/train_lib.py:271-285)."""
+    batch["scene_mask"] marks as padding (tpu3dsad/train_lib.py:271-285).
+    With a mesh, `batch` holds this rank's rows: end_points are its rows',
+    and the metrics are the global batch's."""
     ms = model.mean_sizes
+    group = data_axis(mesh)
 
     @torch.no_grad()
     def step(batch: dict):
@@ -422,11 +477,13 @@ def make_detector_eval_step(model, cfg):
         model.eval()
         end_points = model(batch["points"], batch.get("point_features"),
                            mask=batch["point_mask"])
-        _, metrics = detection_loss(
-            end_points, batch, ms, cfg.model.num_heading_bins,
-            tuple(cfg.model.cluster_radius_bank), near=cfg.model.assign_near,
-            far=cfg.model.assign_far, center_norm=cfg.model.center_loss_norm)
-        return end_points, metrics
+        with collectives.data_parallel(group):
+            _, metrics = detection_loss(
+                end_points, batch, ms, cfg.model.num_heading_bins,
+                tuple(cfg.model.cluster_radius_bank),
+                near=cfg.model.assign_near, far=cfg.model.assign_far,
+                center_norm=cfg.model.center_loss_norm)
+        return end_points, reduce_metrics(metrics, group)
 
     return step
 

@@ -10,9 +10,13 @@ import sys
 
 
 class MetricsLogger:
-    def __init__(self, tb_dir: str = ""):
+    """active=False (a rank other than the lead of a data-parallel run)
+    logs nothing."""
+
+    def __init__(self, tb_dir: str = "", active: bool = True):
         self._tb = None
-        if tb_dir:
+        self.active = active
+        if tb_dir and active:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError as e:  # tensorboard is optional
@@ -24,6 +28,8 @@ class MetricsLogger:
     def log(self, step: int, scalars: dict, prefix: str = "") -> None:
         """Print {"step": step, prefix+name: value} for the int and float
         scalars, and write them as TensorBoard scalars where enabled."""
+        if not self.active:
+            return
         values = {f"{prefix}{k}": v for k, v in scalars.items()
                   if isinstance(v, (int, float))}
         print(json.dumps({"step": step, **values}), flush=True)
