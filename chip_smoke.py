@@ -243,6 +243,32 @@ Phases, in order; any failure raises and the script exits nonzero:
     from 16 ScanNet-format scenes: exit 0. A failing rank fails the
     phase. Its ranks' launches go to the path parallel
     (parallel_launches).
+17. data parallelism at train.steps_per_call=4: 2 ranks as in phase 16,
+    config #3 at 8 x 40960 in fp32. On a data group of more than one rank
+    a block runs its 4 steps eagerly (train_lib.DetectorTrainBlock.mode).
+    (a) The card's synthetic feed: run_detector for 8 steps at k = 4 and
+    at k = 1 from one seed on the same ranks, bitwise equal (losses,
+    parameters, BN statistics, Adam moments, count); the block's mode
+    printed by rank 0 alone ("eager (data group of 2 ranks)"); 20 / 28 /
+    36 launches a block a rank; each run resumed from its ckpt_8.pt for 8
+    more steps, bitwise equal again; rank 0 alone logs (steps 4, 8, 12,
+    16) and writes ckpt_8.pt, ckpt_16.pt and train_meta.json. (b) The
+    stacked host feed on phase 10's packed split with augmentation on the
+    card: run_detector at k = 4 for 8 steps (finite losses, the counts);
+    each rank's stacked blocks hold its rows on axis 1 of the global
+    draw; 2 blocks through a block built apart, bitwise 8 eager DP steps
+    on the same slices from the same state and generator (rank 0's first
+    step recorded: FPS and ball query equal to plain, the scatters bitwise
+    np.add.at). (c) World 1 at k = 4 on the synthetic feed from the same
+    seed (the captured step, mode graph), and again for 8 steps with each
+    batch's scenes reversed (the same sums in another order): step 1's
+    loss within rtol 1e-5 of world 2's, or 4 x the reversed run's step-1
+    distance; steps 2-8 printed beside world 2's and the reversed run's,
+    each with its relative gap to world 1, with no bar.
+    Printed: ms a step at world 2 for k = 4 and k = 1 and at world 1 for
+    replayed blocks, the host wait a block of the packed feed, the
+    phase's seconds. The ranks' launches go to the path parallel_k
+    (parallel_k_launches).
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -257,11 +283,11 @@ of the kernels: times summed over one request, one training step, one
 config-#4 eval batch (one scene for B2) and one config-#4 train step
 (train4; B2: one loader scene), and each path's own under by_path;
 launches count every phase's main-path runs, phase 12's as its wrappers
-see them (the warm-up block and the capture), and
-traink_replayed_step_launches and _device_ms a replayed step's launches
-and device time by the profiler (path classify: phase 13;
-serve_export_launches: the loaded programs of phase 14); the last line
-names the device.
+see them (the warm-up block and the capture), phase 16's and 17's summed
+over their ranks, and traink_replayed_step_launches and _device_ms a
+replayed step's launches and device time by the profiler (path classify:
+phase 13; serve_export_launches: the loaded programs of phase 14); the
+last line names the device.
 """
 
 from __future__ import annotations
@@ -314,7 +340,7 @@ from tpu3dsad_torch.data.device_pipeline import (
     decode_compact_votes,
     synthetic_detection_batch,
 )
-from tpu3dsad_torch.data.packed import pack_dataset
+from tpu3dsad_torch.data.packed import device_prefetch, pack_dataset
 from tpu3dsad_torch.data.synthetic import classification_batch
 from tpu3dsad_torch.data.synthetic_outdoor import write_dataset
 from tpu3dsad_torch.data.validate import validate_root
@@ -4007,6 +4033,347 @@ def parallel_runs(work: Path) -> dict:
             "allreduce_ms": ranks[0]["dp"]["allreduce_ms"]}
 
 
+# -------------------------------------------- phase 17: DP k-step blocks
+
+# train.steps_per_call of phase 17's runs. On a data group of more than
+# one rank a block runs its k steps eagerly (train_lib.DetectorTrainBlock:
+# gloo's collectives go through the host, and a capture across NCCL ranks
+# needs a card a rank); at world 1 it is the captured step of phase 12.
+# Ranks as in phase 16: PAR_WORLD processes on cuda:0, gloo on CUDA
+# tensors, config #3 at 8 x 40960 in fp32.
+DPK = 4
+# no sweep in phase 17's runs; the packed run takes run B's options
+DPK_ARGS = ("train.eval_every=10", *PAR_FP32)
+DPK_PACKED = ("data.name=packed", "data.use_color=true",
+              "data.device_augment=true", "data.compact_votes=true",
+              *DPK_ARGS)
+
+
+def dpk_config(ckpt_dir: str, k: int, epochs: int = 1) -> Config:
+    """Phase 16's config #3 (par_config: device synth, 8 x 40960, fp32,
+    8 steps an epoch) at train.steps_per_call=k, `epochs` epochs, no
+    sweep."""
+    cfg = par_config(ckpt_dir)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, steps_per_call=k, num_epochs=epochs, eval_every=10))
+
+
+def step_counts(steps: int) -> dict:
+    """The launches of `steps` config-#3 train steps: 5 / 7 / 9 each."""
+    return launches(fps=5 * steps, ball_query=7 * steps, scatter=9 * steps)
+
+
+def dpk_run(cfg, steps: int) -> dict:
+    """run_detector(cfg) on this rank with its counts from 0, which must
+    show `steps` eager steps (5 / 7 / 9 each), and finite losses; its JSON
+    rows (rank 0 alone prints them) and its lines on stderr. The ranks
+    meet at its end, so that none reads a checkpoint before rank 0 has
+    written it."""
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = run_detector(cfg)
+    torch.cuda.synchronize()
+    got = counts()
+    torch.distributed.barrier()
+    losses = [h["loss"] for h in result.history]
+    if (got != step_counts(steps) or len(losses) != steps
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"{cfg.train.ckpt_dir}: launches {got}, "
+                             f"losses {losses} (want {steps} steps)")
+    rows = [json.loads(line) for line in out.getvalue().splitlines()
+            if line.startswith("{")]
+    return {"result": result, "counts": got,
+            "logged": [r["step"] for r in rows if "train/loss" in r],
+            "block": [line for line in err.getvalue().splitlines()
+                      if line.startswith("train block")]}
+
+
+def run_state(run: dict) -> dict:
+    r = run["result"]
+    return trained_state([h["loss"] for h in r.history], r.model,
+                         r.optimizer)
+
+
+def dpk_synth(rank: int, work: Path) -> dict:
+    """(a) The card's synthetic feed: run_detector for TRAIN_STEPS steps at
+    k = DPK and at 1 from one seed, bitwise equal; each then resumed from
+    its checkpoint for a second epoch, again bitwise equal."""
+    runs, resumed = {}, {}
+    for k in (DPK, 1):
+        runs[k] = dpk_run(dpk_config(str(work / f"synth_{k}"), k),
+                          TRAIN_STEPS)
+    require_bitwise(f"rank {rank}: k={DPK} vs k=1 on the synthetic feed",
+                    run_state(runs[DPK]), run_state(runs[1]))
+    for k in (DPK, 1):
+        resumed[k] = dpk_run(dpk_config(str(work / f"synth_{k}"), k, 2),
+                             TRAIN_STEPS)
+        start = resumed[k]["result"].start_step
+        if start != TRAIN_STEPS:
+            raise AssertionError(f"rank {rank}: k={k} resumed from {start}")
+    require_bitwise(f"rank {rank}: k={DPK} vs k=1 resumed from ckpt_"
+                    f"{TRAIN_STEPS}.pt", run_state(resumed[DPK]),
+                    run_state(resumed[1]))
+    # the path's own launches: the k = DPK runs (k = 1 is the reference)
+    total = {n: runs[DPK]["counts"][n] + resumed[DPK]["counts"][n]
+             for n in counts()}
+    return {"losses": [h["loss"] for h in runs[DPK]["result"].history],
+            "ms": {k: [h["seconds"] * 1e3 for h in runs[k]["result"].history
+                       + resumed[k]["result"].history] for k in runs},
+            "logged": runs[DPK]["logged"] + resumed[DPK]["logged"],
+            "block": runs[DPK]["block"], "counts": total,
+            "ckpts": sorted(p.name for p in (work / f"synth_{DPK}").iterdir())}
+
+
+def dpk_packed(rank: int, mesh, work: Path, packed: str) -> dict:
+    """(b) The stacked host feed on phase 10's packed split: run_detector
+    at k = DPK for one epoch; each rank's stacked blocks hold its rows on
+    axis 1 of the global draw; 2 blocks through a block built apart,
+    bitwise 2 x DPK eager DP steps on the same slices (rank 0 records the
+    first step's kernel inputs)."""
+    cfg = hostfed_config(packed, str(work / "packed_run"), *DPK_PACKED,
+                         f"train.steps_per_call={DPK}")
+    run = dpk_run(cfg, TRAIN_STEPS)
+    hist = run["result"].history
+    waits = [sum(h["wait"] for h in hist[i:i + DPK]) * 1e3
+             for i in range(0, TRAIN_STEPS, DPK)]
+    ms = [h["seconds"] * 1e3 for h in hist]
+    total = dict(run["counts"])
+    del run
+
+    dataset = get_dataset(cfg)
+    rng = np.random.default_rng(5)
+    draws = []
+    for _ in range(2):
+        flat = dataset.train_batch(rng, DPK * TRAIN_B)
+        draws.append({n: v.reshape((DPK, TRAIN_B) + v.shape[1:])
+                      for n, v in flat.items()})
+    blocks = list(device_prefetch(iter(draws), "cuda", mesh=mesh,
+                                  stacked=True))
+    rows = slice(rank * TRAIN_B // PAR_WORLD,
+                 (rank + 1) * TRAIN_B // PAR_WORLD)
+    for i, (mine, whole) in enumerate(zip(blocks, draws)):
+        for n, v in whole.items():
+            if not np.array_equal(mine[n].cpu().numpy(), v[:, rows]):
+                raise AssertionError(f"rank {rank} block {i} {n}: not its "
+                                     "rows on axis 1 of the global draw")
+
+    train = dataclasses.replace(cfg.train, lr_decay_steps=(1,),
+                                lr_decay_rates=(0.5,))
+    bn_ms = [train_lib.bn_momentum_at(train, 20 * i) for i in range(2)]
+    source = dataset.source_dataset
+    got, recorded = {}, None
+    for blocked in (True, False):
+        model = build_detector(cfg, dataset.mean_sizes)
+        optimizer = train_lib.make_optimizer(train, DPK, model.parameters(),
+                                             train_lib.data_axis(mesh))
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        torch.cuda.synchronize()
+        reset_counts()
+        if blocked:
+            block = train_lib.make_detector_train_block(
+                model, optimizer, cfg, DPK, source)
+            if block.mode != "eager":
+                raise AssertionError(f"rank {rank}: block mode {block.mode}")
+            losses = torch.cat([block(b, gen, m)["loss"]
+                                for b, m in zip(blocks, bn_ms)])
+        else:
+            step = train_lib.make_detector_steps(model, optimizer, cfg,
+                                                 source)
+            losses = []
+            for j, (b, m) in enumerate(zip(blocks, bn_ms)):
+                for i in range(DPK):
+                    record = (recording() if rank == 0 and i == j == 0
+                              else contextlib.nullcontext())
+                    with record as calls:
+                        losses.append(step({n: v[i] for n, v in b.items()},
+                                           gen, m)["loss"])
+                    recorded = calls if calls is not None else recorded
+            losses = torch.stack(losses)
+        torch.cuda.synchronize()
+        if counts() != step_counts(2 * DPK):
+            raise AssertionError(f"rank {rank}: {counts()} launches for 2 "
+                                 f"blocks ({'block' if blocked else 'eager'})")
+        if blocked:  # the eager steps are the reference
+            total = {n: total[n] + counts()[n] for n in total}
+        got[blocked] = trained_state(losses, model, optimizer)
+        del model, optimizer
+    require_bitwise(f"rank {rank}: 2 packed blocks vs {2 * DPK} eager DP "
+                    "steps", got[True], got[False])
+    if recorded is not None:
+        compare_recorded("rank 0, DP k-block path, step 1 (packed, "
+                         f"{TRAIN_B // PAR_WORLD} scenes)", recorded,
+                         torch.Generator(device="cuda").manual_seed(3))
+    return {"ms": ms, "waits": waits, "counts": total,
+            "losses": got[True]["loss"].tolist(), "bn_ms": bn_ms}
+
+
+def dpk_rank(rank: int, world: int, work: str, packed: str) -> dict:
+    """Phase 17 (a) and (b) on one rank of PAR_WORLD."""
+    work = Path(work)
+    torch.cuda.set_device(0)
+    mesh = make_mesh((-1,), ("data",))
+    return {"synth": dpk_synth(rank, work),
+            "packed": dpk_packed(rank, mesh, work, packed)}
+
+
+@contextlib.contextmanager
+def scenes_reversed():
+    """run_detector's device-synth batches with their scenes in reverse
+    order: the same sums in another order."""
+    draw = train_detector.synthetic_detection_batch
+    train_detector.synthetic_detection_batch = lambda *a, **kw: {
+        n: v.flip(0) for n, v in draw(*a, **kw).items()}
+    try:
+        yield
+    finally:
+        train_detector.synthetic_detection_batch = draw
+
+
+def world_one_run(cfg) -> dict:
+    """run_detector(cfg) at world 1 and k = DPK: a warm-up block, the
+    capture, then replayed blocks. The counters see the warm-up's steps
+    and the captured one."""
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = run_detector(cfg)
+    torch.cuda.synchronize()
+    if counts() != step_counts(DPK + 1):
+        raise AssertionError(f"{cfg.train.ckpt_dir}: launches {counts()}")
+    mode = [line for line in err.getvalue().splitlines()
+            if line.startswith("train block")]
+    if mode != [f"train block: graph (one step captured, replayed {DPK} "
+                "times a call)"]:
+        raise AssertionError(f"world 1 block: {mode}")
+    return {"losses": [h["loss"] for h in result.history],
+            "ms": [h["seconds"] * 1e3 for h in result.history],
+            "mode": mode[0], "counts": counts()}
+
+
+def dpk_world_one(work: Path) -> dict:
+    """(c) World 1 at k = DPK on the synthetic feed from the same seed, 2
+    epochs; then one epoch with each batch's scenes reversed, the witness
+    of how far fp32 sums in another order alone take a run from world 1,
+    step by step (its step 1 is phase 16's floor)."""
+    one = world_one_run(dpk_config(str(work / "world1"), DPK, 2))
+    with scenes_reversed():
+        rev = world_one_run(dpk_config(str(work / "world1_reversed"), DPK))
+    return one | {"reversed": rev["losses"]}
+
+
+def phase_parallel_k(card: str, work: Path, packed: Path) -> dict:
+    print(f"== DP k-step blocks: run_detector at train.steps_per_call={DPK} "
+          f"on {PAR_WORLD} ranks ({PAR_BACKEND} on CUDA tensors, every rank "
+          f"on cuda:0), config #3 at {TRAIN_B} x {TRAIN_N} in fp32: eager "
+          "blocks on the data group; world 1's captured block beside it; "
+          f"on {card}")
+    work.mkdir(parents=True)
+    try:
+        return parallel_k_runs(card, work, packed)
+    finally:
+        train_lib.apply_runtime_config(Config())
+
+
+def parallel_k_runs(card: str, work: Path, packed: Path) -> dict:
+    seconds = {}
+    t0 = time.perf_counter()
+    ranks = launch.spawn(dpk_rank, PAR_WORLD, backend=PAR_BACKEND,
+                         device=PAR_DEVICE, args=(str(work), str(packed)))
+    seconds[f"{PAR_WORLD} ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = dpk_world_one(work)
+    seconds["world 1"] = time.perf_counter() - t0
+
+    # (a) the card's synthetic feed
+    lead = ranks[0]["synth"]
+    if lead["block"] != [f"train block: eager (data group of {PAR_WORLD} "
+                         "ranks)"] or ranks[1]["synth"]["block"]:
+        raise AssertionError(f"block mode lines: rank 0 {lead['block']}, "
+                             f"rank 1 {ranks[1]['synth']['block']}")
+    if lead["logged"] != [4, 8, 12, 16] or ranks[1]["synth"]["logged"]:
+        raise AssertionError(f"log rows: rank 0 {lead['logged']}, rank 1 "
+                             f"{ranks[1]['synth']['logged']}")
+    if lead["ckpts"] != ["ckpt_16.pt", "ckpt_8.pt", "train_meta.json"]:
+        raise AssertionError(f"checkpoint directory: {lead['ckpts']}")
+    if lead["losses"] != ranks[1]["synth"]["losses"]:
+        raise AssertionError("the ranks' losses differ")
+    print(f"  (a) synthetic feed, {TRAIN_STEPS} steps at k={DPK} and k=1 "
+          f"on each rank: block mode eager on the data group (rank 0: "
+          f"'{lead['block'][0]}'), {DPK * 5} / {DPK * 7} / {DPK * 9} "
+          f"launches a block a rank; k={DPK} bitwise k=1 (losses, "
+          "parameters, BN statistics, moments, count); each resumed from "
+          f"ckpt_{TRAIN_STEPS}.pt for {TRAIN_STEPS} more steps, bitwise "
+          f"again; rank 0 alone logged (steps {lead['logged']}) and wrote "
+          f"{lead['ckpts']}")
+
+    # (b) the stacked host feed
+    for rank, r in enumerate(ranks):
+        p = r["packed"]
+        if not np.isfinite(p["losses"]).all():
+            raise AssertionError(f"rank {rank}: packed losses {p['losses']}")
+    p = ranks[0]["packed"]
+    print(f"  (b) packed split (phase 10), stacked [{DPK}, {TRAIN_B}, ...] "
+          f"blocks, augmentation on the card: run_detector {TRAIN_STEPS} "
+          f"steps, {DPK * 5} / {DPK * 7} / {DPK * 9} launches a block a "
+          "rank; each rank's blocks hold its rows on axis 1 of the global "
+          f"draw; 2 blocks built apart (BN momentum {p['bn_ms']}, the rate "
+          f"halved after step {DPK}) bitwise {2 * DPK} eager DP steps on "
+          f"the same slices, losses {[round(v, 4) for v in p['losses']]}")
+
+    # (c) world 1's captured block; step 1 held as phase 16 holds a step,
+    # steps 2-8 beside world 1 with its scenes reversed, with no bar
+    w1 = one["losses"][:TRAIN_STEPS]
+    w2, rev = lead["losses"], one["reversed"]
+    floor = abs(rev[0] - w1[0])
+    if abs(w2[0] - w1[0]) > max(1e-5 * abs(w1[0]), 4 * floor):
+        raise AssertionError(
+            f"step 1: world 2 {w2[0]} vs world 1 {w1[0]} (world 1 with its "
+            f"scenes reversed: {floor:.3g} apart)")
+    gap2 = [abs(a / b - 1) for a, b in zip(w2, w1)]
+    gap_rev = [abs(a / b - 1) for a, b in zip(rev, w1)]
+    print(f"  (c) world 1 at k={DPK} ('{one['mode']}'; launches "
+          f"{one['counts']}, the warm-up block and the capture): step 1 "
+          f"loss {w1[0]:.6f} against world 2's {w2[0]:.6f} (rel "
+          f"{gap2[0]:.3g}; the bar rtol 1e-5, or 4 x world 1's distance "
+          f"with its scenes reversed, {floor / abs(w1[0]):.3g} rel); steps "
+          f"1-{TRAIN_STEPS}, no bar after step 1: world 1 "
+          f"{[round(v, 4) for v in w1]}, world 2 {[round(v, 4) for v in w2]}"
+          f", world 1 with each batch's scenes reversed "
+          f"{[round(v, 4) for v in rev]}; relative gap to world 1 by step: "
+          f"world 2 {[float(f'{g:.3g}') for g in gap2]} (most {max(gap2):.3g}"
+          f"), reversed {[float(f'{g:.3g}') for g in gap_rev]} (most "
+          f"{max(gap_rev):.3g})")
+
+    # times: each step's ms is its call's over k
+    slower = {k: [max(r["synth"]["ms"][k][i] for r in ranks)
+                  for i in range(2 * TRAIN_STEPS)] for k in (DPK, 1)}
+    starts = range(0, 2 * TRAIN_STEPS, DPK)  # each block's first step
+    k_ms = statistics.median(slower[DPK][DPK:])
+    eager_ms = statistics.median(slower[1][1:])
+    replayed = statistics.median(one["ms"][2 * DPK:])
+    waits = [[round(w, 3) for w in r["packed"]["waits"]] for r in ranks]
+    print(f"  ms a step (slower rank): world 2 k={DPK} by block "
+          f"{[round(slower[DPK][i], 3) for i in starts]}"
+          f" (median of blocks 2-4 {k_ms:.3f}), world 2 k=1 "
+          f"{[round(v, 3) for v in slower[1]]} (median of steps 2-16 "
+          f"{eager_ms:.3f}); world 1 k={DPK} by block "
+          f"{[round(one['ms'][i], 3) for i in starts]}"
+          f" (replayed blocks 3-4 {replayed:.3f}); packed k={DPK} world 2 "
+          f"{[round(v, 3) for v in ranks[0]['packed']['ms'][::DPK]]} ms a "
+          f"step by block, host wait a block {waits} ms (rank 0, rank 1); "
+          f"on {card}")
+    total = {n: sum(r["synth"]["counts"][n] + r["packed"]["counts"][n]
+                    for r in ranks) for n in counts()}
+    print("  phase 17 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                              for k, v in seconds.items())
+          + f"; launches over the ranks {total}")
+    return {"counts": total, "seconds": seconds, "k_ms": k_ms,
+            "eager_ms": eager_ms, "replayed_ms": replayed, "waits": waits}
+
+
 def main() -> None:
     laps, t0 = {}, time.perf_counter()
 
@@ -4063,6 +4430,9 @@ def main() -> None:
         lap("15")
         parallel = phase_parallel(card, work / "parallel")
         lap("16")
+        parallel_k = phase_parallel_k(card, work / "parallel_k",
+                                      work / "hostfed" / "packed")
+        lap("17")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -4076,7 +4446,8 @@ def main() -> None:
              "hostfed": hostfed["counts"], "train4": trained4["counts"],
              "traink": trained_k["counts"], "classify": classified["counts"],
              "serve_export": exported["counts"],
-             "from_raw": from_raw["counts"], "parallel": parallel["counts"]}
+             "from_raw": from_raw["counts"], "parallel": parallel["counts"],
+             "parallel_k": parallel_k["counts"]}
 
     def entry(name, counter, source, replaces, tally):
         times = tally.summary()
@@ -4089,6 +4460,7 @@ def main() -> None:
                 "serve_export_launches": paths["serve_export"][counter],
                 "from_raw_launches": paths["from_raw"][counter],
                 "parallel_launches": paths["parallel"][counter],
+                "parallel_k_launches": paths["parallel_k"][counter],
                 "traink_replayed_step_launches": sum(
                     n for k, n in trained_k["replay_launches"].items()
                     if REPLAY_KERNELS[k][0] == counter) // K_STEPS,
@@ -4141,7 +4513,12 @@ def main() -> None:
           f"under from_raw_launches), and phase 16's ranks, summed over "
           f"them: {PAR_STEPS} DP steps and a {PAR_SWEEP}-batch sweep on "
           f"{PAR_WORLD} ranks, the CP forward on {PAR_WORLD} and the hybrid "
-          "SA1 stage on 4 (path parallel, under parallel_launches)")
+          "SA1 stage on 4 (path parallel, under parallel_launches), and "
+          f"phase 17's ranks, summed over them: 4 x {TRAIN_STEPS} steps a "
+          f"rank at train.steps_per_call={DPK} (the synthetic run, its "
+          "resume, the packed run and 2 packed blocks built apart), eager "
+          "blocks on the data group (path parallel_k, under "
+          "parallel_k_launches)")
     print("seconds by phase (1: the build and the recordings): " + ", ".join(
         f"{k} {v:.1f}" for k, v in laps.items())
           + f"; in all {time.perf_counter() - t0:.1f}")

@@ -21,9 +21,24 @@ max |grad| + 1e-6 x the model's largest |grad|. The val sweep's metrics at
 rtol 1e-5 (test_dp_eval.py:59-73); density-sampled proposal indices equal
 (test_dp_density_sampling.py). The two ranks end every step with the same
 parameters, bitwise.
+
+k-step blocks (train.steps_per_call = k > 1) on the data group: a block
+of k = 2 on stacked host batches against the JAX package's
+make_detector_train_block on a 2-device mesh (the same bars: step 1's
+loss at rtol 1e-5, step 2's at 1e-4, parameters within 2e-2), and bitwise
+k DP steps on the same ranks; run_detector at k = 2 on the card's
+synthetic feed and on the stacked host feed, 8 steps: step 1 against
+world 1 at k = 2 (rtol 1e-5), the run bitwise the k = 1 run on the same
+ranks (later steps drift from world 1 beyond rtol 1e-4, as world 1 with
+its scenes reversed does: the test's docstring); resumes, one held to
+world 1 over 4 steps at the bars of
+test_run_detector_at_world_two_matches_world_one; run_classifier at
+k = 4 bitwise k = 1 (the classifier has no block).
 """
 
 import dataclasses
+import json
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -42,9 +57,14 @@ from tpu3dsad.config import apply_overrides as japply
 from tpu3dsad.data.synthetic import classification_batch, detection_batch
 from tpu3dsad.losses import detection_loss as jdetection_loss
 from tpu3dsad.models.detector import SizeAdaptiveDetector as JDetector
+from tpu3dsad.parallel import make_mesh as jmake_mesh
+from tpu3dsad.parallel import replicated as jreplicated
+from tpu3dsad.parallel import shard_batch as jshard_batch
 from tpu3dsad_torch import train_lib
 from tpu3dsad_torch.config import parse_cli
+from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
 from tpu3dsad_torch.parallel import launch, make_mesh
+from tpu3dsad_torch.parallel.mesh import AxisGroup
 from tpu3dsad_torch.train_detector import run_detector
 from tpu3dsad_torch.utils.bridge import state_dict_from_flax
 
@@ -70,6 +90,13 @@ LOSS_RTOL, PARAM_ATOL, GRAD_ATOL = 1e-5, 2e-2, 1e-4
 # the loss's terms, each summed over the ranks' parts in another order;
 # the smallest (~0.1 against a loss of ~50) carry ~1e-5 of rounding
 METRIC_RTOL = 1e-4
+# train.steps_per_call of the block and run_detector tests; the runs take
+# 2 epochs of 4 steps (16 scenes a step), logging every 4
+K = 2
+K_RUN = dict(steps_per_call=K, num_epochs=2, eval_every=2, log_every=4)
+# the blocks' BatchNorm momentum: epoch 25's, 0.75 (not a power of 2, and
+# exact in fp32, as every value of the schedule is)
+BLOCK_BN_M = train_lib.bn_momentum_at(to_port(JCFG).train, 25)
 
 
 def _numpy_tree(tree):
@@ -91,6 +118,8 @@ def case(tmp_path_factory):
     host = [detection_batch(np.random.default_rng(i), 4, 64, 4, max_boxes=8)
             for i in range(3)]
     run_dir = tmp_path_factory.mktemp("run")
+    blocks = [detection_batch(np.random.default_rng(10 + i), 8, 256, 4,
+                              max_boxes=8) for i in range(K)]
     return {
         "cfg": to_port(JCFG), "variables": _init(jm, batch), "batch": batch,
         "jmodel": jm, "jdensity": jdensity,
@@ -110,7 +139,38 @@ def case(tmp_path_factory):
             workers.tiny_config(str(run_dir / "world2")),
             model=to_port(TINY)),
         "run_dir": run_dir,
+        "blocks": {k: np.stack([b[k] for b in blocks]) for k in blocks[0]},
+        "block_bn_m": BLOCK_BN_M,
+        "cls_run_cfg": parse_cli([
+            "preset=classifier", "model.num_classes=4", "data.num_points=64",
+            "train.batch_size=8", "train.num_epochs=1", "train.log_every=2",
+            "train.mesh_shape=(2,)", "train.steps_per_call=4",
+            f"train.ckpt_dir={run_dir / 'classifier'}"]),
+        "k_cfg": _k_config(str(run_dir / "world2_k")),
+        "k_host_cfg": _k_config(str(run_dir / "world2_host"), host=True),
     }
+
+
+def _k_config(ckpt_dir: str, host: bool = False):
+    """The tiny run at train.steps_per_call = K for 8 steps: on the card's
+    synthetic feed (a val sweep after the last epoch), or host-fed
+    (stacked [K, B, ...] blocks of the synthetic dataset, no sweep)."""
+    cfg = dataclasses.replace(workers.tiny_config(ckpt_dir),
+                              model=to_port(TINY))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             **K_RUN))
+    if not host:
+        return cfg
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, device_synth=False),
+        train=dataclasses.replace(cfg.train, eval_every=K_RUN["num_epochs"]
+                                  + 1))
+
+
+def _in(cfg, ckpt_dir):
+    """cfg with another checkpoint directory."""
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ckpt_dir=str(ckpt_dir)))
 
 
 @pytest.fixture(scope="module")
@@ -142,6 +202,10 @@ def world1(case):
         "classifier": workers.dp_classifier(case["cls_cfg"],
                                             case["cls_batch"], mesh),
         "run": workers.dp_run(run_cfg),
+        "run_k": workers.dp_run(_in(case["k_cfg"],
+                                    case["run_dir"] / "world1_k")),
+        "host_k": workers.dp_run(_in(case["k_host_cfg"],
+                                     case["run_dir"] / "world1_host")),
     }
 
 
@@ -168,6 +232,26 @@ def reference(case):
             "params": _numpy_tree({"params": state.params,
                                    "batch_stats": state.batch_stats}),
             "grads_eval": _numpy_tree({"params": grads})}
+
+
+@pytest.fixture(scope="module")
+def reference_block(case):
+    """The JAX package's k-step block on a mesh of 2 of its devices, from
+    the same variables: the state replicated, the stacked batches sharded
+    on axis 1 (batch_axis_index=1), as its run_detector feeds a mesh."""
+    jm, var = case["jmodel"], case["variables"]
+    mesh = jmake_mesh((WORLD,), ("data",), devices=jax.devices()[:WORLD])
+    tx = jtrain.make_optimizer(JCFG.train, 10)
+    state = jax.device_put(
+        jtrain.create_state(jm, lambda k: var, tx, jax.random.key(0)),
+        jreplicated(mesh))
+    blocks = jshard_batch({k: jnp.asarray(v) for k, v in
+                           case["blocks"].items()}, mesh, batch_axis_index=1)
+    block = jtrain.make_detector_train_block(jm, JCFG, K)
+    state, metrics = block(state, blocks, jax.random.key(7), BLOCK_BN_M)
+    return {"loss": np.asarray(metrics["loss"]), "count": int(state.step),
+            "params": _numpy_tree({"params": state.params,
+                                   "batch_stats": state.batch_stats})}
 
 
 def _train_grads_close(got: dict, want: dict) -> None:
@@ -317,21 +401,198 @@ def test_run_detector_at_world_two_matches_world_one(ranks, world1, case):
         == ["best", "best.json", "ckpt_4.pt", "train_meta.json"]
 
 
-def test_mesh_with_steps_per_call_is_refused(ranks, tmp_path):
-    """In a world of 2, and here, before any work: a k-step block is one
-    CUDA graph, which cannot capture the collectives of a DP step."""
+def test_mesh_with_steps_per_call_is_refused(ranks, case, tmp_path):
+    """No longer refused: at train.steps_per_call = 2 on the mesh of 2
+    ranks the run completes on both, and its first epoch is bitwise the
+    k = 1 run of the same config (test_run_detector_at_world_two_matches_
+    world_one's run): the block runs its steps eagerly, the same ops in
+    the same order. A mesh the world cannot hold still raises before any
+    work, at k = 4 as at k = 1."""
+    first = torch.load(case["run_dir"] / "world2_k" / "ckpt_4.pt",
+                       weights_only=True)["model"]
     for r in ranks:
-        assert "steps_per_call=2" in r["refused"]
-        assert "CUDA graph" in r["refused"]
+        got, one = r["k"]["run"], r["run"]
+        assert got["step"] == 8 and np.isfinite(got["losses"]).all()
+        np.testing.assert_array_equal(got["losses"][:4], one["losses"])
+        for name, value in one["state"].items():
+            np.testing.assert_array_equal(first[name].numpy(), value,
+                                          err_msg=name)
     cfg = dataclasses.replace(
         workers.tiny_config(str(tmp_path / "ckpt")), model=to_port(TINY))
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, mesh_shape=(2,), steps_per_call=4))
-    with pytest.raises(NotImplementedError, match="steps_per_call=4"):
-        run_detector(cfg, device="cpu")
+    for k in (4, 1):
+        with pytest.raises(ValueError, match="holds 2 ranks"):
+            run_detector(dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, mesh_shape=(2,), steps_per_call=k)), device="cpu")
     assert not (tmp_path / "ckpt").exists()
-    with pytest.raises(ValueError, match="holds 2 ranks"):
-        run_detector(dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, steps_per_call=1)), device="cpu")
-    assert train_lib.refuse_unported(dataclasses.replace(
-        cfg, train=dataclasses.replace(cfg.train, mesh_shape=(-1,)))) is None
+
+
+# ---------------------------------------------------- k-step blocks (DP)
+
+
+def test_dp_block_matches_reference_block(ranks, reference_block):
+    """A block of K steps on each rank's rows (axis 1) of the stacked
+    batches against the JAX package's block on its 2-device mesh."""
+    want = reference_block
+    for r in ranks:
+        got = r["block"]["block"]
+        loss = got["metrics"]["loss"]
+        assert loss.shape == (K,)
+        assert loss[0] == pytest.approx(want["loss"][0], rel=LOSS_RTOL)
+        np.testing.assert_allclose(loss, want["loss"], rtol=1e-4)
+        assert _worst(got["state"], _flax_to_port(
+            want["params"], got["state"])) < PARAM_ATOL
+        assert got["count"] == want["count"] == K
+
+
+def test_dp_block_is_bitwise_k_dp_steps(ranks):
+    """The block equals K single DP steps on the same slices from the same
+    state and generator: every step's metrics, the state and the count;
+    and the two ranks hold one state."""
+    for r in ranks:
+        block, steps = r["block"]["block"], r["block"]["steps"]
+        assert list(block["metrics"]) == list(steps["metrics"])
+        for name, value in steps["metrics"].items():
+            np.testing.assert_array_equal(block["metrics"][name], value,
+                                          err_msg=name)
+        for name, value in steps["state"].items():
+            np.testing.assert_array_equal(block["state"][name], value,
+                                          err_msg=name)
+        assert block["count"] == steps["count"] == K
+    for name, value in ranks[0]["block"]["block"]["state"].items():
+        np.testing.assert_array_equal(
+            ranks[1]["block"]["block"]["state"][name], value, err_msg=name)
+
+
+@pytest.mark.parametrize("group", [None, 1, 2, "world2"])
+def test_block_mode_follows_the_data_group(ranks, group):
+    """The block's mode is fixed by its device and the optimizer's data
+    group before any step: eager on the CPU whatever the group, eager for
+    a group of more than one rank on any device (the reason names the
+    group), a graph only on the card with no group or a group of one rank
+    (the rule is asked of block_mode for a CUDA device here; chip_smoke.py
+    phases 12 and 17 run it on the card)."""
+    if group == "world2":
+        assert [r["block"]["mode"] for r in ranks] == ["eager"] * WORLD
+        return
+    cfg = to_port(JCFG)
+    model = SizeAdaptiveDetector(cfg.model, device="cpu")
+    axis = None if group is None else AxisGroup(
+        None, 0, group, tuple(range(group)))
+    optimizer = train_lib.make_optimizer(cfg.train, 10, model.parameters(),
+                                         axis)
+    block = train_lib.make_detector_train_block(model, optimizer, cfg, K)
+    assert block.mode == "eager" and block.graph is None
+    assert block.why == ("data group of 2 ranks" if group == 2
+                         else "on the cpu")
+    on_card = train_lib.block_mode(torch.device("cuda"), axis, K)
+    assert on_card == (
+        ("eager", "data group of 2 ranks") if group == 2
+        else ("graph", f"one step captured, replayed {K} times a call"))
+
+
+@pytest.mark.parametrize("feed", ["device_synth", "host"])
+def test_run_detector_k_at_world_two_matches_world_one(ranks, world1, feed):
+    """run_detector at k = 2 for 8 steps, on the card's synthetic feed
+    (each step's global batch drawn inside the block and cut to the
+    rank's rows) and on the stacked host feed (one draw of k x B scenes a
+    call, each rank's rows on axis 1). World 1 at k = 2 sees the same
+    global batches: step 1, from one state, holds the step's bound. After
+    it the states drift apart as fp32 sums in another order compound
+    through Adam and the proposal picks, past rtol 1e-4 within 8 steps
+    (chip_smoke.py phase 16 measures the same drift of world 1 with its
+    scenes reversed; this file's 4-step run holds rtol 1e-4 on the
+    device-synth feed). So
+    the run is held bitwise to the k = 1 run of the same config on the
+    same ranks, whose steps the tests above hold to world 1 one step at a
+    time: the block runs the same eager DP steps in the same order."""
+    key = {"device_synth": "run", "host": "host"}[feed]
+    one = world1[key + "_k"]
+    assert "train block: eager (on the cpu)" in one["stderr"]
+    for r in ranks:
+        got, eager = r["k"][key], r["k"][key + "_k1"]
+        assert got["steps"] == one["steps"] == list(range(1, 9))
+        assert got["count"] == one["count"] == 8
+        assert np.isfinite(got["losses"]).all()
+        assert got["losses"][0] == pytest.approx(one["losses"][0],
+                                                 rel=LOSS_RTOL)
+        assert got["losses"] == eager["losses"]
+        for name, value in eager["state"].items():
+            np.testing.assert_array_equal(got["state"][name], value,
+                                          err_msg=name)
+    for name, value in ranks[0]["k"][key]["state"].items():
+        np.testing.assert_array_equal(ranks[1]["k"][key]["state"][name],
+                                      value, err_msg=name)
+
+
+@pytest.mark.parametrize("feed", ["device_synth", "host"])
+def test_run_detector_k_logs_at_block_ends_and_rank_zero_writes(
+        ranks, case, feed):
+    """Log rows at steps 4 and 8 (tests/e2e/test_steps_per_call.py holds
+    the reference's k = 2 run to them), printed by rank 0 alone with the
+    block's mode on stderr; rank 0 alone writes the checkpoints of both
+    epochs, train_meta.json and, after the sweep, the best snapshot."""
+    key = {"device_synth": ("run", "world2_k"), "host": ("host",
+                                                         "world2_host")}
+    lead, other = (r["k"][key[feed][0]] for r in ranks)
+    assert [row["step"] for row in lead["rows"]
+            if "train/loss" in row] == [4, 8]
+    assert other["rows"] == []
+    assert "train block: eager (data group of 2 ranks)" in lead["stderr"]
+    assert not any(line.startswith("train block") for line in
+                   other["stderr"])
+    ckpt = case["run_dir"] / key[feed][1]
+    written = ["ckpt_4.pt", "ckpt_8.pt", "train_meta.json"]
+    if feed == "device_synth":
+        written = ["best", "best.json", *written]
+        assert [e["step"] for e in lead["evals"]] == [8]
+    assert sorted(p.name for p in ckpt.iterdir()) == written
+    assert json.loads((ckpt / "train_meta.json").read_text()) == {
+        "steps_per_epoch": 4, "steps_per_call": K}
+
+
+@pytest.mark.parametrize("resume", ["nothing_left", "first_epoch"])
+def test_run_detector_k_resumes_on_every_rank(ranks, case, tmp_path,
+                                              resume):
+    """Every rank reads the lead's checkpoint. From ckpt_8.pt, the end of
+    the run, nothing is left to run and every rank holds the run's final
+    state, bitwise. From ckpt_4.pt, the end of its first epoch, the ranks
+    run steps 5-8 at k = 2 and are held to world 1 resumed from the same
+    file (both runs draw their batches anew from the seed, as the JAX
+    package's resume does), with the bars of the runs above."""
+    if resume == "nothing_left":
+        for r in ranks:
+            got = r["k"]["again"]
+            assert (got["start_step"], got["step"], got["steps"]) == (8, 8,
+                                                                      [])
+            for name, value in r["k"]["run"]["state"].items():
+                np.testing.assert_array_equal(got["state"][name], value,
+                                              err_msg=name)
+        return
+    shutil.copy(case["run_dir"] / "world2_k" / "ckpt_4.pt", tmp_path)
+    one = workers.dp_run(_in(case["k_cfg"], tmp_path))
+    assert (one["start_step"], one["steps"]) == (4, [5, 6, 7, 8])
+    for r in ranks:
+        got = r["k"]["resume"]
+        assert (got["start_step"], got["step"], got["steps"],
+                got["count"]) == (4, 8, [5, 6, 7, 8], 8)
+        assert got["losses"][0] == pytest.approx(one["losses"][0],
+                                                 rel=LOSS_RTOL)
+        np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-4)
+        assert _worst(got["state"], one["state"]) < PARAM_ATOL
+    assert [row["step"] for row in ranks[0]["k"]["resume"]["rows"]
+            if "train/loss" in row] == [8]
+
+
+def test_dp_classifier_run_ignores_steps_per_call(ranks):
+    """run_classifier at train.mesh_shape=(2,) train.steps_per_call=4 runs
+    on both ranks (it was refused) and is bitwise the steps_per_call=1
+    run: the classifier runs one step a call, as the JAX package's does.
+    Rank 0 alone writes its checkpoint."""
+    for r in ranks:
+        four, one = r["classifier_runs"][4], r["classifier_runs"][1]
+        assert [h["step"] for h in four["history"]] == [1, 2, 3, 4]
+        assert four["history"] == one["history"]
+        for name, value in one["state"].items():
+            np.testing.assert_array_equal(four["state"][name], value,
+                                          err_msg=name)
+        assert four["files"] == one["files"] == ["ckpt_4.pt"]

@@ -10,12 +10,17 @@ files hold the JAX side and the comparisons. This file holds no test.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
+import json
+import shutil
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from tpu3dsad_torch import ops, train_lib
+from tpu3dsad_torch import ops, train_classifier, train_lib
 from tpu3dsad_torch.config import Config, DataConfig, TrainConfig
 from tpu3dsad_torch.data import get_dataset
 from tpu3dsad_torch.data.packed import device_prefetch
@@ -190,12 +195,115 @@ def dp_classifier(cfg, batch: dict, mesh) -> dict:
 
 
 def dp_run(cfg) -> dict:
-    """run_detector on the CPU: per-step losses, sweeps, final state."""
-    result = run_detector(cfg, device="cpu")
+    """run_detector on the CPU: per-step losses, sweeps, final state, the
+    steps it resumed from and reached, the optimizer's count, the JSON
+    lines it printed and its lines on stderr."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = run_detector(cfg, device="cpu")
     return {"losses": [h["loss"] for h in result.history],
+            "steps": [h["step"] for h in result.history],
+            "start_step": result.start_step, "step": result.step,
+            "count": int(result.optimizer.count),
             "evals": [{k: v for k, v in e.items() if k != "seconds"}
                       for e in result.evals],
-            "state": _np(dict(result.model.state_dict()))}
+            "state": _np(dict(result.model.state_dict())),
+            "rows": [json.loads(line) for line in out.getvalue().splitlines()
+                     if line.startswith("{")],
+            "stderr": err.getvalue().splitlines()}
+
+
+def dp_block(cfg, variables, stacked: dict, mesh, bn_m: float) -> dict:
+    """A k-step block (k = the stacked batches' leading axis) on this
+    rank's rows of the stacked host batches (axis 1, as device_prefetch
+    keeps them), from the bridged `variables`; and the same k steps one at
+    a time from the same state and generator seed, both at the BatchNorm
+    momentum bn_m (a float that fp32 holds exactly, as
+    train_lib.bn_momentum_at gives it, so that the block's 0-d tensor of
+    it is the same number). Each: the [k] metrics, the state and the
+    optimizer's count; the block's mode."""
+    group = train_lib.data_axis(mesh)
+    (rows,) = device_prefetch(iter([stacked]), "cpu", mesh=mesh,
+                              stacked=True)
+    k = len(rows["points"])
+    out = {}
+    for blocked in (True, False):
+        model = _detector(cfg, variables)
+        optimizer = train_lib.make_optimizer(cfg.train, 10,
+                                             model.parameters(), group)
+        gen = torch.Generator().manual_seed(7)
+        if blocked:
+            block = train_lib.make_detector_train_block(model, optimizer,
+                                                        cfg, k)
+            metrics = block(rows, gen, bn_m)
+            out["mode"] = block.mode
+        else:
+            step = train_lib.make_detector_steps(model, optimizer, cfg)
+            each = [step({n: v[i] for n, v in rows.items()}, gen, bn_m)
+                    for i in range(k)]
+            metrics = {n: torch.stack([m[n] for m in each])
+                       for n in each[0]}
+        out["block" if blocked else "steps"] = {
+            "metrics": _np(metrics), "count": int(optimizer.count),
+            "state": _np(dict(model.state_dict()))}
+    return out
+
+
+def dp_classifier_runs(cfg) -> dict:
+    """run_classifier at cfg's train.steps_per_call and at 1, each in its
+    own checkpoint directory, with 4 synthetic steps an epoch and one val
+    batch: per-step metrics, final state, the files written."""
+    kept = (train_classifier.SYNTHETIC_STEPS_PER_EPOCH,
+            train_classifier.SYNTHETIC_VAL_BATCHES)
+    train_classifier.SYNTHETIC_STEPS_PER_EPOCH = 4
+    train_classifier.SYNTHETIC_VAL_BATCHES = 1
+    out = {}
+    try:
+        for k in (cfg.train.steps_per_call, 1):
+            run = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, steps_per_call=k,
+                ckpt_dir=f"{cfg.train.ckpt_dir}_{k}"))
+            with contextlib.redirect_stdout(io.StringIO()):
+                result = train_classifier.run_classifier(run, device="cpu")
+            torch.distributed.barrier()  # rank 0 has written
+            out[k] = {"history": [{n: v for n, v in h.items()
+                                   if n != "seconds"}
+                                  for h in result.history],
+                      "state": _np(dict(result.model.state_dict())),
+                      "files": sorted(p.name for p in
+                                      Path(run.train.ckpt_dir).iterdir())}
+    finally:
+        (train_classifier.SYNTHETIC_STEPS_PER_EPOCH,
+         train_classifier.SYNTHETIC_VAL_BATCHES) = kept
+    return out
+
+
+def dp_k_runs(rank: int, cfg, host_cfg) -> dict:
+    """run_detector at train.steps_per_call = k on the data group: the
+    device-synth run `cfg`; the same config again on its directory (a
+    resume with nothing left to run); a resume from its first epoch's
+    checkpoint, which rank 0 copies into a fresh directory; the host-fed
+    run `host_cfg` (stacked [k, B, ...] blocks, each rank's rows on axis
+    1); and both runs at k = 1 in directories of their own. The ranks
+    wait for each other between runs, so that no rank reads a checkpoint
+    before rank 0 has written it."""
+    ckpt = Path(cfg.train.ckpt_dir)
+    resume = ckpt.parent / (ckpt.name + "_resume")
+    out = {"run": dp_run(cfg)}
+    torch.distributed.barrier()
+    out["again"] = dp_run(cfg)
+    if rank == 0:
+        first = out["run"]["step"] // cfg.train.num_epochs
+        resume.mkdir()
+        shutil.copy(ckpt / f"ckpt_{first}.pt", resume)
+    torch.distributed.barrier()
+    out["resume"] = dp_run(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ckpt_dir=str(resume))))
+    out["host"] = dp_run(host_cfg)
+    for name, run in (("run_k1", cfg), ("host_k1", host_cfg)):
+        out[name] = dp_run(dataclasses.replace(run, train=dataclasses.replace(
+            run.train, steps_per_call=1, ckpt_dir=run.train.ckpt_dir + "_1")))
+    return out
 
 
 def dp_ranks(rank: int, world: int, case: dict) -> dict:
@@ -217,14 +325,12 @@ def dp_ranks(rank: int, world: int, case: dict) -> dict:
         "prefetch_stacked": [_np(b) for b in device_prefetch(
             iter(case["stacked"]), "cpu", mesh=mesh, stacked=True)],
         "run": dp_run(case["run_cfg"]),
+        "block": dp_block(case["cfg"], case["variables"], case["blocks"],
+                          mesh, case["block_bn_m"]),
+        "classifier_runs": dp_classifier_runs(case["cls_run_cfg"]),
     }
-    blocked = dataclasses.replace(case["run_cfg"], train=dataclasses.replace(
-        case["run_cfg"].train, steps_per_call=2,
-        ckpt_dir=case["run_cfg"].train.ckpt_dir + "_k"))
-    try:
-        run_detector(blocked, device="cpu")
-    except NotImplementedError as e:
-        out["refused"] = str(e)
+    torch.distributed.barrier()
+    out["k"] = dp_k_runs(rank, case["k_cfg"], case["k_host_cfg"])
     return out
 
 

@@ -737,14 +737,15 @@ def test_run_detector_on_cpu_trains_logs_checkpoints_and_resumes(
     (dict(train=dict(eval_every=1)), None),
     (dict(data=dict(device_synth=False)), None),
     (dict(train=dict(steps_per_call=4)), None),
-    (dict(train=dict(mesh_shape=(2,), steps_per_call=4)), "CUDA graph"),
+    (dict(train=dict(mesh_shape=(2,), steps_per_call=4)), "holds 2 ranks"),
     (dict(data=dict(name="scannet", use_color=True),
           model=dict(num_classes=18)), None),
 ], ids=["evaluate", "host_fed", "steps_per_call", "mesh", "dataset"])
 def test_run_detector_refuses_unported_paths(tmp_path, capsys, change,
                                              match):
-    """A mesh of more than one rank at train.steps_per_call > 1 is refused
-    before any work (a mesh alone runs: tests/test_torch_parallel_dp.py).
+    """A mesh the world cannot hold (2 ranks in a world of 1) raises before
+    any work, at train.steps_per_call=4 as at 1; a mesh of 2 ranks at
+    k > 1, once refused, runs in tests/test_torch_parallel_dp.py.
     The paths ported since, refused before, run: evaluating within the run (the synthetic dataset's host
     val batches), host-fed batches (Batcher and device_prefetch), k-step
     blocks (train.steps_per_call=4: two blocks of 4 on the CPU, log rows
@@ -760,7 +761,7 @@ def test_run_detector_refuses_unported_paths(tmp_path, capsys, change,
         sec: dataclasses.replace(getattr(cfg, sec), **kw)
         for sec, kw in change.items()})
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             run_detector(cfg, device="cpu")
         assert not ckpt.exists()  # refused before any work
         return

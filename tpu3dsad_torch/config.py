@@ -108,7 +108,10 @@ class TrainConfig:
     bn_momentum_max: float = 0.999  # cap on flax's running-average weight
     bn_decay_epochs: int = 20
     grad_clip: float = 0.0  # global-norm clip, 0 = off
-    steps_per_call: int = 1  # > 1: k steps a call (a CUDA graph on the card)
+    # > 1: k detector steps a call: one captured step replayed k times on
+    # the card at one rank; k eager steps on the CPU and on a mesh of more
+    # than one rank (train_lib.DetectorTrainBlock)
+    steps_per_call: int = 1
     seed: int = 0
     ckpt_dir: str = "./ckpt"
     ckpt_every: int = 1  # epochs; the last epoch always saves

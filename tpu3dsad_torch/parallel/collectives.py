@@ -46,7 +46,9 @@ calls = 0  # collectives launched in this process
 _data_group = None  # AxisGroup of the data axis, or None
 
 
-def _active(group) -> bool:
+def active(group) -> bool:
+    """Whether `group` (an AxisGroup or None) takes part in a step: a
+    group of more than one rank."""
     return group is not None and group.size > 1
 
 
@@ -85,7 +87,7 @@ class _ReplicatedSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of x over `group`; its backward all-reduces the gradient
     (module docstring)."""
-    if not _active(group):
+    if not active(group):
         return x
     if x.requires_grad:
         return _AllReduceSum.apply(x, group)
@@ -95,7 +97,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def replicated_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of x over `group`, whose ranks all compute the same loss
     from it; its backward passes the gradient through."""
-    if not _active(group):
+    if not active(group):
         return x
     if x.requires_grad:
         return _ReplicatedSum.apply(x, group)
@@ -105,7 +107,7 @@ def replicated_sum(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """[p, *x.shape]: slot i holds the x of the group's i-th rank; [1, ...]
     without a group. No gradient."""
-    if not _active(group):
+    if not active(group):
         return x.detach()[None]
     wire = x.detach().to(torch.uint8) if x.dtype == torch.bool else x.detach()
     buf = wire.new_zeros((group.size, *x.shape))
@@ -117,7 +119,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     """x of the group's rank `src` (an index into the group), in place."""
     global calls
-    if not _active(group):
+    if not active(group):
         return x
     calls += 1
     dist.broadcast(x, src=group.ranks[src], group=group.group)
@@ -127,7 +129,7 @@ def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
 def all_reduce_coalesced(tensors: list[torch.Tensor], group) -> None:
     """Sum each tensor over `group`, in place, through one flat buffer
     (one collective)."""
-    if not _active(group) or not tensors:
+    if not active(group) or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
     _all_reduce(flat, group)
@@ -142,7 +144,7 @@ def data_parallel(group):
     """Run a block with `group` (an AxisGroup or None) as the data axis; a
     group of one rank is no group."""
     global _data_group
-    old, _data_group = _data_group, group if _active(group) else None
+    old, _data_group = _data_group, group if active(group) else None
     try:
         yield
     finally:
@@ -168,7 +170,7 @@ def batch_rows(local_rows: int) -> tuple[int, slice]:
     every rank and cut by the slice gives each rank what a world-1 step of
     the global batch gives those rows."""
     g = _data_group
-    if not _active(g):
+    if not active(g):
         return local_rows, slice(0, local_rows)
     return (local_rows * g.size,
             slice(g.rank * local_rows, (g.rank + 1) * local_rows))

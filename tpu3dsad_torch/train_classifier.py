@@ -13,10 +13,11 @@ lines: {"step", "epoch", "loss", "acc"} every `log_every` steps,
 {"step", "eval/epoch", "eval/val_acc", "eval/val_loss", "eval/n_scenes"}
 every `eval_every` epochs and after the last; it checkpoints every
 `ckpt_every` epochs and after the last, and resumes from the newest
-checkpoint. The reference's classifier path has no k-step block. With a
-process group and train.mesh_shape over the axis 'data' (data
-parallelism, train_lib), every rank draws the same global batches and
-keeps its rows; the val sweep runs whole on every rank, as the
+checkpoint. The reference's classifier path has no k-step block: it runs
+one step a call whatever train.steps_per_call says, on any mesh, and so
+does this one. With a process group and train.mesh_shape over the axis
+'data' (data parallelism, train_lib), every rank draws the same global
+batches and keeps its rows; the val sweep runs whole on every rank, as the
 reference's runs unsharded; rank 0 alone prints and checkpoints.
 
 run_eval_classifier: the val accuracy of the newest checkpoint (or the
@@ -88,7 +89,6 @@ def run_classifier(cfg, *, device="cuda") -> ClassifierResult:
     """Train the classifier of `cfg` (a Config) on `device`, the card
     unless the caller asks for the CPU; resume from cfg.train.ckpt_dir if
     it holds a checkpoint."""
-    train_lib.refuse_unported(cfg)
     train_lib.apply_runtime_config(cfg)
     mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
     lead = mesh.rank == 0

@@ -1,12 +1,13 @@
 """Detector training loop and val sweep (tpu3dsad/train_detector.py:
 run_detector, evaluate).
 
-run_detector: train steps on one device, one a call, or, with
-train.steps_per_call = k > 1, k a call (train_lib.make_detector_train_block:
-on the card a CUDA graph of one step replayed k times). The batches come
-from the dataset's host loader (`train_batch`, on a Batcher thread, then
-`device_prefetch` to the card; at k > 1 one draw of k x B scenes a call,
-stacked [k, B, ...]), or, for data.name=synthetic with
+run_detector: train steps, one a call, or, with train.steps_per_call =
+k > 1, k a call (train_lib.make_detector_train_block: on the card a CUDA
+graph of one step replayed k times; on a mesh of more than one rank, and
+on the CPU, k eager steps; rank 0 prints the block's mode on stderr).
+The batches come from the dataset's host loader (`train_batch`, on a
+Batcher thread, then `device_prefetch` to the card; at k > 1 one draw of
+k x B scenes a call, stacked [k, B, ...]), or, for data.name=synthetic with
 data.device_synth=true, are made on the card (inside the block at k > 1).
 The loss is read once a call. JSON log lines at the `log_every` steps and
 at each epoch's end; checkpoints with auto-resume; every `eval_every`
@@ -25,8 +26,9 @@ reference's one host does, and keeps its rows (train.batch_size is the
 global batch); the step keeps the global semantics (train_lib), so the
 ranks hold one model. Rank 0 alone writes: checkpoints, the best-mAP
 snapshot, train_meta.json, JSON lines, TensorBoard and the profiler
-trace; every rank reads a resume. A mesh with train.steps_per_call > 1 is
-refused before any work (train_lib.refuse_unported).
+trace; every rank reads a resume. At k > 1 the stacked host feed keeps
+each rank's rows on axis 1 of its [k, B, ...] blocks (device_prefetch),
+and the device-synth block draws each step's global batch and cuts it.
 """
 
 from __future__ import annotations
@@ -102,7 +104,6 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
     bs = cfg.train.batch_size
     steps_per_epoch, k = train_lib.round_steps_per_epoch(
         dataset.steps_per_epoch(bs), cfg.train.steps_per_call)
-    train_lib.refuse_unported(cfg)
     train_lib.apply_runtime_config(cfg)
     mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
     lead = mesh.rank == 0
@@ -163,6 +164,8 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
         train = train_lib.make_detector_train_block(
             model, optimizer, cfg, k, aug_dataset, synth_fn=make_batch,
             generators=synth_gens)
+        if lead:
+            print(f"train block: {train.mode} ({train.why})", file=sys.stderr)
     else:
         step = train_lib.make_detector_steps(model, optimizer, cfg,
                                              aug_dataset)

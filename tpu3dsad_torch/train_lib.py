@@ -1,7 +1,8 @@
 """Training library (tpu3dsad/train_lib.py): runtime knobs (grouping,
 precision), schedules, the optimizer, the classifier's train and eval
 steps, the detector train step and the k-step block (a CUDA graph on the
-card), the detector eval step, checkpoints.
+card without a data group, else eager steps), the detector eval step,
+checkpoints.
 
 The optimizer is optax's chain written in tensor ops, which differs from
 torch's helpers in two places: the learning rate of update k (0-based) is
@@ -45,7 +46,6 @@ from tpu3dsad_torch.data.device_pipeline import (
 )
 from tpu3dsad_torch.losses import detection_loss, global_mean
 from tpu3dsad_torch.parallel import collectives
-from tpu3dsad_torch.parallel.mesh import resolve_shape, world
 from tpu3dsad_torch.utils.constants import device_constant
 
 
@@ -72,20 +72,6 @@ def apply_runtime_config(cfg) -> None:
     ops.set_fast_grouping(bool(cfg.ops_fast_grouping))
     ops.set_fast_mode(cfg.ops_fast_mode)
     torch.backends.cuda.matmul.allow_tf32 = bool(cfg.train.bf16_matmul)
-
-
-def refuse_unported(cfg) -> None:
-    """Raise before any work for what the port's training does not run: a
-    mesh of more than one rank with train.steps_per_call > 1."""
-    ranks = int(np.prod(resolve_shape(cfg.train.mesh_shape, world()[1])))
-    if ranks > 1 and cfg.train.steps_per_call > 1:
-        raise NotImplementedError(
-            f"train.steps_per_call={cfg.train.steps_per_call} on a mesh of "
-            f"{ranks} ranks (train.mesh_shape={cfg.train.mesh_shape}): a "
-            "k-step block is one CUDA graph, which cannot capture the gloo "
-            "collectives of a data-parallel step, and a capture across NCCL "
-            "ranks needs more than one card to show; run steps_per_call=1 "
-            "on a mesh (ROADMAP Queue A)")
 
 
 def data_axis(mesh):
@@ -352,6 +338,16 @@ def make_detector_steps(model, optimizer: Optimizer, cfg,
     return step
 
 
+def block_mode(device: torch.device, group, k: int) -> tuple[str, str]:
+    """A k-step block's mode on `device` with the data group `group` (an
+    AxisGroup or None), and the reason: see DetectorTrainBlock."""
+    if collectives.active(group):
+        return "eager", f"data group of {group.size} ranks"
+    if device.type != "cuda":
+        return "eager", f"on the {device.type}"
+    return "graph", f"one step captured, replayed {k} times a call"
+
+
 class DetectorTrainBlock:
     """k train steps a call (train.steps_per_call; the reference's scanned
     block, tpu3dsad/train_lib.py:303-343): block(batches, generator,
@@ -365,15 +361,28 @@ class DetectorTrainBlock:
     same draws: parameters, BN running averages, optimizer state and
     metrics. The BN momentum is a 0-d tensor that each call fills.
 
-    On the CPU a block is k eager steps. On the card the first call runs
-    its k steps eagerly on a side stream, which warms the capture up; the
-    second call captures one step into a CUDA graph (`graph`; it reads
-    static input buffers, makes synth_fn's batch inside the graph, and has
-    `generator` and `generators` registered, so each replay draws anew;
-    `capture_seconds` is the host time the capture took), and every call
-    from then on replays it k times, copying slice i into the static
-    inputs before replay i. Nothing inside a block reads a value back to
-    the host. A capture or replay that fails raises."""
+    The mode (`mode`, with the reason in `why`) is fixed once, from the
+    device and the optimizer's data group (block_mode), before any capture
+    is tried:
+
+      * "graph": on the card with no data group, or a group of one rank.
+        The first call runs its k steps eagerly on a side stream, which
+        warms the capture up; the second call captures one step into a
+        CUDA graph (`graph`; it reads static input buffers, makes
+        synth_fn's batch inside the graph, and has `generator` and
+        `generators` registered, so each replay draws anew;
+        `capture_seconds` is the host time the capture took), and every
+        call from then on replays it k times, copying slice i into the
+        static inputs before replay i. A capture or replay that fails
+        raises: there is no eager fallback.
+      * "eager": on the CPU, and with a data group of more than one rank
+        on any device. Every call runs its k steps eagerly on the current
+        stream. A DP step's collectives are not captured: gloo's go
+        through the host, and a capture across NCCL ranks (one rank a
+        card) needs several cards to show.
+
+    Nothing inside a block reads a value back to the host, apart from
+    what gloo's collectives do."""
 
     def __init__(self, model, optimizer: Optimizer, cfg, k: int,
                  aug_dataset: str | None = None, synth_fn=None,
@@ -383,6 +392,7 @@ class DetectorTrainBlock:
         self.synth_fn = synth_fn
         self.generators = generators
         self.device = optimizer.count.device
+        self.mode, self.why = block_mode(self.device, optimizer.group, k)
         self.bn_m = torch.zeros((), device=self.device)
         self.names: list[str] = []  # the metrics, in the first step's order
         self.stream = None  # the side stream of the warm-up and the capture
@@ -392,7 +402,7 @@ class DetectorTrainBlock:
 
     def __call__(self, batches, generator, bn_momentum) -> dict:
         self.bn_m.fill_(bn_momentum)
-        if self.device.type != "cuda":
+        if self.mode == "eager":
             out = self._eager(batches, generator)
         elif self.stream is None:
             out = self._warm_up(batches, generator)
