@@ -269,6 +269,17 @@ Phases, in order; any failure raises and the script exits nonzero:
     replayed blocks, the host wait a block of the packed feed, the
     phase's seconds. The ranks' launches go to the path parallel_k
     (parallel_k_launches).
+18. recipe R1 of chip_recipes.py (the 18-class host-synthetic recipe of
+    docs/experiments/r3_18cls_votefactor3.jsonl: 8 x 8192 points, 128
+    proposals, lr 2e-3) for its first 50 epochs (400 steps) through
+    run_detector at train.seed=2, the val sweep (4 batches) at epoch 49:
+    5 / 7 / 9 launches a step and 5 / 7 a val batch, finite losses,
+    printed at the reference log's steps beside its losses, and mAP@0.25
+    at least 0.118, half the reference's 0.2352 at that epoch. Then one
+    step of the trained model on a host batch, recorded: B1 and B3 equal
+    to plain in 3 launches, B5 bitwise np.add.at, each timed (path
+    recipe, recipe_launches). Printed: the step and wait medians, the
+    phase's seconds.
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch (after loading the batch, which
@@ -310,6 +321,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import chip_recipes
 from tpu3dsad_torch import (
     eval_detector,
     ops,
@@ -4373,6 +4385,89 @@ def parallel_k_runs(card: str, work: Path, packed: Path) -> dict:
     return {"counts": total, "seconds": seconds, "k_ms": k_ms,
             "eager_ms": eager_ms, "replayed_ms": replayed, "waits": waits}
 
+# phase 18: recipe R1 of chip_recipes.py (the 18-class host-synthetic
+# recipe of docs/experiments/r3_18cls_votefactor3.jsonl) for its first
+# RECIPE_EPOCHS epochs through run_detector, at train.seed=RECIPE_SEED
+# (chip_recipes.py's full runs have seeds 0 and 1), the eval at epoch 49.
+# Its gate: finite losses and mAP@0.25 >= half the reference's 0.2352 there
+RECIPE_EPOCHS, RECIPE_SEED, RECIPE_GATE = 50, 2, 0.118
+RECIPE_VAL_BATCHES = 4  # the synthetic val set
+
+
+def phase_recipe(card: str, work: Path, tallies: dict) -> dict:
+    recipe = chip_recipes.RECIPES["R1"]
+    steps = RECIPE_EPOCHS * recipe.steps_per_epoch
+    print(f"== recipe R1 ({recipe.name}, {recipe.reference}): the first "
+          f"{RECIPE_EPOCHS} epochs ({steps} steps) through run_detector at "
+          f"train.seed={RECIPE_SEED}, the eval at epoch {RECIPE_EPOCHS - 1}")
+    t0 = time.perf_counter()
+    cfg = parse_cli([*chip_recipes.leg_argv(recipe, 0, "", str(work),
+                                            RECIPE_SEED),
+                     f"train.num_epochs={RECIPE_EPOCHS}"])
+    reset_counts()
+    result = run_detector(cfg)
+    got = counts()
+    want = launches(fps=5 * (steps + RECIPE_VAL_BATCHES),
+                    ball_query=7 * (steps + RECIPE_VAL_BATCHES),
+                    scatter=9 * steps)
+    print(f"  launches: {got}")
+    if got != want:
+        raise AssertionError(f"recipe R1: launches {got} != {want}")
+    losses = [h["loss"] for h in result.history]
+    if result.step != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"recipe R1: {result.step} steps, all losses "
+                             f"finite: {np.isfinite(losses).all()}")
+    (ev,) = result.evals
+    reference = chip_recipes.read_jsonl(chip_recipes.REFERENCE_DIR
+                                        / recipe.reference)
+    ref_loss = {r["step"]: r["train/loss"] for r in reference
+                if "train/loss" in r and r["step"] <= steps}
+    ref_map = chip_recipes.evals_by_epoch(reference)[RECIPE_EPOCHS - 1]
+    print("  train/loss at the reference's logged steps, port / reference: "
+          + ", ".join(f"{s}: {losses[s - 1]:.4f} / {v:.4f}"
+                      for s, v in sorted(ref_loss.items())))
+    warm = result.history[1:]
+    med = statistics.median(h["seconds"] for h in warm) * 1e3
+    wait = statistics.median(h["wait"] for h in warm) * 1e3
+    print(f"  epoch {ev['epoch']}: mAP@0.25 {ev['mAP@0.25']} against the "
+          f"reference's {ref_map['eval/mAP@0.25']} (gate {RECIPE_GATE}), "
+          f"mAP@0.5 {ev['mAP@0.5']} / {ref_map['eval/mAP@0.5']}, AR@0.25 "
+          f"{ev['AR@0.25']} / {ref_map['eval/AR@0.25']}, val_loss "
+          f"{ev['val_loss']} / {ref_map['eval/val_loss']}; median step "
+          f"{med:.3f} ms, of it waiting for the batch {wait:.3f} ms; sweep "
+          f"{ev['seconds'] * 1e3:.3f} ms on {card}")
+    if ev["epoch"] != RECIPE_EPOCHS - 1 or not ev["mAP@0.25"] >= RECIPE_GATE:
+        raise AssertionError(f"recipe R1: eval {ev['epoch']} mAP@0.25 "
+                             f"{ev['mAP@0.25']} < {RECIPE_GATE}")
+
+    # one step of the trained model on a host batch, its launches recorded
+    # and held to the plain versions (path recipe)
+    dataset = get_dataset(cfg)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in dataset.train_batch(
+        np.random.default_rng(RECIPE_SEED), cfg.train.batch_size).items()}
+    model = result.model
+    with recording() as calls:
+        grads_of(model, cfg, copy.deepcopy(model.state_dict()), batch,
+                 train_lib.bn_momentum_at(cfg.train, RECIPE_EPOCHS))
+    found = {k: len(v) for k, v in calls.items()}
+    if found != {"fps": 5, "ball_query": 7, "scatter": 9, "three_nn": 2}:
+        raise AssertionError(f"one recipe step made {found} calls")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    fps_names = ["sa1", "sa2", "sa3", "sa4", "proposal"]
+    bq_names = ["sa1", "sa2", "sa3", "sa4"] + [
+        f"bank_{r:g}" for r in cfg.model.cluster_radius_bank]
+    for name, (args, kw) in zip(fps_names, calls["fps"]):
+        fps_case(tallies["fps"], "recipe", name, args[0], args[1],
+                 kw.get("mask"), compares=3)
+    for name, (args, kw) in zip(bq_names, calls["ball_query"]):
+        bq_case(tallies["ball_query"], "recipe", name, *args, kw.get("mask"))
+    for args, _ in calls["scatter"]:
+        scatter_case(tallies["scatter"], "recipe", *args, gen)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 18 seconds: {seconds:.1f}")
+    return {"counts": got, "map": ev["mAP@0.25"], "median_ms": med,
+            "seconds": seconds}
+
 
 def main() -> None:
     laps, t0 = {}, time.perf_counter()
@@ -4433,6 +4528,9 @@ def main() -> None:
         parallel_k = phase_parallel_k(card, work / "parallel_k",
                                       work / "hostfed" / "packed")
         lap("17")
+        recipe = phase_recipe(card, work / "recipe", {
+            "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t})
+        lap("18")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules
@@ -4447,7 +4545,7 @@ def main() -> None:
              "traink": trained_k["counts"], "classify": classified["counts"],
              "serve_export": exported["counts"],
              "from_raw": from_raw["counts"], "parallel": parallel["counts"],
-             "parallel_k": parallel_k["counts"]}
+             "parallel_k": parallel_k["counts"], "recipe": recipe["counts"]}
 
     def entry(name, counter, source, replaces, tally):
         times = tally.summary()
@@ -4461,6 +4559,7 @@ def main() -> None:
                 "from_raw_launches": paths["from_raw"][counter],
                 "parallel_launches": paths["parallel"][counter],
                 "parallel_k_launches": paths["parallel_k"][counter],
+                "recipe_launches": paths["recipe"][counter],
                 "traink_replayed_step_launches": sum(
                     n for k, n in trained_k["replay_launches"].items()
                     if REPLAY_KERNELS[k][0] == counter) // K_STEPS,
@@ -4518,7 +4617,9 @@ def main() -> None:
           f"rank at train.steps_per_call={DPK} (the synthetic run, its "
           "resume, the packed run and 2 packed blocks built apart), eager "
           "blocks on the data group (path parallel_k, under "
-          "parallel_k_launches)")
+          f"parallel_k_launches), and phase 18's {RECIPE_EPOCHS} epochs of "
+          "recipe R1 (8 x 8192 points, 18 classes) with its sweep (path "
+          "recipe, under recipe_launches; its times: one recorded step)")
     print("seconds by phase (1: the build and the recordings): " + ", ".join(
         f"{k} {v:.1f}" for k, v in laps.items())
           + f"; in all {time.perf_counter() - t0:.1f}")
