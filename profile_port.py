@@ -9,39 +9,48 @@ CUDA port, on one GPU.
     python3 profile_port.py --ball-query            # ball query per call and plan
     python3 profile_port.py --scatter               # scatter per call and plan
     python3 profile_port.py --scatter-calls PATH    # scatter calls, any tree
+    python3 profile_port.py --span-cost             # the tracer's host cost
 
 Serving drives the program of chip_smoke.py (BASELINE config #5: 32 scenes
 x 20480 points, seeded random weights, served through
 serving.build_inference_fn) and prints:
 
  1. the host wall ms of each timed request (synchronised after each);
- 2. device ms per stage, the median over REQUESTS requests of the time
-    between CUDA events recorded by forward pre/post hooks: SA1-4 and their
-    shared MLPs, FP1-2, voting, the proposal stage and its bank MLPs, and
-    the whole forward. parse + NMS runs from the forward's end to the
-    request's end. Nothing synchronises inside a request;
- 3. torch.profiler over PROFILED requests: ops and kernels by self device
-    time, then the device's busy share, the union of the kernel intervals
-    over the span from the first kernel's start to the last kernel's end.
+ 2. the program's spans (tpu3dsad_torch/utils/trace.py), the median over
+    REQUESTS requests of each span's device ms (its CUDA events) and host
+    ms: serve.program, the detector's backbone (SA1-4, FP1-2), voting and
+    proposal, parse.decode and parse.nms. Nothing synchronises inside a
+    request;
+ 3. the same for REQUESTS single scans through the whole serving path,
+    as `python -m tpu3dsad_torch.serving run=...` serves one: a raw scan
+    of SCAN_POINTS points fitted to one scene of N points
+    (prepare_scene_batch: serve.prepare), the program at B = 1
+    (serve.program and its spans), then the listing of the kept boxes
+    (detections: serve.detections, with the outputs' copy to the host in
+    serve.d2h);
+ 4. torch.profiler over PROFILED requests (the spans are its ranges): ops
+    and kernels by self device time, then the device's busy share, the
+    union of the kernel intervals over the span from the first kernel's
+    start to the last kernel's end.
 
 WARMUP requests run first and are not timed. The chrome trace is written
 to --trace (default build/profile/request_trace.json).
 
 --train does the same for the train step of chip_smoke.py's phase 6
 (config #3: 8 scenes x 40960 points, 18 classes, train.bf16_matmul on, so
-the MLP products may run as TF32): batch generation, forward + loss (with
-the forward's stages), backward and optimizer, as CUDA-event medians over
-REQUESTS steps after WARMUP; then torch.profiler over PROFILED steps, the
-busy share, and the kernels by device time with the GEMM kernels listed
-apart, so their names show which precision cuBLAS ran.
+the MLP products may run as TF32), make_detector_steps' step on a batch
+made on the card beforehand: its spans (train.step, train.forward with
+the detector's, train.loss, train.backward, train.optimizer) as medians
+over REQUESTS steps after WARMUP; then torch.profiler over PROFILED steps,
+the busy share, and the kernels by device time with the GEMM kernels
+listed apart, so their names show which precision cuBLAS ran.
 
 --eval does it for one batch of chip_smoke.py's phase 9 (config #4:
 preset=outdoor, 8 scenes of 122880 raw points cropped and sampled to
-16384 by the cluster FPS, seeded random weights): the eval step (forward
-and loss) with the forward's stages, and the parse, as CUDA-event medians
-over REQUESTS batches after WARMUP, then torch.profiler over PROFILED
-batches. Loading the batch (crop, FPS, votes) is the host's and is timed
-by the smoke.
+16384 by the cluster FPS, seeded random weights): the eval step and the
+parse, the detector's and parse's spans as medians over REQUESTS batches
+after WARMUP, then torch.profiler over PROFILED batches. Loading the
+batch (crop, FPS, votes) is the host's and is timed by the smoke.
 
 --fps times the FPS kernel (csrc/fps.cu) at each main-path FPS call (the 5
 of a request, a train step and an eval batch, and one config-#4 scene),
@@ -77,11 +86,17 @@ call and summed, its time with the host (CUDA events), the card's alone
 (torch.profiler), and index_add_'s. Run from an unpacked older commit
 (with this file copied there) on the same PATH, it compares two commits'
 kernels on one card and one input.
+
+--span-cost times the tracer itself (tpu3dsad_torch/utils/trace.py): the
+host us of an empty span, off, on (a CUDA event pair), and on under a
+running profiler (a range too); then the us of making and recording one
+CUDA event, and of recording a made one again.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import statistics
@@ -116,7 +131,7 @@ from chip_smoke import (
     require_equal,
     train_config,
 )
-from tpu3dsad_torch import train_lib
+from tpu3dsad_torch import serving, train_lib
 from tpu3dsad_torch.data import get_dataset
 from tpu3dsad_torch.eval.parse import parse_predictions
 from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
@@ -129,47 +144,48 @@ from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.train_detector import build_detector
+from tpu3dsad_torch.utils import trace
 
 # the bucketed crop of a config-#4 scene of 122880 raw points (4096s)
 SCENE_N = 118784
 
 REQUESTS, WARMUP, PROFILED = 5, 3, 3
+SCAN_POINTS = 50000  # a raw scan, as the latency cell of portbench serves
 
 
-def stage_modules(model) -> dict:
-    """name -> module, for the stages a request runs once each."""
-    bb, prop = model.backbone, model.proposal
-    mods = {}
-    for i in range(1, 5):
-        sa = getattr(bb, f"sa{i}")
-        mods[f"sa{i}"] = sa
-        mods[f"sa{i}.mlp"] = sa.mlp_0
-    mods["fp1"], mods["fp2"] = bb.fp1, bb.fp2
-    mods["voting"] = model.voting
-    for r in range(len(prop.radius_bank)):
-        mods[f"proposal.scale_mlp_{r}"] = getattr(prop, f"scale_mlp_{r}")
-    mods["proposal"] = prop
-    mods["forward"] = model
-    return mods
+def span_table(run, what: str) -> None:
+    """run() REQUESTS times with the program's tracer on, synchronising
+    after each: print the host wall ms of each, then each span's median
+    device and host ms (utils/trace.py)."""
+    walls = []
+    trace.enable()
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    trace.enable(False)
+    records = trace.collect()
+    device, host = trace.times(records), trace.times(records, clock="host")
+    print(f"host wall per {what} ms: {[round(t, 3) for t in walls]}")
+    print(f"span (median of {REQUESTS}):         device ms    host ms")
+    for name, ts in device.items():
+        print(f"  {name:26s} {statistics.median(ts):9.3f} "
+              f"{statistics.median(host[name]):10.3f}")
 
 
-def hook_events(mods: dict) -> tuple[dict, list]:
-    """Record a CUDA event before and after each module's forward.
-    Returns ({name: [start, end]} refilled every request, hook handles)."""
-    events: dict = {}
-    handles = []
-
-    def marker(name, slot):
-        def hook(*_):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.setdefault(name, [None, None])[slot] = ev
-        return hook
-
-    for name, mod in mods.items():
-        handles.append(mod.register_forward_pre_hook(marker(name, 0)))
-        handles.append(mod.register_forward_hook(marker(name, 1)))
-    return events, handles
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler over the host and the card, with the program's
+    tracer on so that its spans are ranges of the trace."""
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            yield prof
+    finally:
+        trace.enable(False)
+        trace.collect()
 
 
 def is_gemm(name: str) -> bool:
@@ -190,38 +206,30 @@ def print_trace(prof, path: Path, card: str, what: str) -> list:
 
 
 def profile_serve(card: str, trace_path: Path) -> None:
-    _, model, infer = build_server()
+    _, _, infer = build_server()
     batches = make_requests(REQUESTS, seed=0)  # PROFILED <= REQUESTS
     for i in range(WARMUP):
         infer(*batches[i % len(batches)])
     torch.cuda.synchronize()
+    served = iter(batches)
+    span_table(lambda: infer(*next(served)), "request")
 
-    events, handles = hook_events(stage_modules(model))
-    walls, per_stage = [], {}
-    for batch in batches[:REQUESTS]:
-        events.clear()
-        t0 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        infer(*batch)
-        end.record()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        ms = {name: s.elapsed_time(e) for name, (s, e) in events.items()}
-        ms["parse+nms"] = events["forward"][1].elapsed_time(end)
-        ms["request"] = start.elapsed_time(end)
-        for name, t in ms.items():
-            per_stage.setdefault(name, []).append(t)
-    for h in handles:
-        h.remove()
-    print(f"host wall per request ms: {[round(t, 3) for t in walls]}")
-    print(f"stage (event ms, median of {REQUESTS}):")
-    for name, ts in per_stage.items():
-        print(f"  {name:26s} {statistics.median(ts):9.3f}")
+    manifest = {"batch_size": 1, "num_points": N, "with_features": False}
+    rng = np.random.default_rng(1)
+    scans = [rng.uniform(-3, 3, (SCAN_POINTS, 3)).astype(np.float32)
+             for _ in range(WARMUP + REQUESTS)]
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def scan():
+        """One raw scan fitted, served and listed."""
+        raw = scans.pop()
+        serving.detections(infer(*serving.prepare_scene_batch(raw, manifest)))
+
+    for _ in range(WARMUP):
+        scan()
+    torch.cuda.synchronize()
+    span_table(scan, f"scan of {SCAN_POINTS} points at B = 1")
+
+    with profiled() as prof:
         t0 = time.perf_counter()
         for batch in batches[:PROFILED]:
             infer(*batch)
@@ -241,58 +249,21 @@ def profile_train(card: str, trace_path: Path) -> None:
     optimizer = train_lib.make_optimizer(cfg.train, 8, model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(1234)
     bn_m = train_lib.bn_momentum_at(cfg.train, 0)
-    model.train()
+    train_step = train_lib.make_detector_steps(model, optimizer, cfg)
 
-    def step(marks=None):
-        """One train step (train_lib.make_detector_steps' body), with a
-        CUDA event recorded at each seam if `marks` is a list."""
-        def mark():
-            if marks is not None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append(ev)
-        mark()
+    def step():
+        """A batch made on the card, then one train step on it."""
         batch = synthetic_detection_batch(
             gen, TRAIN_B, TRAIN_N, cfg.model.num_classes,
             cfg.data.max_boxes, vote_candidates=cfg.data.vote_candidates)
-        mark()
-        optimizer.zero_grad()
-        loss, _ = train_lib.detector_loss(model, cfg, batch, bn_m)
-        mark()
-        loss.backward()
-        mark()
-        optimizer.step()
-        mark()
+        train_step(batch, gen, bn_m)
 
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
-    events, handles = hook_events(stage_modules(model))
-    walls, per_stage = [], {}
-    for _ in range(REQUESTS):
-        events.clear()
-        marks: list = []
-        t0 = time.perf_counter()
-        step(marks)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        ms = {name: s.elapsed_time(e) for name, (s, e) in events.items()}
-        for name, (a, b) in {"batch": (0, 1), "forward+loss": (1, 2),
-                             "backward": (2, 3), "optimizer": (3, 4),
-                             "step": (0, 4)}.items():
-            ms[name] = marks[a].elapsed_time(marks[b])
-        for name, t in ms.items():
-            per_stage.setdefault(name, []).append(t)
-    for h in handles:
-        h.remove()
-    print(f"host wall per step ms: {[round(t, 3) for t in walls]}")
-    print(f"stage (event ms, median of {REQUESTS}; forward stages are "
-          f"inside forward+loss):")
-    for name, ts in per_stage.items():
-        print(f"  {name:26s} {statistics.median(ts):9.3f}")
+    span_table(step, "step (the batch made on the card, then the step)")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED):
             step()
@@ -330,49 +301,18 @@ def profile_eval(card: str, trace_path: Path) -> None:
                                  for_eval=True)
     eval_step = train_lib.make_detector_eval_step(model, cfg)
 
-    def run(marks=None):
-        """One batch's eval step and parse, with CUDA events at the seams
-        if `marks` is a list."""
-        def mark():
-            if marks is not None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append(ev)
-        mark()
+    def run():
+        """One batch's eval step and parse."""
         ep, _ = eval_step(batch)
-        mark()
         parse_predictions(ep, model.mean_sizes, cfg.model.num_heading_bins,
                           cfg.eval)
-        mark()
 
     for _ in range(WARMUP):
         run()
     torch.cuda.synchronize()
-    events, handles = hook_events(stage_modules(model))
-    walls, per_stage = [], {}
-    for _ in range(REQUESTS):
-        events.clear()
-        marks: list = []
-        t0 = time.perf_counter()
-        run(marks)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        ms = {name: s.elapsed_time(e) for name, (s, e) in events.items()}
-        for name, (a, b) in {"eval step": (0, 1), "parse+nms": (1, 2),
-                             "batch": (0, 2)}.items():
-            ms[name] = marks[a].elapsed_time(marks[b])
-        for name, t in ms.items():
-            per_stage.setdefault(name, []).append(t)
-    for h in handles:
-        h.remove()
-    print(f"host wall per eval batch ms: {[round(t, 3) for t in walls]}")
-    print(f"stage (event ms, median of {REQUESTS}; forward stages are "
-          f"inside the eval step):")
-    for name, ts in per_stage.items():
-        print(f"  {name:26s} {statistics.median(ts):9.3f}")
+    span_table(run, "eval batch")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED):
             run()
@@ -678,6 +618,48 @@ def profile_scatter_calls(card: str, path: Path) -> None:
     print(f"on {card}")
 
 
+def profile_span_cost(card: str, spans: int = 20000) -> None:
+    """The tracer's host us a span, by part (module docstring)."""
+
+    def us_a_span(n: int = spans) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with trace.span("a"):
+                pass
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def us_a_record(make: bool) -> float:
+        event = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(spans):
+            if make:
+                event = torch.cuda.Event(enable_timing=True, external=True)
+            event.record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / spans * 1e6
+
+    torch.zeros(1, device="cuda")
+    rows = [("off", us_a_span())]
+    trace.enable()
+    rows.append(("on (a CUDA event pair)", us_a_span()))
+    trace.collect()
+    with profile(activities=[ProfilerActivity.CPU]):
+        # a tenth as many: the profiler keeps every range
+        rows.append(("on under torch.profiler (a range too)",
+                     us_a_span(spans // 10)))
+    trace.collect()
+    trace.enable(False)
+    rows += [("an event made and recorded", us_a_record(True)),
+             ("a made event recorded again", us_a_record(False))]
+    print(f"host us, the mean over {spans} calls:")
+    for what, us in rows:
+        print(f"  {what:40s} {us:9.3f}")
+    print(f"on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -699,6 +681,8 @@ def main() -> None:
                       help="time ops.scatter_rows at the train step's "
                            "scatter calls saved in PATH (saved first if "
                            "absent) instead")
+    mode.add_argument("--span-cost", action="store_true",
+                      help="time the tracer's spans instead")
     ap.add_argument("--trace", type=Path, default=None)
     args = ap.parse_args()
     card = phase_device()
@@ -710,6 +694,8 @@ def main() -> None:
         profile_scatter(card)
     elif args.scatter_calls:
         profile_scatter_calls(card, args.scatter_calls)
+    elif args.span_cost:
+        profile_span_cost(card)
     elif args.train:
         profile_train(card, args.trace or Path("build/profile/train_trace.json"))
     elif args.eval:

@@ -12,6 +12,7 @@ from tpu3dsad_torch.config import EvalConfig
 from tpu3dsad_torch.models.decode import predicted_boxes
 from tpu3dsad_torch.ops.boxes import _CORNER_SIGNS, box_corners, corners_to_aabb
 from tpu3dsad_torch.ops.nms import nms_aabb, nms_bev, nms_oriented
+from tpu3dsad_torch.utils import trace
 
 
 def parse_predictions(end_points, mean_sizes, num_heading_bins: int,
@@ -21,19 +22,22 @@ def parse_predictions(end_points, mean_sizes, num_heading_bins: int,
     keep [B,P] marks NMS survivors above the objectness threshold: by the
     oriented BEV IoU with eval.use_oriented_nms, else on the axis-aligned
     hulls, in 3D (use_3d_nms) or in BEV."""
-    center, size, heading, sem, obj_prob = predicted_boxes(
-        end_points, mean_sizes, num_heading_bins)
-    corners = box_corners(center, size, heading)  # [B,P,8,3]
-    bmin, bmax = corners_to_aabb(corners)
-    valid = end_points["proposal_mask"] & (obj_prob > eval_cfg.objectness_thresh)
+    with trace.span("parse.decode"):
+        center, size, heading, sem, obj_prob = predicted_boxes(
+            end_points, mean_sizes, num_heading_bins)
+        corners = box_corners(center, size, heading)  # [B,P,8,3]
+        bmin, bmax = corners_to_aabb(corners)
+        valid = end_points["proposal_mask"] & (
+            obj_prob > eval_cfg.objectness_thresh)
     sem_cls = sem if eval_cfg.cls_nms else None
-    if eval_cfg.use_oriented_nms:
-        keep = nms_oriented(corners, obj_prob, valid, eval_cfg.nms_iou,
-                            sem_cls=sem_cls)
-    else:
-        nms = nms_aabb if eval_cfg.use_3d_nms else nms_bev
-        keep = nms(bmin, bmax, obj_prob, valid, eval_cfg.nms_iou,
-                   sem_cls=sem_cls)
+    with trace.span("parse.nms"):
+        if eval_cfg.use_oriented_nms:
+            keep = nms_oriented(corners, obj_prob, valid, eval_cfg.nms_iou,
+                                sem_cls=sem_cls)
+        else:
+            nms = nms_aabb if eval_cfg.use_3d_nms else nms_bev
+            keep = nms(bmin, bmax, obj_prob, valid, eval_cfg.nms_iou,
+                       sem_cls=sem_cls)
     return {
         "center": center,
         "size": size,

@@ -9,6 +9,11 @@ from torch import nn
 from tpu3dsad_torch.config import ModelConfig
 from tpu3dsad_torch.nn import FeaturePropagation, SetAbstraction
 from tpu3dsad_torch.parallel.mesh import shard_batch
+from tpu3dsad_torch.utils import trace
+
+# the spans of the levels, named once (an f-string would allocate per call
+# with the tracer off)
+_SA_SPANS = tuple(f"backbone.sa{i + 1}" for i in range(4))
 
 
 class PointNet2Backbone(nn.Module):
@@ -52,17 +57,21 @@ class PointNet2Backbone(nn.Module):
         cur = (xyz, features, None, mask)
         for i in range(4):
             cp = cp_mesh if i < self.cp_stages else None
-            cur = getattr(self, f"sa{i + 1}")(cur[0], cur[1], mask=cur[3],
-                                              bn_momentum=bn_momentum,
-                                              cp_mesh=cp)
+            with trace.span(_SA_SPANS[i]):
+                cur = getattr(self, f"sa{i + 1}")(cur[0], cur[1],
+                                                  mask=cur[3],
+                                                  bn_momentum=bn_momentum,
+                                                  cp_mesh=cp)
             sa_out.append(cur)
         x2, f2, i2, m2 = sa_out[1]
         x3, f3, _, m3 = sa_out[2]
         x4, f4, _, m4 = sa_out[3]
-        f3p = self.fp1(x3, f3, x4, f4, dense_mask=m3, sparse_mask=m4,
-                       bn_momentum=bn_momentum)
-        seeds = self.fp2(x2, f2, x3, f3p, dense_mask=m2, sparse_mask=m3,
-                         bn_momentum=bn_momentum)
+        with trace.span("backbone.fp1"):
+            f3p = self.fp1(x3, f3, x4, f4, dense_mask=m3, sparse_mask=m4,
+                           bn_momentum=bn_momentum)
+        with trace.span("backbone.fp2"):
+            seeds = self.fp2(x2, f2, x3, f3p, dense_mask=m2, sparse_mask=m3,
+                             bn_momentum=bn_momentum)
         # seed indices into the ORIGINAL cloud: sa1's picks composed with
         # sa2's (indices into sa1's set)
         seed_inds = torch.gather(sa_out[0][2], 1, i2.long())

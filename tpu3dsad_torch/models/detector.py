@@ -22,6 +22,7 @@ from tpu3dsad_torch.models.proposal import (
 from tpu3dsad_torch.models.voting import VotingModule
 from tpu3dsad_torch.nn.mlp import init_like_flax_
 from tpu3dsad_torch.parallel.mesh import shard_batch
+from tpu3dsad_torch.utils import trace
 
 
 class SizeAdaptiveDetector(nn.Module):
@@ -101,19 +102,22 @@ class SizeAdaptiveDetector(nn.Module):
             parts.append(z - floor)
         features = torch.cat(parts, -1) if parts else None
 
-        end_points = dict(self.backbone(points, features, mask=mask,
-                                        bn_momentum=bn_momentum,
-                                        cp_mesh=cp_mesh))
-        vote_xyz, vote_feat, vote_mask = self.voting(
-            end_points["seed_xyz"], end_points["seed_features"],
-            mask=end_points["seed_mask"], bn_momentum=bn_momentum)
+        with trace.span("detector.backbone"):
+            end_points = dict(self.backbone(points, features, mask=mask,
+                                            bn_momentum=bn_momentum,
+                                            cp_mesh=cp_mesh))
+        with trace.span("detector.voting"):
+            vote_xyz, vote_feat, vote_mask = self.voting(
+                end_points["seed_xyz"], end_points["seed_features"],
+                mask=end_points["seed_mask"], bn_momentum=bn_momentum)
         end_points["vote_xyz"] = vote_xyz
         end_points["vote_features"] = vote_feat
         end_points["vote_mask"] = vote_mask
-        prop = self.proposal(vote_xyz, vote_feat, vote_mask=vote_mask,
-                             bn_momentum=bn_momentum)
-        end_points.update(prop)
-        end_points.update(decode_proposals(
-            prop["raw_params"], prop["proposal_xyz"], self.mean_sizes,
-            self.cfg.num_heading_bins))
+        with trace.span("detector.proposal"):
+            prop = self.proposal(vote_xyz, vote_feat, vote_mask=vote_mask,
+                                 bn_momentum=bn_momentum)
+            end_points.update(prop)
+            end_points.update(decode_proposals(
+                prop["raw_params"], prop["proposal_xyz"], self.mean_sizes,
+                self.cfg.num_heading_bins))
         return end_points

@@ -36,6 +36,7 @@ from torch import nn
 
 from tpu3dsad_torch import ops  # noqa: F401  (registers the custom ops)
 from tpu3dsad_torch.eval.parse import parse_predictions
+from tpu3dsad_torch.utils import trace
 
 _EXPORT_KEYS = ("center", "size", "heading", "sem_cls", "obj_prob", "keep")
 
@@ -57,10 +58,11 @@ class InferenceProgram(nn.Module):
         self.eval_cfg = cfg.eval
 
     def forward(self, points, mask, features=None):
-        ep = self.model(points, features, mask=mask)
-        parsed = parse_predictions(ep, self.mean_sizes, self.num_heading_bins,
-                                   self.eval_cfg)
-        return {k: parsed[k] for k in _EXPORT_KEYS}
+        with trace.span("serve.program"):
+            ep = self.model(points, features, mask=mask)
+            parsed = parse_predictions(ep, self.mean_sizes,
+                                       self.num_heading_bins, self.eval_cfg)
+            return {k: parsed[k] for k in _EXPORT_KEYS}
 
 
 def build_inference_fn(cfg, model, mean_sizes, with_features: bool = False):
@@ -137,45 +139,48 @@ def prepare_scene_batch(raw: np.ndarray, manifest: dict,
     batch. Oversized clouds subsample without replacement; short clouds
     pad with zeros + mask=False (padding must never join a ball or pollute
     a pool — duplicate-sampled "real" points would)."""
-    B, N = manifest["batch_size"], manifest["num_points"]
-    pts = raw[:, :3].astype(np.float32)
-    sel = (
-        np.random.default_rng(0).choice(len(pts), N, replace=False)
-        if len(pts) > N
-        else np.arange(len(pts))
-    )
-    batch_pts = np.zeros((B, N, 3), np.float32)
-    batch_pts[0, : len(sel)] = pts[sel]
-    mask = np.zeros((B, N), bool)
-    mask[0, : len(sel)] = True
-    arrays = [batch_pts, mask]
-    if manifest.get("with_features"):
-        fb = np.zeros((B, N, 3), np.float32)
-        if raw.shape[1] >= 6:  # color columns ride along when present
-            fb[0, : len(sel)] = raw[sel, 3:6].astype(np.float32)
-            if manifest.get("source_dataset") == "scannet":
-                # the scannet loader trains on rgb/256 (0-255 on disk);
-                # raw values here would be 256x out of distribution
-                fb[0] /= 256.0
-        arrays.append(fb)
-    return [torch.from_numpy(a).to(device) for a in arrays]
+    with trace.span("serve.prepare"):
+        B, N = manifest["batch_size"], manifest["num_points"]
+        pts = raw[:, :3].astype(np.float32)
+        sel = (
+            np.random.default_rng(0).choice(len(pts), N, replace=False)
+            if len(pts) > N
+            else np.arange(len(pts))
+        )
+        batch_pts = np.zeros((B, N, 3), np.float32)
+        batch_pts[0, : len(sel)] = pts[sel]
+        mask = np.zeros((B, N), bool)
+        mask[0, : len(sel)] = True
+        arrays = [batch_pts, mask]
+        if manifest.get("with_features"):
+            fb = np.zeros((B, N, 3), np.float32)
+            if raw.shape[1] >= 6:  # color columns ride along when present
+                fb[0, : len(sel)] = raw[sel, 3:6].astype(np.float32)
+                if manifest.get("source_dataset") == "scannet":
+                    # the scannet loader trains on rgb/256 (0-255 on disk);
+                    # raw values here would be 256x out of distribution
+                    fb[0] /= 256.0
+            arrays.append(fb)
+        return [torch.from_numpy(a).to(device) for a in arrays]
 
 
 def detections(out: dict) -> list:
     """Scene 0's kept boxes of a program's outputs as the run CLI prints
     them: {"center", "size", "heading", "score", "class"} each."""
-    out = {k: v.cpu().numpy() for k, v in out.items()}
-    keep = out["keep"][0].astype(bool)
-    return [
-        {
-            "center": out["center"][0][i].tolist(),
-            "size": out["size"][0][i].tolist(),
-            "heading": float(out["heading"][0][i]),
-            "score": float(out["obj_prob"][0][i]),
-            "class": int(out["sem_cls"][0][i]),
-        }
-        for i in np.nonzero(keep)[0]
-    ]
+    with trace.span("serve.detections"):
+        with trace.span("serve.d2h"):
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        keep = out["keep"][0].astype(bool)
+        return [
+            {
+                "center": out["center"][0][i].tolist(),
+                "size": out["size"][0][i].tolist(),
+                "heading": float(out["heading"][0][i]),
+                "score": float(out["obj_prob"][0][i]),
+                "class": int(out["sem_cls"][0][i]),
+            }
+            for i in np.nonzero(keep)[0]
+        ]
 
 
 def _run(kv: dict, device: str) -> None:

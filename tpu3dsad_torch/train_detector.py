@@ -14,8 +14,10 @@ at each epoch's end; checkpoints with auto-resume; every `eval_every`
 epochs the val sweep, its metrics logged under eval/, and the best-mAP
 snapshot kept (train_lib.save_best_checkpoint). train.tb_dir adds
 TensorBoard scalars (utils/metrics.py); train.profile_dir traces the
-first epoch run with torch.profiler into <profile_dir>/trace.json, and a
-resumed run with no epoch left closes the profiler all the same.
+first epoch run with torch.profiler into <profile_dir>/trace.json, with
+the program's tracer on (utils/trace.py: its spans are ranges of that
+trace, and their records <profile_dir>/spans.jsonl), and a resumed run
+with no epoch left closes the profiler all the same.
 
 evaluate: the val sweep of a dataset's host val batches -> AP table.
 
@@ -55,6 +57,7 @@ from tpu3dsad_torch.eval.parse import (
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
 from tpu3dsad_torch.parallel import collectives
 from tpu3dsad_torch.parallel.mesh import make_mesh, shard_batch
+from tpu3dsad_torch.utils import trace
 from tpu3dsad_torch.utils.metrics import MetricsLogger
 
 
@@ -200,22 +203,31 @@ def run_detector(cfg, *, device="cuda") -> TrainResult:
 
 def _start_profiler(profile_dir: str, device):
     """A running torch.profiler over the CPU and, on the card, CUDA
-    activity, or None where profile_dir is empty."""
+    activity, with the program's tracer on, or None where profile_dir is
+    empty."""
     if not profile_dir:
         return None
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     profiler = torch.profiler.profile(activities=activities)
+    trace.enable()
     profiler.start()
     return profiler
 
 
 def _stop_profiler(profiler, profile_dir: str) -> None:
-    """Stop the profiler and write its Chrome trace into profile_dir."""
+    """Stop the profiler and the tracer; write the Chrome trace and the
+    tracer's records (utils/trace.py) into profile_dir as trace.json and
+    spans.jsonl."""
     profiler.stop()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()  # the spans' device ms are read next
+    spans = trace.collect()
+    trace.enable(False)
     os.makedirs(profile_dir, exist_ok=True)
     profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    trace.write(os.path.join(profile_dir, "spans.jsonl"), spans)
 
 
 def _train_epoch(cfg, epoch, steps_per_epoch, k, batches, train, step_gen,

@@ -46,6 +46,7 @@ from tpu3dsad_torch.data.device_pipeline import (
 )
 from tpu3dsad_torch.losses import detection_loss, global_mean
 from tpu3dsad_torch.parallel import collectives
+from tpu3dsad_torch.utils import trace
 from tpu3dsad_torch.utils.constants import device_constant
 
 
@@ -296,12 +297,14 @@ def classifier_eval_step(model, batch: dict) -> dict:
 def detector_loss(model, cfg, batch: dict, bn_momentum):
     """Forward in the model's current mode, then detection_loss:
     (loss, metrics)."""
-    end_points = model(batch["points"], batch.get("point_features"),
-                       mask=batch["point_mask"], bn_momentum=bn_momentum)
-    return detection_loss(
-        end_points, batch, model.mean_sizes, cfg.model.num_heading_bins,
-        tuple(cfg.model.cluster_radius_bank), near=cfg.model.assign_near,
-        far=cfg.model.assign_far, center_norm=cfg.model.center_loss_norm)
+    with trace.span("train.forward"):
+        end_points = model(batch["points"], batch.get("point_features"),
+                           mask=batch["point_mask"], bn_momentum=bn_momentum)
+    with trace.span("train.loss"):
+        return detection_loss(
+            end_points, batch, model.mean_sizes, cfg.model.num_heading_bins,
+            tuple(cfg.model.cluster_radius_bank), near=cfg.model.assign_near,
+            far=cfg.model.assign_far, center_norm=cfg.model.center_loss_norm)
 
 
 def make_detector_steps(model, optimizer: Optimizer, cfg,
@@ -323,17 +326,21 @@ def make_detector_steps(model, optimizer: Optimizer, cfg,
     group = optimizer.group
 
     def step(batch: dict, generator, bn_momentum) -> dict:
-        batch = decode_compact_votes(batch, cfg.data.vote_candidates)
-        model.train()
-        optimizer.zero_grad()
-        with collectives.data_parallel(group):
-            if aug is not None:
-                batch = augment_batch(batch, generator, **aug)
-            loss, metrics = detector_loss(model, cfg, batch, bn_momentum)
-            loss.backward()
-        optimizer.step()
-        return reduce_metrics({k: v.detach() for k, v in metrics.items()},
-                              group)
+        with trace.span("train.step"):
+            batch = decode_compact_votes(batch, cfg.data.vote_candidates)
+            model.train()
+            optimizer.zero_grad()
+            with collectives.data_parallel(group):
+                if aug is not None:
+                    with trace.span("train.augment"):
+                        batch = augment_batch(batch, generator, **aug)
+                loss, metrics = detector_loss(model, cfg, batch, bn_momentum)
+                with trace.span("train.backward"):
+                    loss.backward()
+            with trace.span("train.optimizer"):
+                optimizer.step()
+            return reduce_metrics(
+                {k: v.detach() for k, v in metrics.items()}, group)
 
     return step
 
@@ -382,7 +389,13 @@ class DetectorTrainBlock:
         card) needs several cards to show.
 
     Nothing inside a block reads a value back to the host, apart from
-    what gloo's collectives do."""
+    what gloo's collectives do.
+
+    Spans (utils/trace.py): "train.block" a call, with "train.capture" and
+    "train.replay" in graph mode. A capture made with the tracer on keeps
+    the captured step's spans as event nodes of the graph (`spans`, a
+    trace.Captured); each call samples the device ms of the last call's
+    last replay where it has finished, before it replays again."""
 
     def __init__(self, model, optimizer: Optimizer, cfg, k: int,
                  aug_dataset: str | None = None, synth_fn=None,
@@ -399,18 +412,22 @@ class DetectorTrainBlock:
         self.graph = None
         self.capture_seconds = None
         self.inputs = self.outputs = None  # the graph's static buffers
+        self.spans = None  # the trace.Captured of the graph's spans
 
     def __call__(self, batches, generator, bn_momentum) -> dict:
-        self.bn_m.fill_(bn_momentum)
-        if self.mode == "eager":
-            out = self._eager(batches, generator)
-        elif self.stream is None:
-            out = self._warm_up(batches, generator)
-        else:
-            if self.graph is None:
-                self._capture(batches, generator)
-            out = self._replay(batches)
-        return {n: out[:, j] for j, n in enumerate(self.names)}
+        with trace.span("train.block"):
+            self.bn_m.fill_(bn_momentum)
+            if self.mode == "eager":
+                out = self._eager(batches, generator)
+            elif self.stream is None:
+                out = self._warm_up(batches, generator)
+            else:
+                if self.graph is None:
+                    self._capture(batches, generator)
+                else:  # the last call's replays, where they are done
+                    self.spans.sample()
+                out = self._replay(batches)
+            return {n: out[:, j] for j, n in enumerate(self.names)}
 
     def _one(self, batch, generator) -> torch.Tensor:
         if self.synth_fn is not None:
@@ -438,27 +455,31 @@ class DetectorTrainBlock:
 
     def _capture(self, batches, generator) -> None:
         t0 = time.perf_counter()
-        self.inputs = (None if batches is None else
-                       {n: v[0].clone() for n, v in batches.items()})
-        graph = torch.cuda.CUDAGraph()
-        registered = []
-        for gen in (generator, *self.generators):
-            if all(gen is not g for g in registered):
-                graph.register_generator_state(gen)
-                registered.append(gen)
-        with torch.cuda.graph(graph, stream=self.stream):
-            self.outputs = self._one(self.inputs, generator)
+        with trace.span("train.capture"):
+            self.inputs = (None if batches is None else
+                           {n: v[0].clone() for n, v in batches.items()})
+            graph = torch.cuda.CUDAGraph()
+            registered = []
+            for gen in (generator, *self.generators):
+                if all(gen is not g for g in registered):
+                    graph.register_generator_state(gen)
+                    registered.append(gen)
+            with (trace.captured() as self.spans,
+                  torch.cuda.graph(graph, stream=self.stream)):
+                self.outputs = self._one(self.inputs, generator)
         self.graph = graph
         self.capture_seconds = time.perf_counter() - t0
 
     def _replay(self, batches) -> torch.Tensor:
-        out = torch.empty(self.k, len(self.names), device=self.device)
-        for i in range(self.k):
-            if batches is not None:
-                for n, t in self.inputs.items():
-                    t.copy_(batches[n][i], non_blocking=True)
-            self.graph.replay()
-            out[i].copy_(self.outputs)
+        with trace.span("train.replay"):
+            out = torch.empty(self.k, len(self.names), device=self.device)
+            for i in range(self.k):
+                if batches is not None:
+                    for n, t in self.inputs.items():
+                        t.copy_(batches[n][i], non_blocking=True)
+                self.graph.replay()
+                out[i].copy_(self.outputs)
+        self.spans.replayed()
         return out
 
 
