@@ -35,9 +35,15 @@ Phases, in order; any failure raises and the script exits nonzero:
     random weights answers requests of 32 scenes x 20480 points through
     serving.build_inference_fn: one warm-up request, then the counted and
     timed ones. Outputs must be finite and of the right shapes, the launch
-    counters must show 5 FPS and 7 ball-query launches per request and no
-    scatter, and one request rerun with the plain ops on the same CUDA
-    tensors must give the same keep mask;
+    counters must show 5 FPS, 7 ball-query and 1 NMS-walk launches per
+    request and no scatter, and one request rerun with the plain ops on
+    the same CUDA tensors must give the same keep mask and launch nothing.
+    Then the NMS walk kernel (csrc/nms.cu) against the plain loop on the
+    walk's recorded inputs of phase 1 (a served request of 32 scenes, one
+    raw scan served at B = 1 as the latency cell serves it, and the parse
+    of the config-#4 eval batch), each launch compared 3 times: keep
+    exactly equal; beside each, the kernel's, the plain loop's and the
+    bound's ms;
  5. the scatter kernel (the gather/group backward, which sums each row
     in index order, whatever its length) on the 9 recorded launches of
     the training step (its own gradients and indices): bitwise equal to
@@ -78,7 +84,8 @@ Phases, in order; any failure raises and the script exits nonzero:
  9. config #4 evaluation: eval_detector.run_eval (preset=outdoor,
     data.device_preproc=true, batch 8) over 12 val scenes of 122880 points
     with a checkpoint of seeded random weights, twice. First sweep: 12 B2
-    launches (one per scene), 5 FPS and 7 ball-query launches per batch,
+    launches (one per scene), 5 FPS, 7 ball-query and 1 NMS-walk launches
+    per batch,
     2 batches (the second padded by scene_mask), finite metrics with
     0 <= mAP <= 1, the FPS caches written. Second sweep, with
     ops_fast_grouping=true ops_fast_mode=sorted: no B2 launch (cache
@@ -90,7 +97,8 @@ Phases, in order; any failure raises and the script exits nonzero:
     per-scene loader, host augmentation, colour features, 3 vote
     candidates, batch 8, one epoch of 8 steps (Batcher, device_prefetch),
     then the val sweep inside training: 5 / 7 / 9 launches a step and
-    5 / 7 an eval batch, finite losses and metrics, best.json and best/
+    5 / 7 / 1 (the NMS walk) an eval batch, finite losses and metrics,
+    best.json and best/
     written; the best snapshot restored into a fresh model and evaluated
     again gives the logged metrics; a second run_detector resumes from
     ckpt_8.pt and not from best/ (planted at another step). Run B: the
@@ -105,7 +113,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     run_detector at preset=outdoor with B2 in the loader
     (data.device_preproc) and host augmentation, batch 8, 4 epochs of 2
     steps, the val sweep after the last: B2 once per scene whose FPS cache
-    it writes, 5 / 7 / 9 launches a step and 5 / 7 a sweep batch (the
+    it writes, 5 / 7 / 9 launches a step and 5 / 7 / 1 a sweep batch (the
     counts of a CPU trace of the same step), finite losses and metrics,
     parameters and BN statistics moved; every scene then cached, a second
     call resumes at step 8 with no launch. Run B: the same root with
@@ -171,17 +179,17 @@ Phases, in order; any failure raises and the script exits nonzero:
     of forward + decode + NMS with FPS and ball query as the custom ops
     of ops/library.py). Phase 4's server, config #5 at 32 x 20480,
     exported and loaded (its export, save and load seconds and bytes;
-    the graph's op nodes 5 fps + 7 ball_query + 2 fp32_cross), one
-    warm-up request, then
-    5 requests: the six outputs bitwise the eager program's, 5 FPS and 7
-    ball-query launches a loaded request, no scatter; ms a request loaded
+    the graph's op nodes 5 fps + 7 ball_query + 2 fp32_cross + 1
+    greedy_suppress), one warm-up request, then 5 requests: the six
+    outputs bitwise the eager program's, 5 FPS, 7 ball-query and 1
+    NMS-walk launches a loaded request, no scatter; ms a request loaded
     and eager (medians). An export under ops_fast_grouping=true
     ops_fast_mode=sorted adds one morton_codes node and one sorted call a
     request, bitwise eager. Then phase 4's model as a checkpoint:
     serving.main ckpt= ... out= at train.batch_size=1, run= on raw scenes
     of 50000 (subsampled) and 12000 (padded) points, detection for
     detection the eager program on prepare_scene_batch's tensors, 5 + 7
-    launches a scene; the same for a ScanNet colour model on 0-255
+    + 1 launches a scene; the same for a ScanNet colour model on 0-255
     colours (source_dataset=scannet: run= scales them by 1/256); then
     python -m tpu3dsad_torch.demo on the first checkpoint in its own
     process: its files, its scene the synthetic train_batch of
@@ -201,10 +209,10 @@ Phases, in order; any failure raises and the script exits nonzero:
     tensor bitwise its source. (c) tpu3dsad_torch.train.main on the
     converted scans from the import (ops_impl=pallas, profile_dir,
     tb_dir): it resumes at step 1, 8 steps of 5 / 5 / 7 launches and 2
-    sweeps of one batch (5 / 5), finite losses, a trace in profile_dir,
+    sweeps of one batch (5 / 5 / 1), finite losses, a trace in profile_dir,
     an event file in tb_dir or, without tensorboard, the note on stderr;
     eval_detector.main on the result (0 <= mAP <= 1); serving.main
-    export at B = 1 and run= on a converted val scene: 5 + 5 launches,
+    export at B = 1 and run= on a converted val scene: 5 + 5 + 1 launches,
     the detections those of the plain ops. (c') train.steps_per_call=2
     from scratch with the first epoch profiled: the CUDA graph captured
     under an active profiler, finite losses. (d) tpu3dsad_torch.train.main
@@ -273,7 +281,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     docs/experiments/r3_18cls_votefactor3.jsonl: 8 x 8192 points, 128
     proposals, lr 2e-3) for its first 50 epochs (400 steps) through
     run_detector at train.seed=2, the val sweep (4 batches) at epoch 49:
-    5 / 7 / 9 launches a step and 5 / 7 a val batch, finite losses,
+    5 / 7 / 9 launches a step and 5 / 7 / 1 a val batch, finite losses,
     printed at the reference log's steps beside its losses, and mAP@0.25
     at least 0.118, half the reference's 0.2352 at that epoch. Then one
     step of the trained model on a host batch, recorded: B1 and B3 equal
@@ -282,8 +290,9 @@ Phases, in order; any failure raises and the script exits nonzero:
     phase's seconds.
 
 Phase 1 also records the inputs of every kernel launch of one served
-request and of one config-#4 eval batch (after loading the batch, which
-runs B2 once per scene) for phases 2, 3 and 8.
+request and of one config-#4 eval batch and its parse (after loading the
+batch, which runs B2 once per scene), and the NMS walk's of one raw scan
+served at B = 1, for phases 2, 3, 4 and 8.
 
 Both sides of each comparison run on the same card; a differing pick is
 printed, never hidden by a tolerance. Kernel times are CUDA-event means
@@ -365,9 +374,11 @@ from tpu3dsad_torch.ops.boxes import oriented_bev_iou
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import build
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+from tpu3dsad_torch.ops.cuda import nms as cuda_nms
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
+from tpu3dsad_torch.ops.plain import greedy_suppress as plain_walk
 from tpu3dsad_torch.ops.plain import knn as plain_knn
 from tpu3dsad_torch.ops.plain import scatter_rows as plain_scatter
 from tpu3dsad_torch.ops.plain.ball_query import radius_sq
@@ -384,6 +395,7 @@ from tpu3dsad_torch.utils import import_torch
 
 B, N = 32, 20480  # BASELINE config #5, as bench.py runs it
 REQUESTS = 5
+SCAN_POINTS = 50000  # a raw scan served at B = 1, as the latency cell does
 # (name, N, npoint) of the 5 FPS calls of one request
 FPS_SHAPES = [("sa1", N, 2048), ("sa2", 2048, 1024), ("sa3", 1024, 512),
               ("sa4", 512, 256), ("proposal", 1024, 256)]
@@ -469,12 +481,12 @@ class Tally:
 def counts() -> dict:
     return {"fps": cuda_fps.launches, "fps_flat": cuda_fps.flat_launches,
             "ball_query": cuda_bq.launches, "sorted": sorted_bq.launches,
-            "scatter": cuda_scatter.launches}
+            "scatter": cuda_scatter.launches, "nms": cuda_nms.launches}
 
 
 def reset_counts() -> None:
     cuda_fps.launches = cuda_fps.flat_launches = cuda_bq.launches = 0
-    sorted_bq.launches = cuda_scatter.launches = 0
+    sorted_bq.launches = cuda_scatter.launches = cuda_nms.launches = 0
 
 
 def launches(**given) -> dict:
@@ -576,15 +588,18 @@ def fps_templates(log: str) -> dict:
 
 @contextlib.contextmanager
 def recording():
-    """Record the inputs of every FPS, ball-query and scatter launch and
-    every three_nn call in the block, {kind: [(args, kwargs)]} with the
-    tensors cloned; each call goes on to the kernel (or three_nn)."""
-    calls = {"fps": [], "ball_query": [], "scatter": [], "three_nn": []}
+    """Record the inputs of every FPS, ball-query, scatter and NMS-walk
+    launch and every three_nn call in the block, {kind: [(args, kwargs)]}
+    with the tensors cloned; each call goes on to the kernel (or
+    three_nn)."""
+    calls = {"fps": [], "ball_query": [], "scatter": [], "three_nn": [],
+             "nms": []}
     layouts = []  # whether each scatter's g came contiguous
     targets = [(cuda_fps, "furthest_point_sample", "fps"),
                (cuda_bq, "ball_query", "ball_query"),
                (cuda_scatter, "scatter_rows", "scatter"),
-               (ops, "three_nn", "three_nn")]
+               (ops, "three_nn", "three_nn"),
+               (cuda_nms, "greedy_suppress", "nms")]
     originals = [getattr(mod, attr) for mod, attr, _ in targets]
 
     def clone(a):
@@ -626,7 +641,8 @@ def capture_train_step(gen) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = tf32  # serving runs as before
     found = {k: len(v) for k, v in calls.items()}
     print(f"  calls: {found}")
-    if found != {"fps": 5, "ball_query": 7, "scatter": 9, "three_nn": 2}:
+    if found != {"fps": 5, "ball_query": 7, "scatter": 9, "three_nn": 2,
+                 "nms": 0}:
         raise AssertionError(f"one training step made {found} calls, not 5 "
                              "FPS, 7 ball query, 9 scatter and 2 three_nn")
     return calls
@@ -634,7 +650,9 @@ def capture_train_step(gen) -> dict:
 
 def capture_request() -> dict:
     """The kernel inputs of one served config-#5 request (the server of
-    phase 4 on a request of its kind), recorded call by call."""
+    phase 4 on a request of its kind), recorded call by call, and under
+    "nms_scan" the NMS walk's of one raw scan of SCAN_POINTS points served
+    at B = 1, as the latency cell serves it."""
     print("== recording the kernel inputs of one config-#5 request")
     _, _, infer = build_server()
     (pts, mask), = make_requests(1, seed=REQUESTS + 1)
@@ -642,9 +660,19 @@ def capture_request() -> dict:
         infer(pts, mask)
     found = {k: len(v) for k, v in calls.items()}
     print(f"  calls: {found}")
-    if (found["fps"], found["ball_query"], found["scatter"]) != (5, 7, 0):
+    if (found["fps"], found["ball_query"], found["scatter"],
+            found["nms"]) != (5, 7, 0, 1):
         raise AssertionError(f"one request made {found} calls, not 5 FPS, "
-                             "7 ball query and 0 scatter")
+                             "7 ball query, 0 scatter and 1 NMS walk")
+    raw = np.random.default_rng(1).uniform(
+        -3, 3, (SCAN_POINTS, 3)).astype(np.float32)
+    manifest = {"batch_size": 1, "num_points": N, "with_features": False}
+    with recording() as scan:
+        infer(*serving.prepare_scene_batch(raw, manifest))
+    if len(scan["nms"]) != 1:
+        raise AssertionError(f"one scan at B = 1 made {len(scan['nms'])} "
+                             "NMS walks, not 1")
+    calls["nms_scan"] = scan["nms"]
     # recorded under inference_mode: plain tensors for the phases below
     return {kind: [([a.clone() if torch.is_tensor(a) else a for a in args],
                     {k: v.clone() if torch.is_tensor(v) else v
@@ -693,13 +721,17 @@ def capture_eval_batch(outdoor: dict) -> tuple[dict, dict]:
     step = train_lib.make_detector_eval_step(model, cfg)
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     with recording() as calls:
-        step(batch)
+        end_points, _ = step(batch)
+        parse_predictions(end_points, model.mean_sizes,
+                          cfg.model.num_heading_bins, cfg.eval)
     found = {k: len(v) for k, v in calls.items()}
     print(f"  loading: {len(loads['fps'])} FPS calls on one cloud each; "
-          f"eval step calls: {found}")
-    if found != {"fps": 5, "ball_query": 7, "scatter": 0, "three_nn": 2}:
+          f"eval step and parse calls: {found}")
+    if found != {"fps": 5, "ball_query": 7, "scatter": 0, "three_nn": 2,
+                 "nms": 1}:
         raise AssertionError(f"one eval batch made {found} calls, not 5 FPS, "
-                             "7 ball query, 0 scatter and 2 three_nn")
+                             "7 ball query, 0 scatter, 2 three_nn and 1 NMS "
+                             "walk")
     return loads, calls
 
 
@@ -1004,9 +1036,10 @@ def phase_serve(card: str) -> dict:
         outs.append(out)
     served = counts()
     print(f"  launches: {served}")
-    if served != launches(fps=5 * REQUESTS, ball_query=7 * REQUESTS):
-        raise AssertionError(f"launch counts {served} != 5, 7 and 0 per "
-                             "request")
+    if served != launches(fps=5 * REQUESTS, ball_query=7 * REQUESTS,
+                          nms=REQUESTS):
+        raise AssertionError(f"launch counts {served} != 5, 7, 1 (NMS) and "
+                             "0 (scatter) per request")
 
     P = cfg.model.num_proposals
     shapes = {"center": (B, P, 3), "size": (B, P, 3), "heading": (B, P),
@@ -1035,6 +1068,39 @@ def phase_serve(card: str) -> dict:
     print(f"  per warm request: {[round(t * 1e3, 3) for t in times]} ms; "
           f"median {med * 1e3:.3f} ms = {B / med:.2f} scenes/s on {card}")
     return {"counts": served, "median_ms": med * 1e3}
+
+
+def phase_nms(serve_calls, eval_calls) -> Tally:
+    """The NMS walk kernel on its recorded inputs (phase 1): COMPARES
+    launches, each exactly the plain loop's keep on the same CUDA tensors,
+    then timed against it. The request of B scenes goes under path serve,
+    the scan at B = 1 under serve_export (the loaded program's B = 1
+    runs), the config-#4 parse under eval4."""
+    print(f"== NMS walk kernel vs the plain loop (exact keep, {COMPARES} "
+          "launches each)")
+    tally = Tally()
+    cases = [("serve", f"request of {B} scenes", serve_calls["nms"][0]),
+             ("serve_export", f"scan of {SCAN_POINTS} points at B = 1",
+              serve_calls["nms_scan"][0]),
+             ("eval4", "config-#4 parse", eval_calls["nms"][0])]
+    for path, label, (args, kw) in cases:
+        iou, scores, valid, _ = args
+        (b, k), kept = scores.shape, None
+        want = plain_walk(*args, **kw)
+        for _ in range(COMPARES):
+            kept = cuda_nms.greedy_suppress(*args, **kw)
+            require_equal(f"nms {path} {label}", kept, want)
+        t = cuda_ms(lambda: cuda_nms.greedy_suppress(*args, **kw), 100)
+        p = cuda_ms(lambda: plain_walk(*args, **kw), 2)
+        # iou, scores and valid read once, keep written once; a cloud's
+        # order takes K^2 key compares and its bitmask K^2 IoU compares
+        bound = tally.add(path, iou.numel() * 4 + b * k * (4 + 1 + 1),
+                          2.0 * b * k * k, t, p)
+        print(f"  {path} {label}: B = {b}, K = {k}, kept {int(kept.sum())} "
+              f"of {int(valid.sum())} valid; kernel {t:.4f} ms  plain "
+              f"{p:.3f} ms  bound {bound:.5f} ms  equal in {COMPARES} "
+              "launches")
+    return tally
 
 
 def add_at(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -1481,7 +1547,9 @@ def plain_keep(cfg, label: str) -> None:
             keeps.append(eval_detector.parse_predictions(
                 ep, model.mean_sizes, cfg.model.num_heading_bins,
                 cfg.eval)["keep"])
-        if (counts() == before) != (impl == "plain"):
+        walks = counts()["nms"] - before["nms"]
+        if (counts() == before) != (impl == "plain") or \
+                walks != (impl != "plain"):
             raise AssertionError(f"{label}: impl {impl} launched "
                                  f"{counts()} from {before}")
     require_equal(f"keep {label} (kernel path vs plain path)", *keeps)
@@ -1497,10 +1565,10 @@ def phase_eval(card: str, outdoor: dict) -> dict:
     sweeps = {}
     for sweep, extra, want in (
             ("exact", [], launches(fps=5 * batches, fps_flat=EVAL_SCENES,
-                                   ball_query=7 * batches)),
+                                   ball_query=7 * batches, nms=batches)),
             ("sorted", SORTED_ARGS, launches(fps=5 * batches,
                                              ball_query=7 * batches,
-                                             sorted=batches))):
+                                             sorted=batches, nms=batches))):
         cfg = eval_config(outdoor["sweep"], outdoor["ckpt"], *extra)
         stages = {"crop+fps": [(kitti, "range_crop"), (kitti, "device_fps")],
                   "forward+parse": [(eval_detector, "parse_predictions")],
@@ -1650,7 +1718,7 @@ def hostfed_runs(card: str, work: Path) -> dict:
                                    num_points=HOSTFED_RAW, seed=0)
     print(f"  wrote the scenes in {time.perf_counter() - t0:.3f} s")
     want = launches(fps=5 * TRAIN_STEPS + 5, ball_query=7 * TRAIN_STEPS + 7,
-                    scatter=9 * TRAIN_STEPS)
+                    scatter=9 * TRAIN_STEPS, nms=1)
 
     # Run A: the per-scene loader, host augmentation, colour
     cfg_a = hostfed_config(root, str(work / "ckpt_a"), "data.use_color=true")
@@ -1761,6 +1829,7 @@ def run_outdoor(label: str, cfg, card: str) -> dict:
     want = {k: step[k] * OUT_STEPS for k in step}
     want["fps"] += step["fps"]  # the sweep's one batch
     want["ball_query"] += step["ball_query"]
+    want["nms"] += 1
     want["fps_flat"] = written
     print(f"  {label} launches: {got}; FPS caches written {written}")
     if got != want or len(t["b2"]) != written:
@@ -1805,7 +1874,7 @@ def capture_outdoor_step(kind: str, cfg, batch) -> tuple[dict, object, dict]:
         grads_of(model, cfg, state, batch,
                  train_lib.bn_momentum_at(cfg.train, 0))
     found = {k: len(v) for k, v in calls.items()}
-    want = {**STEP4[kind], "three_nn": 2}
+    want = {**STEP4[kind], "three_nn": 2, "nms": 0}
     print(f"  {kind} step calls: {found}")
     if found != want:
         raise AssertionError(f"one outdoor {kind} step made {found} calls, "
@@ -2310,7 +2379,7 @@ def phase_train_k(card: str, hostfed_work: Path) -> dict:
                                  f"train.steps_per_call={k}")
             ran = steps if k == 1 else K_STEPS + 1
             want = launches(fps=5 * ran + 5, ball_query=7 * ran + 7,
-                            scatter=9 * ran)
+                            scatter=9 * ran, nms=1)
             result, peak = run_counted(cfg, want, steps)
             if k > 1:
                 total = {n: total[n] + want[n] for n in total}
@@ -2551,7 +2620,7 @@ def cls_train(card: str, work: Path, tallies: dict) -> dict:
     with recording() as calls:
         cls_grads_of(model, state, batch, bn_m)
     found = {k: len(v) for k, v in calls.items()}
-    if found != {**CLS_STEP, "three_nn": 0}:
+    if found != {**CLS_STEP, "three_nn": 0, "nms": 0}:
         raise AssertionError(f"one MSG step made {found} calls")
     scales = [f"sa{lvl}.{s}" for lvl, sa in ((1, MSG_SA1), (2, MSG_SA2))
               for s in range(len(sa["radii"]))]
@@ -2649,10 +2718,11 @@ SERVE_ARGS = ["model.num_classes=10", "data.name=synthetic",
 COLOUR_ARGS = ["data.name=scannet", "data.use_color=true",
                f"data.num_points={N}", "train.batch_size=1"]
 CLI_SCENES = (50000, 12000)  # raw points: subsampled, padded
-SERVED = dict(fps=5, ball_query=7)  # launches a request
+SERVED = dict(fps=5, ball_query=7, nms=1)  # launches a request
 # custom-op nodes of the exported program: the kernels' and the fp32 cross
 # terms of FP1 and FP2's three_nn
-PROGRAM_OPS = {"fps": 5, "ball_query": 7, "fp32_cross": 2}
+PROGRAM_OPS = {"fps": 5, "ball_query": 7, "fp32_cross": 2,
+               "greedy_suppress": 1}
 
 
 @contextlib.contextmanager
@@ -2743,8 +2813,8 @@ def serve_artifact(card: str, work: Path) -> dict:
         loaded_ms.append(ms)
     served = counts()
     if served != launches(**{k: v * REQUESTS for k, v in SERVED.items()}):
-        raise AssertionError(f"loaded program's launches {served} != 5, 7 "
-                             "and 0 a request")
+        raise AssertionError(f"loaded program's launches {served} != 5, 7, "
+                             "1 (NMS) and 0 (scatter) a request")
     eager_ms = []
     for (pts, mask), out in zip(batches, loaded):
         want, ms = synced_ms(lambda: infer(pts, mask))
@@ -2770,7 +2840,7 @@ def serve_artifact(card: str, work: Path) -> dict:
         want = infer(*batches[0])
     finally:
         train_lib.apply_runtime_config(Config())
-    if got != launches(fps=5, ball_query=7, sorted=1):
+    if got != launches(fps=5, ball_query=7, sorted=1, nms=1):
         raise AssertionError(f"sorted program's launches {got}")
     require_bitwise("sorted loaded vs eager request", out, want)
     print(f"  sorted tier (SA1): loaded bitwise eager, launches {got}")
@@ -2922,7 +2992,7 @@ RAW_MODEL = ["model.name=detector", "data.name=scannet",
 RAW_EPOCHS = 2
 RAW_STEPS = RAW_SCANNET[0] // TRAIN_B * RAW_EPOCHS
 # the lineage head: one proposal grouping in place of the bank's three
-LINEAGE_FORWARD = dict(fps=5, ball_query=5)
+LINEAGE_PARSED = dict(fps=5, ball_query=5, nms=1)  # a forward, its parse
 LINEAGE_STEP = dict(fps=5, ball_query=5, scatter=7)
 # k of the run that captures a step's CUDA graph under the profiler
 RAW_K = 2
@@ -3251,7 +3321,7 @@ def raw_train(work: Path, root: str, ckpt: str) -> dict:
     got = counts()
     sweeps = len(t["scenes"])
     want = {k: LINEAGE_STEP.get(k, 0) * RAW_STEPS
-            + LINEAGE_FORWARD.get(k, 0) * sweeps for k in counts()}
+            + LINEAGE_PARSED.get(k, 0) * sweeps for k in counts()}
     print(f"  train entry launches: {got} ({RAW_STEPS} steps, {sweeps} sweep "
           "batches)")
     losses = [h["loss"] for h in result.history]
@@ -3298,7 +3368,7 @@ def raw_train(work: Path, root: str, ckpt: str) -> dict:
                                         f"train.ckpt_dir={ckpt}"])
     eval_counts = counts()
     if (evaluated["ckpt_step"] != result.step or eval_counts != launches(
-            **LINEAGE_FORWARD) or not 0 <= evaluated["mAP@0.25"] <= 1
+            **LINEAGE_PARSED) or not 0 <= evaluated["mAP@0.25"] <= 1
             or not np.isfinite(evaluated["val_loss"])):
         raise AssertionError(f"eval_detector.main: {evaluated}, launches "
                              f"{eval_counts}")
@@ -3317,7 +3387,7 @@ def raw_train(work: Path, root: str, ckpt: str) -> dict:
     serve_counts = counts()
     with ops.use_impl("plain"):
         plain = cli_output([f"run={program}", f"scene={scene}"])["detections"]
-    if serve_counts != launches(**LINEAGE_FORWARD) or dets != plain or \
+    if serve_counts != launches(**LINEAGE_PARSED) or dets != plain or \
             report["ckpt_step"] != result.step:
         raise AssertionError(f"served the import: launches {serve_counts}, "
                              f"{len(dets)} detections vs plain {len(plain)}, "
@@ -4409,7 +4479,7 @@ def phase_recipe(card: str, work: Path, tallies: dict) -> dict:
     got = counts()
     want = launches(fps=5 * (steps + RECIPE_VAL_BATCHES),
                     ball_query=7 * (steps + RECIPE_VAL_BATCHES),
-                    scatter=9 * steps)
+                    scatter=9 * steps, nms=RECIPE_VAL_BATCHES)
     print(f"  launches: {got}")
     if got != want:
         raise AssertionError(f"recipe R1: launches {got} != {want}")
@@ -4450,7 +4520,8 @@ def phase_recipe(card: str, work: Path, tallies: dict) -> dict:
         grads_of(model, cfg, copy.deepcopy(model.state_dict()), batch,
                  train_lib.bn_momentum_at(cfg.train, RECIPE_EPOCHS))
     found = {k: len(v) for k, v in calls.items()}
-    if found != {"fps": 5, "ball_query": 7, "scatter": 9, "three_nn": 2}:
+    if found != {"fps": 5, "ball_query": 7, "scatter": 9, "three_nn": 2,
+                 "nms": 0}:
         raise AssertionError(f"one recipe step made {found} calls")
     gen = torch.Generator(device="cuda").manual_seed(18)
     fps_names = ["sa1", "sa2", "sa3", "sa4", "proposal"]
@@ -4490,6 +4561,7 @@ def main() -> None:
         bq_t = phase_ball_query(gen, serve_calls, train_calls, eval_calls)
         lap("3")
         served = phase_serve(card)
+        nms_t = phase_nms(serve_calls, eval_calls)
         lap("4")
         scatter_t = phase_scatter(gen, train_calls)
         lap("5")
@@ -4581,6 +4653,8 @@ def main() -> None:
               sorted_t),
         entry("scatter_rows", "scatter", "tpu3dsad_torch/csrc/scatter.cu",
               "tpu3dsad/ops/pallas/scatter.py:92", scatter_t),
+        entry("nms_walk", "nms", "tpu3dsad_torch/csrc/nms.cu",
+              "tpu3dsad/ops/nms.py:81", nms_t),
     ]
     print("kernel ms / plain_ms / library_ms / bound_ms: summed over the "
           "main-path shapes of one served request (32 x 20480), one "
@@ -4619,7 +4693,11 @@ def main() -> None:
           "blocks on the data group (path parallel_k, under "
           f"parallel_k_launches), and phase 18's {RECIPE_EPOCHS} epochs of "
           "recipe R1 (8 x 8192 points, 18 classes) with its sweep (path "
-          "recipe, under recipe_launches; its times: one recorded step)")
+          "recipe, under recipe_launches; its times: one recorded step); "
+          "nms_walk's times are on the walk's inputs recorded in phase 1: "
+          f"a request of {B} scenes (serve), a raw scan served at B = 1 "
+          "(serve_export) and the parse of a config-#4 eval batch (eval4), "
+          "and its launches one a parse on every path")
     print("seconds by phase (1: the build and the recordings): " + ", ".join(
         f"{k} {v:.1f}" for k, v in laps.items())
           + f"; in all {time.perf_counter() - t0:.1f}")

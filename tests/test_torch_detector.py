@@ -29,6 +29,7 @@ from tpu3dsad.config import Config, EvalConfig, ModelConfig
 from tpu3dsad.data.synthetic import class_mean_sizes
 from tpu3dsad.models.detector import SizeAdaptiveDetector as JDetector
 from tpu3dsad.ops import boxes as jboxes
+from tpu3dsad.ops.nms import _greedy_suppress as j_greedy_suppress
 from tpu3dsad.ops.nms import nms_aabb as j_nms_aabb
 from tpu3dsad.serving import build_inference_fn as j_build_inference_fn
 from tpu3dsad_torch.eval.parse import parse_predictions
@@ -38,6 +39,9 @@ from tpu3dsad_torch.ops.nms import nms_aabb
 from tpu3dsad_torch.serving import build_inference_fn
 from tpu3dsad_torch.utils.bridge import load_flax_variables
 
+from test_torch_nms_kernel import CASES as NMS_CASES
+from test_torch_nms_kernel import case_id as nms_case_id
+from test_torch_nms_kernel import make_case as make_nms_case
 from test_torch_nn import randomize
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -205,6 +209,72 @@ def test_nms_aabb_equals_jax(cls_nms):
                        sem_cls=jnp.asarray(sem) if cls_nms else None)
     np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
     assert 0 < keep.sum() < valid.sum()  # some boxes suppressed
+
+
+@pytest.mark.parametrize("thresh", [0.02, 0.25, 0.99])
+@pytest.mark.parametrize("cls_nms", [False, True])
+def test_walk_op_on_cpu_is_the_plain_loop_and_jax(cls_nms, thresh):
+    """The custom op tpu3dsad_torch::greedy_suppress on CPU tensors runs
+    the plain loop (no kernel launch) and keeps what the JAX package's
+    nms_aabb keeps, on the class-shifted IoU that nms_aabb builds."""
+    from tpu3dsad_torch.ops import library
+    from tpu3dsad_torch.ops.cuda import nms as cuda_nms
+
+    rng = np.random.default_rng(9)
+    B, K = 3, 40
+    center = rng.uniform(-1, 1, (B, K, 3)).astype(np.float32)
+    size = rng.uniform(0.3, 1.2, (B, K, 3)).astype(np.float32)
+    scores = rng.choice([0.2, 0.5, 0.9], (B, K)).astype(np.float32)  # ties
+    valid = rng.random((B, K)) < 0.8
+    sem = rng.integers(0, 3, (B, K))
+    bmin, bmax = torch.from_numpy(center - size / 2), \
+        torch.from_numpy(center + size / 2)
+    if cls_nms:
+        shift = (torch.from_numpy(sem).float()
+                 * (bmax.max() - bmin.min() + 1.0))[..., None]
+        bmin, bmax = bmin + shift, bmax + shift
+    iou = tboxes.aabb_iou_3d(bmin, bmax, bmin, bmax)
+    args = (iou, torch.from_numpy(scores), torch.from_numpy(valid), thresh)
+    before = cuda_nms.launches
+    keep = library.greedy_suppress(*args)
+    assert cuda_nms.launches == before
+    assert torch.equal(keep, tops.plain.greedy_suppress(*args))
+    jkeep = j_nms_aabb(jnp.asarray(center - size / 2),
+                       jnp.asarray(center + size / 2), jnp.asarray(scores),
+                       jnp.asarray(valid), thresh,
+                       sem_cls=jnp.asarray(sem) if cls_nms else None)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+
+
+@pytest.mark.parametrize("b,k", [(3, 40), (2, 256)],
+                         ids=["B3-K40", "B2-K256"])
+@pytest.mark.parametrize("case", NMS_CASES,
+                         ids=[nms_case_id(c) for c in NMS_CASES])
+def test_walk_op_on_cpu_equals_jax_on_edge_cases(case, b, k):
+    """The op on CPU tensors (the plain loop) keeps what the JAX package's
+    walk keeps on the same IoU matrix: random boxes and IoU exactly at the
+    fp32-rounded threshold (and one ulp either side) or NaN, at the
+    thresholds 0.02, 0.25 and 0.99; tied scores, no candidate valid, none
+    suppressed, one box repeated K times, NaN and signed-zero scores. The
+    card holds the kernel to the plain loop on the same cases
+    (tests/test_torch_nms_kernel.py)."""
+    from tpu3dsad_torch.ops import library
+
+    name, thresh = case
+    iou, scores, valid = make_nms_case(name, b, k, thresh)
+    keep = library.greedy_suppress(
+        *map(torch.from_numpy, (iou, scores, valid)), thresh).numpy()
+    jkeep = j_greedy_suppress(jnp.asarray(iou), jnp.asarray(scores),
+                              jnp.asarray(valid), thresh)
+    np.testing.assert_array_equal(keep, np.asarray(jkeep))
+    if name == "all_invalid":
+        assert not keep.any()
+    elif name == "none_suppressed":
+        np.testing.assert_array_equal(keep, valid)
+    elif name == "repeated":
+        assert (keep.sum(1) == valid.any(1)).all()  # the best one alone
+    elif name == "random" and thresh <= 0.25:
+        assert (keep.sum(1) < valid.sum(1)).any()  # some suppressed
 
 
 def test_unported_options_raise(pair):

@@ -12,7 +12,7 @@ config of tests/e2e/test_serving.py with the same (bridged) weights:
   * prepare_scene_batch's numpy, the PLY / OBJ writers' bytes and the
     demo's files equal the reference's;
   * the exported graph holds one custom-op node per FPS and ball-query
-    call, and the ops pass torch.library.opcheck;
+    call and one for the NMS walk, and the ops pass torch.library.opcheck;
   * a train step after serving and after an export in one process (the
     host-constant cache holds no inference or fake tensor).
 """
@@ -46,6 +46,7 @@ from tpu3dsad_torch.ops import library
 from tpu3dsad_torch.ops import sorted as tsorted
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+from tpu3dsad_torch.ops.cuda import nms as cuda_nms
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.utils import constants, dump
 from tpu3dsad_torch.utils.bridge import load_flax_variables
@@ -194,6 +195,20 @@ def test_exported_graph_holds_one_node_per_kernel_call(exported):
     # the plain FPS takes one argmax a pick (15 for the proposal's 16);
     # the decode's own argmaxes are a few
     assert calls["aten.argmax.default"] < 15
+
+
+def test_exported_graph_holds_one_walk_node(exported):
+    """The NMS walk is one tpu3dsad_torch.greedy_suppress node: no step of
+    the plain loop (its argsort, eye, per-step copies and ORs, scatter)
+    is unrolled into the graph."""
+    program = exported["points"][3]
+    calls = Counter(str(node.target) for node in program.graph.nodes
+                    if node.op == "call_function")
+    assert calls["tpu3dsad_torch.greedy_suppress.default"] == 1
+    for unrolled in ("aten.argsort.stable", "aten.eye.default",
+                     "aten.copy_.default", "aten.__ior__.Tensor",
+                     "aten.bitwise_or.Tensor", "aten.scatter_.src"):
+        assert calls[unrolled] == 0, unrolled
 
 
 def test_serving_cli_roundtrip(tmp_path, capsys):
@@ -365,6 +380,10 @@ def _opcheck_cases():
                                 (xyz, centers, 0.5, 8, mask, perm, perm_c)),
         "morton_codes": (library.morton_codes, (xyz, centers, mask)),
         "fp32_cross": (ops.plain.knn.fp32_cross, (xyz, centers)),
+        "greedy_suppress": (library.greedy_suppress,
+                            (tboxes.aabb_iou_3d(xyz, xyz + 0.5, xyz,
+                                                xyz + 0.5),
+                             xyz[..., 0].contiguous(), mask, 0.25)),
     }
 
 
@@ -378,6 +397,11 @@ def test_custom_ops_pass_opcheck(case):
     got = op(*args)
     if op is ops.plain.knn.fp32_cross:
         assert torch.equal(got, torch.bmm(args[0], args[1].transpose(1, 2)))
+        return
+    if op is library.greedy_suppress:
+        assert got.dtype == torch.bool
+        assert torch.equal(got, ops.plain.greedy_suppress(*args))
+        assert 0 < got.sum() < args[2].sum()  # some kept, some suppressed
         return
     if op is library.fps:
         want = ops.plain.furthest_point_sample(*args[:2], mask=args[2])
@@ -463,13 +487,13 @@ def test_exported_program_keeps_the_distance_product_in_fp32(
 
 def test_cpu_serving_launches_no_kernel(exported):
     before = (cuda_fps.launches, cuda_bq.launches, cuda_scatter.launches,
-              tsorted.launches)
+              tsorted.launches, cuda_nms.launches)
     (_, tcfg, _, tm, ms), _, _, program, *_ = exported["points"]
     pts, mask = map(_t, _scene(np.random.default_rng(8)))
     with torch.no_grad():
         program.module()(pts, mask)
     assert (cuda_fps.launches, cuda_bq.launches, cuda_scatter.launches,
-            tsorted.launches) == before
+            tsorted.launches, cuda_nms.launches) == before
 
 
 # ------------------------------------------------------- dump and demo

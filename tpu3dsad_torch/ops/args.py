@@ -1,4 +1,5 @@
-"""Shape and range checks of the FPS, ball-query and scatter arguments.
+"""Shape and range checks of the FPS, ball-query, scatter and NMS-walk
+arguments.
 
 Both implementations, the plain versions and the kernel wrappers, call
 these once on entry, so each path checks its arguments exactly once.
@@ -50,3 +51,18 @@ def check_scatter(g: torch.Tensor, idx: torch.Tensor, n: int) -> None:
         raise TypeError(f"idx must be an integer tensor, got {idx.dtype}")
     if n <= 0:
         raise ValueError(f"n must be positive, got {n}")
+
+
+def check_nms(iou: torch.Tensor, scores: torch.Tensor,
+              valid: torch.Tensor) -> None:
+    if scores.dim() != 2:
+        raise ValueError(f"scores must be [B, K], got {tuple(scores.shape)}")
+    B, K = scores.shape
+    if iou.shape != (B, K, K):
+        raise ValueError(f"iou must be [B, K, K] = {(B, K, K)}, "
+                         f"got {tuple(iou.shape)}")
+    if valid.shape != scores.shape:
+        raise ValueError(f"valid must be [B, K] = {(B, K)}, "
+                         f"got {tuple(valid.shape)}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid must be bool, got {valid.dtype}")

@@ -58,6 +58,9 @@ _SIGNATURES = {
                               _P),
     # warps a CTA, channel slices, c: CTAs an SM holds (-1: error)
     "tpu3dsad_scatter_occupancy": (_I, _I, _I),
+    # iou, scores, its batch and candidate strides (floats), valid, keep,
+    # b, k, iou threshold, stream
+    "tpu3dsad_nms_walk": (_P, _P, _LL, _LL, _P, _P, _I, _I, _F, _P),
 }
 
 _lib: ctypes.CDLL | None = None

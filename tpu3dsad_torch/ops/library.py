@@ -1,6 +1,6 @@
-"""FPS, ball query and the sorted tier's Morton codes as PyTorch custom
-operators (torch.library), so that an eager call and a program exported
-by torch.export run the same functions:
+"""FPS, ball query, the sorted tier's Morton codes and the NMS walk as
+PyTorch custom operators (torch.library), so that an eager call and a
+program exported by torch.export run the same functions:
 
   * tpu3dsad_torch::fps(xyz, npoint, mask?) -> idx int32 [B, npoint]: B1,
     and B2 for one cloud of more than cuda.fps.FLAT_MIN_N points;
@@ -8,7 +8,10 @@ by torch.export run the same functions:
     perm?, perm_c?) -> (idx int32 [B, M, K], cnt int32 [B, M]): B3, and,
     given the two Z-order permutations, the sorted tier's scan (B4);
   * tpu3dsad_torch::morton_codes(xyz, centers, mask?) -> (codes_x int32
-    [B, N], codes_c int32 [B, M]): the sorted tier's keys.
+    [B, N], codes_c int32 [B, M]): the sorted tier's keys;
+  * tpu3dsad_torch::greedy_suppress(iou, scores, valid, iou_thresh) ->
+    keep bool [B, K]: the greedy NMS walk over a [B, K, K] IoU matrix
+    (csrc/nms.cu), for every NMS flavour of ops/nms.py.
 
 Each op has one implementation that dispatches as the ops API does
 (ops._use_kernel): on a CUDA tensor it launches the kernel through its
@@ -21,8 +24,8 @@ so torch.export traces each call as one node. A program that holds these
 nodes finds them only once this module is imported (import
 tpu3dsad_torch.ops).
 
-The ops have no autograd formula: their outputs are integers, and the ops
-API detaches their inputs.
+The ops have no autograd formula: their outputs are integers or bools,
+and their callers (the ops API, ops/nms.py) detach their inputs.
 """
 
 from typing import Optional
@@ -32,9 +35,10 @@ from torch import Tensor
 
 from tpu3dsad_torch.ops import plain as _plain
 from tpu3dsad_torch.ops import sorted as _sorted
-from tpu3dsad_torch.ops.args import check_ball_query, check_fps
+from tpu3dsad_torch.ops.args import check_ball_query, check_fps, check_nms
 from tpu3dsad_torch.ops.cuda import ball_query as _cuda_bq
 from tpu3dsad_torch.ops.cuda import fps as _cuda_fps
+from tpu3dsad_torch.ops.cuda import nms as _cuda_nms
 
 
 def _kernel(t: Tensor) -> bool:
@@ -97,3 +101,17 @@ def _(xyz, centers, mask=None):
     check_ball_query(xyz, centers, 1, mask)
     return (xyz.new_empty(xyz.shape[:2], dtype=torch.int32),
             xyz.new_empty(centers.shape[:2], dtype=torch.int32))
+
+
+@torch.library.custom_op("tpu3dsad_torch::greedy_suppress", mutates_args=())
+def greedy_suppress(iou: Tensor, scores: Tensor, valid: Tensor,
+                    iou_thresh: float) -> Tensor:
+    if _kernel(iou):
+        return _cuda_nms.greedy_suppress(iou, scores, valid, iou_thresh)
+    return _plain.greedy_suppress(iou, scores, valid, iou_thresh)
+
+
+@greedy_suppress.register_fake
+def _(iou, scores, valid, iou_thresh):
+    check_nms(iou, scores, valid)
+    return scores.new_empty(scores.shape, dtype=torch.bool)

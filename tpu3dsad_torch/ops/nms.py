@@ -7,12 +7,18 @@ candidate if it is valid and not yet suppressed, then suppress every box
 whose IoU with it exceeds the threshold. Class-aware NMS translates each box
 by class_id × span, with span taken over the whole batch, so boxes of
 different classes never overlap.
+
+Each flavour computes its IoU matrix in torch and hands it to one walk,
+the custom op tpu3dsad_torch::greedy_suppress (ops/library.py): one launch
+of csrc/nms.cu on a CUDA tensor, the plain loop of ops/plain/nms.py on the
+CPU or inside ops.use_impl("plain").
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu3dsad_torch.ops import library as _library
 from tpu3dsad_torch.ops.boxes import aabb_iou_3d, oriented_bev_iou
 
 
@@ -53,22 +59,7 @@ def nms_oriented(corners, scores, valid, iou_thresh: float,
 
 
 def _greedy_suppress(iou, scores, valid, iou_thresh):
-    """Greedy NMS given a [B,K,K] IoU matrix, walked in score order.
-
-    Works in sorted coordinates: row i of `over` is the set the i-th best
-    candidate would suppress (never itself), so each step is one row read."""
-    B, K = scores.shape
-    order = torch.argsort(-torch.where(valid, scores, -torch.inf), dim=-1,
-                          stable=True)
-    rows = torch.arange(B, device=scores.device)[:, None]
-    over = iou[rows[..., None], order[:, :, None], order[:, None, :]] > iou_thresh
-    over &= ~torch.eye(K, dtype=torch.bool, device=scores.device)
-    valid_sorted = valid.gather(1, order)
-    suppressed = torch.zeros(B, K, dtype=torch.bool, device=scores.device)
-    keep_sorted = torch.zeros(B, K, dtype=torch.bool, device=scores.device)
-    for i in range(K):
-        kept = valid_sorted[:, i] & ~suppressed[:, i]
-        keep_sorted[:, i] = kept
-        suppressed |= over[:, i] & kept[:, None]
-    keep = torch.zeros_like(keep_sorted).scatter_(1, order, keep_sorted)
-    return keep & valid
+    """keep [B,K] bool of the greedy walk over iou [B,K,K] (bools: nothing
+    to differentiate)."""
+    return _library.greedy_suppress(iou.detach(), scores.detach(), valid,
+                                    float(iou_thresh))

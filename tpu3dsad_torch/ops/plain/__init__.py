@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the point ops.
 
 They run on any device. The ops API sends CPU tensors here; for CUDA
-tensors FPS, ball query and the row scatter-add go to their hand-written
-kernels unless the caller asks for the plain versions by name
+tensors FPS, ball query, the row scatter-add and the NMS walk go to their
+hand-written kernels unless the caller asks for the plain versions by name
 (`ops.use_impl("plain")`).
 """
 
@@ -11,12 +11,14 @@ from tpu3dsad_torch.ops.plain.fps import furthest_point_sample
 from tpu3dsad_torch.ops.plain.group import gather, group_epilogue
 from tpu3dsad_torch.ops.plain.interpolate import interp_weights
 from tpu3dsad_torch.ops.plain.knn import three_nn
+from tpu3dsad_torch.ops.plain.nms import greedy_suppress
 from tpu3dsad_torch.ops.plain.scatter import scatter_rows
 
 __all__ = [
     "ball_query",
     "furthest_point_sample",
     "gather",
+    "greedy_suppress",
     "group_epilogue",
     "interp_weights",
     "scatter_rows",
