@@ -63,7 +63,7 @@ def forward_spans(parent):
 
 SERVED = ([("serve.program", None)] + forward_spans("serve.program")
           + [("parse.decode", "serve.program"),
-             ("parse.nms", "serve.program")])
+             ("parse.nms", "serve.program"), ("parse.iou", "parse.nms")])
 STEP = ([("train.step", None), ("train.augment", "train.step"),
          ("train.forward", "train.step")] + forward_spans("train.forward")
         + [("train.loss", "train.step"), ("train.backward", "train.step"),

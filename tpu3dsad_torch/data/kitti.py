@@ -16,12 +16,19 @@ data.device_preproc=true: one cloud of ~120k points, the cluster kernel
 B2) or as the plain version on the CPU (`host_fps`). Its picks are cached
 next to the scene as `<idx>_fpscache_<n>.npy`, row 0 holding the cropped
 count, the reference's format.
+
+`fit_scene` is the fit of a raw scan (crop -> FPS -> gather -> pad) kept
+on one device, which a server runs on each new scan
+(serving.prepare_scene_batch for a KITTI artifact). Its FPS is `fit_fps`,
+which the loader's `device_fps` runs on the cloud it cropped, so both
+take the same picks from the same kernel.
 """
 
 from __future__ import annotations
 
 import os
 from glob import glob
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +42,8 @@ from tpu3dsad_torch.data.pipeline import (
     pad_boxes,
     recover_owner,
 )
+from tpu3dsad_torch.utils import trace
+from tpu3dsad_torch.utils.constants import device_constant
 
 KITTI_CLASS_NAMES = ("car", "pedestrian", "cyclist")
 KITTI_MEAN_SIZES = np.array(
@@ -60,21 +69,65 @@ def host_fps(points: np.ndarray, m: int) -> np.ndarray:
     return ops.furthest_point_sample(xyz[None], m)[0].numpy()
 
 
+class Fit(NamedTuple):
+    """A raw scan fitted to the program's calling convention (fit_scene)."""
+
+    points: torch.Tensor  # [budget, 3] float32, zero rows after the fit
+    mask: torch.Tensor  # [budget] bool, False on the padding
+    rows: torch.Tensor  # [n] int64: the raw scan's row of each fitted point
+    picks: torch.Tensor | None  # [budget] int32 FPS picks into the cropped
+    # cloud; None where the crop kept no more than `budget` points
+
+
+def fit_fps(xyz: torch.Tensor, budget: int, bucket: int = 4096
+            ) -> torch.Tensor:
+    """FPS of `budget` of the (cropped) points xyz [n, 3] on their device:
+    picks [budget] int32, seeded at the first point, as the loader
+    samples. The cloud is padded to a multiple of `bucket` under a mask,
+    as the reference pads it, so one of more than 65536 points runs the
+    cluster kernel (B2)."""
+    n = xyz.shape[0]
+    padded = -(-n // bucket) * bucket
+    cloud = xyz.new_zeros(1, padded, 3)
+    cloud[0, :n] = xyz
+    valid = (torch.arange(padded, device=xyz.device) < n)[None]
+    return ops.furthest_point_sample(cloud, budget, mask=valid)[0]
+
+
+def fit_scene(points, budget: int, device="cuda", *,
+              bucket: int = 4096) -> Fit:
+    """Fit one raw scan [N, 3+] (an array, or a tensor already on `device`)
+    to `budget` points on `device`, the card unless the caller asks for the
+    CPU: the range crop, fit_fps of `budget` of the cropped points, the
+    gather and the pad to `budget` under a False mask. Everything stays on
+    the device: the crop reads its count back (the shape of what follows),
+    no pick goes to the host."""
+    with trace.span("data.fit"):
+        scan = torch.as_tensor(points).to(device)
+        xyz = scan[:, :3].float()
+        with trace.span("fit.crop"):
+            lo = device_constant(RANGE_MIN, xyz.device)
+            hi = device_constant(RANGE_MAX, xyz.device)
+            rows = ((xyz >= lo) & (xyz <= hi)).all(-1).nonzero()[:, 0]
+        picks = None
+        if rows.shape[0] > budget:
+            with trace.span("fit.fps"):
+                picks = fit_fps(xyz[rows], budget, bucket)
+            rows = rows[picks.long()]
+        k = rows.shape[0]
+        out = xyz.new_zeros(budget, 3)
+        out[:k] = xyz[rows]
+        mask = torch.arange(budget, device=xyz.device) < k
+        return Fit(out, mask, rows, picks)
+
+
 def device_fps(points: np.ndarray, m: int, bucket: int = 4096, *,
                device="cuda") -> np.ndarray:
-    """FPS of m of the points on `device`, the card unless the caller asks
-    for the CPU. The cloud is padded to a multiple of `bucket` with a mask,
-    as the reference pads it; one cloud of more than 65536 points runs the
-    cluster kernel (B2)."""
-    n = points.shape[0]
-    budget = -(-n // bucket) * bucket
-    xyz = np.zeros((1, budget, 3), np.float32)
-    xyz[0, :n] = points[:, :3]
-    mask = np.zeros((1, budget), bool)
-    mask[0, :n] = True
-    idx = ops.furthest_point_sample(torch.from_numpy(xyz).to(device), m,
-                                    mask=torch.from_numpy(mask).to(device))
-    return idx[0].cpu().numpy()
+    """FPS of m of the (already cropped) points on `device`, the card
+    unless the caller asks for the CPU: fit_scene's FPS (fit_fps), the
+    picks brought back for the loader's host gather and cache."""
+    xyz = torch.from_numpy(np.ascontiguousarray(points[:, :3], np.float32))
+    return fit_fps(xyz.to(device), m, bucket).cpu().numpy()
 
 
 class KittiDetectionDataset:

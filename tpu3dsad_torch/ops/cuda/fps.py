@@ -14,8 +14,10 @@ TPU VMEM; the kernel has no upper size, so the port has no third tier.
 `plan` chooses the launch shape, a pure function of (B, N, SM count) that
 the CPU tests pin. `launches` counts B1 launches and `flat_launches` B2
 launches made by these wrappers, so a run can show which entry its main
-path went through; `last_plan` is the plan of the last launch of either,
-`last_cluster` the cluster size of the last B2 launch.
+path went through; `flat_points` sums the points (N, padding included)
+each B2 launch was given, which varies with a scan's crop; `last_plan` is
+the plan of the last launch of either, `last_cluster` the cluster size of
+the last B2 launch.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ class Plan(NamedTuple):
 
 launches = 0
 flat_launches = 0
+flat_points = 0
 last_plan: Plan | None = None
 last_cluster = 0
 
@@ -151,11 +154,12 @@ def fps_flat(xyz: torch.Tensor, npoint: int,
              plans: Sequence[Plan] | None = None) -> torch.Tensor:
     """B2 for one cloud (B == 1) of any N; `plans` overrides plan()'s
     candidates."""
-    global flat_launches, last_plan, last_cluster
+    global flat_launches, flat_points, last_plan, last_cluster
     check_fps(xyz, npoint, mask)
     if xyz.shape[0] != 1:
         raise ValueError(f"fps_flat takes one cloud, got B={xyz.shape[0]}")
     idx, last_plan = _launch("tpu3dsad_fps_flat", xyz, npoint, mask, plans)
     flat_launches += 1
+    flat_points += xyz.shape[1]
     last_cluster = last_plan.cluster
     return idx

@@ -8,10 +8,10 @@ whose IoU with it exceeds the threshold. Class-aware NMS translates each box
 by class_id × span, with span taken over the whole batch, so boxes of
 different classes never overlap.
 
-Each flavour computes its IoU matrix in torch and hands it to one walk,
-the custom op tpu3dsad_torch::greedy_suppress (ops/library.py): one launch
-of csrc/nms.cu on a CUDA tensor, the plain loop of ops/plain/nms.py on the
-CPU or inside ops.use_impl("plain").
+Each flavour computes its IoU matrix in torch (the span "parse.iou") and
+hands it to one walk, the custom op tpu3dsad_torch::greedy_suppress
+(ops/library.py): one launch of csrc/nms.cu on a CUDA tensor, the plain
+loop of ops/plain/nms.py on the CPU or inside ops.use_impl("plain").
 """
 
 from __future__ import annotations
@@ -20,17 +20,19 @@ import torch
 
 from tpu3dsad_torch.ops import library as _library
 from tpu3dsad_torch.ops.boxes import aabb_iou_3d, oriented_bev_iou
+from tpu3dsad_torch.utils import trace
 
 
 def nms_aabb(box_min, box_max, scores, valid, iou_thresh: float,
              sem_cls=None) -> torch.Tensor:
     """box_min/max [B,K,3], scores [B,K], valid [B,K] -> keep [B,K] bool."""
-    if sem_cls is not None:
-        span = box_max.max() - box_min.min() + 1.0
-        shift = (sem_cls.to(box_min.dtype) * span)[..., None]
-        box_min = box_min + shift
-        box_max = box_max + shift
-    iou = aabb_iou_3d(box_min, box_max, box_min, box_max)  # [B,K,K]
+    with trace.span("parse.iou"):
+        if sem_cls is not None:
+            span = box_max.max() - box_min.min() + 1.0
+            shift = (sem_cls.to(box_min.dtype) * span)[..., None]
+            box_min = box_min + shift
+            box_max = box_max + shift
+        iou = aabb_iou_3d(box_min, box_max, box_min, box_max)  # [B,K,K]
     return _greedy_suppress(iou, scores, valid, iou_thresh)
 
 
@@ -49,12 +51,13 @@ def nms_oriented(corners, scores, valid, iou_thresh: float,
                  sem_cls=None) -> torch.Tensor:
     """NMS by the oriented BEV IoU over [B,K,8,3] corners, the IoU that AP
     scores with (eval.use_oriented_nms). Class-aware, it shifts x alone."""
-    if sem_cls is not None:
-        span = corners[..., 0].max() - corners[..., 0].min() + 1.0
-        shift = sem_cls.to(corners.dtype) * span  # [B,K]
-        corners = torch.cat([corners[..., :1] + shift[..., None, None],
-                             corners[..., 1:]], -1)
-    iou = oriented_bev_iou(corners, corners)  # [B,K,K]
+    with trace.span("parse.iou"):
+        if sem_cls is not None:
+            span = corners[..., 0].max() - corners[..., 0].min() + 1.0
+            shift = sem_cls.to(corners.dtype) * span  # [B,K]
+            corners = torch.cat([corners[..., :1] + shift[..., None, None],
+                                 corners[..., 1:]], -1)
+        iou = oriented_bev_iou(corners, corners)  # [B,K,K]
     return _greedy_suppress(iou, scores, valid, iou_thresh)
 
 

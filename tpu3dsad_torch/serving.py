@@ -138,8 +138,13 @@ def prepare_scene_batch(raw: np.ndarray, manifest: dict,
     convention: [points, mask(, features)] on `device`, scene 0 of the
     batch. Oversized clouds subsample without replacement; short clouds
     pad with zeros + mask=False (padding must never join a ball or pollute
-    a pool — duplicate-sampled "real" points would)."""
+    a pool — duplicate-sampled "real" points would). A KITTI artifact's
+    scan (manifest source_dataset "kitti", [P, 4] xyz + intensity) is fitted
+    on `device` as its loader fits it for training and evaluation
+    (data/kitti.py::fit_scene: range crop, FPS, pad)."""
     with trace.span("serve.prepare"):
+        if manifest.get("source_dataset") == "kitti":
+            return _prepare_kitti(raw, manifest, device)
         B, N = manifest["batch_size"], manifest["num_points"]
         pts = raw[:, :3].astype(np.float32)
         sel = (
@@ -162,6 +167,28 @@ def prepare_scene_batch(raw: np.ndarray, manifest: dict,
                     fb[0] /= 256.0
             arrays.append(fb)
         return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _prepare_kitti(raw: np.ndarray, manifest: dict, device) -> list:
+    """prepare_scene_batch of a KITTI scan: fit_scene on `device`, then
+    scene 0 of the batch; the features (columns 3-5 where the scan has
+    them) ride along with the fitted rows."""
+    from tpu3dsad_torch.data.kitti import fit_scene
+
+    B, N = manifest["batch_size"], manifest["num_points"]
+    scan = torch.from_numpy(np.ascontiguousarray(raw, np.float32)).to(device)
+    fit = fit_scene(scan, N, device)
+    points = scan.new_zeros(B, N, 3)
+    points[0] = fit.points
+    mask = torch.zeros(B, N, dtype=torch.bool, device=scan.device)
+    mask[0] = fit.mask
+    out = [points, mask]
+    if manifest.get("with_features"):
+        features = scan.new_zeros(B, N, 3)
+        if scan.shape[1] >= 6:
+            features[0, :fit.rows.shape[0]] = scan[fit.rows, 3:6]
+        out.append(features)
+    return out
 
 
 def detections(out: dict) -> list:

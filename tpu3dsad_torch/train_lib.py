@@ -191,7 +191,9 @@ class Optimizer:
         mu = [self.mu[i] for i in live]
         nu = [self.nu[i] for i in live]
         grads = [p.grad for p in params]
-        collectives.all_reduce_coalesced(grads, self.group)
+        if collectives.active(self.group):
+            with trace.span("train.allreduce"):
+                collectives.all_reduce_coalesced(grads, self.group)
         if self.clip > 0:
             norm = torch.sqrt(sum((g * g).sum() for g in grads))
             keep = norm < self.clip

@@ -37,8 +37,9 @@ mean a record of the window where the cell has such spans:
                     (train.k8.*: replayed steps at k = 8)
   host_step_ms      host ms of train.step             (train.k1.host_step_ms)
   nms_launches_per_request
-                    launch calls inside parse.nms over its calls, profiled
-                    window (latency.nms_launches_per_request)
+                    launch calls inside parse.nms (its IoU's range
+                    parse.iou included) over its calls, profiled window
+                    (latency.nms_launches_per_request)
 
 Needs a CUDA device, as the harness does (it exits 2 without one).
 """
@@ -182,8 +183,10 @@ class Window:
         readings = {key: _mean(spans[clock].get(name, []))
                     for key, name, clock in READINGS}
         if self.range_calls and self.range_calls.get("parse.nms"):
+            # parse.iou, the IoU's range, lies inside parse.nms
             readings["nms_launches_per_request"] = (
-                self.launches.get("parse.nms", 0)
+                (self.launches.get("parse.nms", 0)
+                 + self.launches.get("parse.iou", 0))
                 / self.range_calls["parse.nms"])
         return {
             "units": self.units, "gc": self.gc,
