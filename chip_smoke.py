@@ -118,10 +118,16 @@ Phases, in order; any failure raises and the script exits nonzero:
     parameters and BN statistics moved; every scene then cached, a second
     call resumes at step 8 with no launch. Run B: the same root with
     compact votes, density-biased proposal sampling and oriented NMS: no
-    B2, the same counts; its first host batch decoded on the card is
-    bitwise run A's (points, vote targets and mask); oriented_bev_iou on
-    the card on its sweep's decoded corners within 1e-4 of the host
-    evaluator (4096 pairs, float64 corners). Then the kernel inputs of one step with FPS
+    B2, the same counts and one oriented-IoU launch (its sweep's parse);
+    its first host batch decoded on the card is bitwise run A's (points,
+    vote targets and mask); oriented_bev_iou on the card (the kernel,
+    csrc/iou.cu) on its sweep's decoded corners within 1e-4 of the host
+    evaluator (4096 pairs, float64 corners); the kernel on the inputs of
+    that sweep's oriented parse (8 x 256 class-shifted boxes, the KITTI
+    cell's shape), in 3 launches exactly 0 where the footprints lie apart
+    and within 1e-6 of the plain chain on pairs at least 0.1 m across,
+    timed against it (path train4), with the clipped share of the pairs.
+    Then the kernel inputs of one step with FPS
     sampling and one with density sampling, recorded: B1 and B3 equal to
     plain in 3 launches each, B5 bitwise np.add.at (the FPS step's timed,
     path train4); one step each with FPS sampling, density sampling and
@@ -374,11 +380,13 @@ from tpu3dsad_torch.ops.boxes import oriented_bev_iou
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import build
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+from tpu3dsad_torch.ops.cuda import iou as cuda_iou
 from tpu3dsad_torch.ops.cuda import nms as cuda_nms
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.ops.plain import greedy_suppress as plain_walk
+from tpu3dsad_torch.ops.plain import oriented_bev_iou as plain_iou
 from tpu3dsad_torch.ops.plain import knn as plain_knn
 from tpu3dsad_torch.ops.plain import scatter_rows as plain_scatter
 from tpu3dsad_torch.ops.plain.ball_query import radius_sq
@@ -481,12 +489,14 @@ class Tally:
 def counts() -> dict:
     return {"fps": cuda_fps.launches, "fps_flat": cuda_fps.flat_launches,
             "ball_query": cuda_bq.launches, "sorted": sorted_bq.launches,
-            "scatter": cuda_scatter.launches, "nms": cuda_nms.launches}
+            "scatter": cuda_scatter.launches, "nms": cuda_nms.launches,
+            "iou": cuda_iou.launches}
 
 
 def reset_counts() -> None:
     cuda_fps.launches = cuda_fps.flat_launches = cuda_bq.launches = 0
     sorted_bq.launches = cuda_scatter.launches = cuda_nms.launches = 0
+    cuda_iou.launches = 0
 
 
 def launches(**given) -> dict:
@@ -1830,6 +1840,7 @@ def run_outdoor(label: str, cfg, card: str) -> dict:
     want["fps"] += step["fps"]  # the sweep's one batch
     want["ball_query"] += step["ball_query"]
     want["nms"] += 1
+    want["iou"] += cfg.eval.use_oriented_nms  # the sweep's one parse
     want["fps_flat"] = written
     print(f"  {label} launches: {got}; FPS caches written {written}")
     if got != want or len(t["b2"]) != written:
@@ -1944,22 +1955,41 @@ def loader_b2(tally, root: str) -> None:
           f"{bound:.3f} ms  equal in 3 launches")
 
 
-def oriented_iou_check(cfg, model) -> None:
-    """oriented_bev_iou on the card, on the decoded corners of one sweep
-    batch (scene 0, 64 proposals: 4096 pairs), within 1e-4 of the host
-    evaluator's box3d_iou_oriented given the corners in float64. Given
-    them in float32, as AP does, the evaluator's sequential clip loses
-    boxes at the decoder's 1e-4 m size floor 50 m out (a box against
-    itself scores 0); the pairs where that moves it by 1e-4 or more are
-    counted."""
+def oriented_iou_check(cfg, model, tally: Tally) -> None:
+    """oriented_bev_iou on the card (one launch of the kernel,
+    csrc/iou.cu), on the decoded corners of one sweep batch (scene 0, 64
+    proposals: 4096 pairs), within 1e-4 of the host evaluator's
+    box3d_iou_oriented given the corners in float64. Given them in
+    float32, as AP does, the evaluator's sequential clip loses boxes at
+    the decoder's 1e-4 m size floor 50 m out (a box against itself scores
+    0); the pairs where that moves it by 1e-4 or more are counted. The
+    batch's parse (oriented NMS: one IoU launch) records the kernel's
+    inputs for iou_case."""
     dataset = get_dataset(cfg)
     batch = next(dataset.val_batches(np.random.default_rng(0), TRAIN_B))
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     ep, _ = train_lib.make_detector_eval_step(model, cfg)(batch)
-    parsed = eval_detector.parse_predictions(
-        ep, model.mean_sizes, cfg.model.num_heading_bins, cfg.eval)
+    seen, kernel = [], cuda_iou.oriented_bev_iou
+
+    def record(*args):
+        seen.append([a.clone() for a in args])
+        return kernel(*args)
+
+    cuda_iou.oriented_bev_iou = record
+    try:
+        parsed = eval_detector.parse_predictions(
+            ep, model.mean_sizes, cfg.model.num_heading_bins, cfg.eval)
+    finally:
+        cuda_iou.oriented_bev_iou = kernel
+    if len(seen) != 1:
+        raise AssertionError(f"the oriented parse made {len(seen)} IoU "
+                             "launches, not 1")
     corners = parsed["corners"][0, :64]
+    before = cuda_iou.launches
     got = oriented_bev_iou(corners[None], corners[None])[0].cpu().numpy()
+    if cuda_iou.launches != before + 1:
+        raise AssertionError("oriented_bev_iou on the card did not launch "
+                             "the kernel once")
     c32 = corners.cpu().numpy()
     c64 = c32.astype(np.float64)
     size = parsed["size"][0, :64].cpu().numpy()
@@ -1983,6 +2013,70 @@ def oriented_iou_check(cfg, model) -> None:
           f"{int((size.min(-1) <= 1e-4).sum())} of 64 boxes at the 1e-4 m "
           f"size floor; the evaluator on float32 corners off by >= 1e-4 at "
           f"{fp32_off} pairs)")
+    iou_case(tally, *(a.clone() for a in seen[0]))
+
+
+def footprint_pairs(a: torch.Tensor, b: torch.Tensor):
+    """([B, K, L] footprints' bounds strictly apart (NaN bounds: not),
+    [B, K, L] both footprints at least 0.1 m across) of corners a
+    [B, K, 8, 3] and b [B, L, 8, 3]."""
+    def bounds(c):
+        top = c[..., :4, :2]
+        lo, hi = top.amin(-2), top.amax(-2)  # [B, K, 2]
+        finite = torch.isfinite(top).flatten(-2).all(-1)[..., None]
+        side = (top[..., 1:3, :] - top[..., :2, :]).norm(dim=-1).amin(-1)
+        return (torch.where(finite, lo, torch.nan),
+                torch.where(finite, hi, torch.nan), side)
+
+    lo_a, hi_a, side_a = bounds(a)
+    lo_b, hi_b, side_b = bounds(b)
+    apart = ((hi_a[:, :, None] < lo_b[:, None]) |
+             (hi_b[:, None] < lo_a[:, :, None])).any(-1)
+    wide = (side_a >= 0.1)[:, :, None] & (side_b >= 0.1)[:, None]
+    return apart, wide
+
+
+def iou_case(tally: Tally, a: torch.Tensor, b: torch.Tensor) -> None:
+    """The oriented IoU kernel on the inputs one oriented parse gave it
+    (phase 11's sweep batch, class-shifted as nms_oriented shifts them:
+    the eval-kitti-b8 cell's shape, B = 8, K = L = 256): COMPARES launches,
+    each exactly 0 where the footprints lie apart and within 1e-6 of the
+    plain chain on the pairs whose footprints are both at least 0.1 m
+    across (the slivers listed), then timed against it under path train4;
+    the clipped share of the pairs from the kernel's counter."""
+    print(f"== oriented IoU kernel vs the plain chain ({COMPARES} launches)")
+    (B, K), L = a.shape[:2], b.shape[1]
+    want = plain_iou(a, b)
+    apart, wide = footprint_pairs(a, b)
+    cuda_iou.reset()
+    for _ in range(COMPARES):
+        got = cuda_iou.oriented_bev_iou(a, b)
+        if got[apart].any():
+            raise AssertionError("oriented IoU: a pair whose footprints lie "
+                                 "apart reads other than 0")
+        gap = (got - want).abs()
+        worst = gap[wide].max().item() if wide.any() else 0.0
+        if not worst <= 1e-6:
+            raise AssertionError(f"oriented IoU: |kernel - plain| {worst} on "
+                                 "pairs at least 0.1 m across")
+    clipped, pairs = cuda_iou.clipped(), cuda_iou.pairs
+    thin = ~wide & ~apart
+    t = cuda_ms(lambda: cuda_iou.oriented_bev_iou(a, b), 100)
+    p = cuda_ms(lambda: plain_iou(a, b), 3)
+    # corners read once and the IoU written once; 4 comparisons a pair,
+    # and for a pair that clips ~600 operations (4 steps over at most 8
+    # vertices of ~18 each, the shoelace, the z overlap)
+    bound = tally.add("train4", 4 * (a.numel() + b.numel() + B * K * L),
+                      4.0 * B * K * L + 600.0 * clipped / COMPARES, t, p)
+    tally.max_abs_err = max(tally.max_abs_err, worst)
+    print(f"  B = {B}, K = {K}, L = {L}: clipped {clipped} of {pairs} pairs "
+          f"({100.0 * clipped / pairs:.4f}%) in {COMPARES} launches; "
+          f"bitwise the chain at {int((got == want).sum())} of {got.numel()}"
+          f"; widest gap {worst:.3g} on {int(wide.sum())} pairs at least "
+          f"0.1 m across, {gap[thin].max().item() if thin.any() else 0.0:.3g}"
+          f" on {int(thin.sum())} slivers (not held); kernel {t:.4f} ms  "
+          f"plain {p:.3f} ms  bound {bound:.5f} ms")
+    cuda_iou.reset()
 
 
 def phase_outdoor_train(card: str, tallies: dict) -> dict:
@@ -2065,7 +2159,7 @@ def outdoor_runs(card: str, tallies: dict, work: Path) -> dict:
     if b["counts"]["fps_flat"]:
         raise AssertionError("run B ran B2 on cached scenes")
     model_b = b["result"].model
-    oriented_iou_check(cfg_b, model_b)
+    oriented_iou_check(cfg_b, model_b, tallies["iou"])
     del model_b, b["result"], a["result"], model, state
 
     # the kernel inputs of one step of each head and sampling, against
@@ -4581,9 +4675,10 @@ def main() -> None:
         lap("9")
         hostfed = phase_hostfed(card, work / "hostfed")
         lap("10")
+        iou_t = Tally()
         trained4 = phase_outdoor_train(card, {
             "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t,
-            "fps_flat": flat_t})
+            "fps_flat": flat_t, "iou": iou_t})
         lap("11")
         trained_k = phase_train_k(card, work / "hostfed")
         lap("12")
@@ -4655,6 +4750,8 @@ def main() -> None:
               "tpu3dsad/ops/pallas/scatter.py:92", scatter_t),
         entry("nms_walk", "nms", "tpu3dsad_torch/csrc/nms.cu",
               "tpu3dsad/ops/nms.py:81", nms_t),
+        entry("oriented_iou", "iou", "tpu3dsad_torch/csrc/iou.cu",
+              "tpu3dsad/ops/boxes.py:150", iou_t),
     ]
     print("kernel ms / plain_ms / library_ms / bound_ms: summed over the "
           "main-path shapes of one served request (32 x 20480), one "
@@ -4697,7 +4794,10 @@ def main() -> None:
           "nms_walk's times are on the walk's inputs recorded in phase 1: "
           f"a request of {B} scenes (serve), a raw scan served at B = 1 "
           "(serve_export) and the parse of a config-#4 eval batch (eval4), "
-          "and its launches one a parse on every path")
+          "and its launches one a parse on every path; oriented_iou's times "
+          "are on the inputs of phase 11's oriented parse (train4: 8 scenes "
+          "of 256 boxes, class-shifted), its launches one an oriented "
+          "parse")
     print("seconds by phase (1: the build and the recordings): " + ", ".join(
         f"{k} {v:.1f}" for k, v in laps.items())
           + f"; in all {time.perf_counter() - t0:.1f}")

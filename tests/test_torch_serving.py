@@ -370,6 +370,9 @@ def _opcheck_cases():
                                        .manual_seed(b)) for b in range(2)])
     perm_c = torch.stack([torch.randperm(8, generator=torch.Generator()
                                          .manual_seed(b)) for b in range(2)])
+    corners = tboxes.box_corners(
+        centers, _t(rng.uniform(0.2, 1.0, (2, 8, 3)).astype(np.float32)),
+        _t(rng.uniform(-np.pi, np.pi, (2, 8)).astype(np.float32)))
     return {
         "fps": (library.fps, (xyz, 16, None)),
         "fps_masked": (library.fps, (xyz, 16, mask)),
@@ -384,6 +387,8 @@ def _opcheck_cases():
                             (tboxes.aabb_iou_3d(xyz, xyz + 0.5, xyz,
                                                 xyz + 0.5),
                              xyz[..., 0].contiguous(), mask, 0.25)),
+        "oriented_bev_iou": (library.oriented_bev_iou,
+                             (corners, corners[:, :5])),
     }
 
 
@@ -397,6 +402,10 @@ def test_custom_ops_pass_opcheck(case):
     got = op(*args)
     if op is ops.plain.knn.fp32_cross:
         assert torch.equal(got, torch.bmm(args[0], args[1].transpose(1, 2)))
+        return
+    if op is library.oriented_bev_iou:
+        assert torch.equal(got, ops.plain.oriented_bev_iou(*args))
+        assert got.any()  # some boxes overlap
         return
     if op is library.greedy_suppress:
         assert got.dtype == torch.bool

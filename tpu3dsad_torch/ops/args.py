@@ -1,5 +1,5 @@
-"""Shape and range checks of the FPS, ball-query, scatter and NMS-walk
-arguments.
+"""Shape and range checks of the FPS, ball-query, scatter, NMS-walk and
+oriented-IoU arguments.
 
 Both implementations, the plain versions and the kernel wrappers, call
 these once on entry, so each path checks its arguments exactly once.
@@ -66,3 +66,15 @@ def check_nms(iou: torch.Tensor, scores: torch.Tensor,
                          f"got {tuple(valid.shape)}")
     if valid.dtype != torch.bool:
         raise TypeError(f"valid must be bool, got {valid.dtype}")
+
+
+def check_iou(corners_a: torch.Tensor, corners_b: torch.Tensor) -> None:
+    for name, c in (("corners_a", corners_a), ("corners_b", corners_b)):
+        if c.dim() != 4 or tuple(c.shape[-2:]) != (8, 3):
+            raise ValueError(f"{name} must be [B, K, 8, 3], "
+                             f"got {tuple(c.shape)}")
+        if not c.is_floating_point():
+            raise TypeError(f"{name} must be floating point, got {c.dtype}")
+    if corners_a.shape[0] != corners_b.shape[0]:
+        raise ValueError(f"corners_b batch {corners_b.shape[0]} != "
+                         f"corners_a batch {corners_a.shape[0]}")

@@ -1,5 +1,5 @@
-"""FPS, ball query, the sorted tier's Morton codes and the NMS walk as
-PyTorch custom operators (torch.library), so that an eager call and a
+"""FPS, ball query, the sorted tier's Morton codes, the NMS walk and the
+oriented BEV IoU as PyTorch custom operators (torch.library), so that an eager call and a
 program exported by torch.export run the same functions:
 
   * tpu3dsad_torch::fps(xyz, npoint, mask?) -> idx int32 [B, npoint]: B1,
@@ -11,7 +11,10 @@ program exported by torch.export run the same functions:
     [B, N], codes_c int32 [B, M]): the sorted tier's keys;
   * tpu3dsad_torch::greedy_suppress(iou, scores, valid, iou_thresh) ->
     keep bool [B, K]: the greedy NMS walk over a [B, K, K] IoU matrix
-    (csrc/nms.cu), for every NMS flavour of ops/nms.py.
+    (csrc/nms.cu), for every NMS flavour of ops/nms.py;
+  * tpu3dsad_torch::oriented_bev_iou(corners_a, corners_b) -> iou
+    [B, K, L]: the oriented BEV IoU of [B, K, 8, 3] and [B, L, 8, 3] box
+    corners (csrc/iou.cu), which oriented NMS hands to the walk.
 
 Each op has one implementation that dispatches as the ops API does
 (ops._use_kernel): on a CUDA tensor it launches the kernel through its
@@ -25,7 +28,8 @@ nodes finds them only once this module is imported (import
 tpu3dsad_torch.ops).
 
 The ops have no autograd formula: their outputs are integers or bools,
-and their callers (the ops API, ops/nms.py) detach their inputs.
+or the IoU that NMS walks, and nothing differentiates through them (the
+ops API and ops/nms.py detach the inputs of the others).
 """
 
 from typing import Optional
@@ -35,9 +39,15 @@ from torch import Tensor
 
 from tpu3dsad_torch.ops import plain as _plain
 from tpu3dsad_torch.ops import sorted as _sorted
-from tpu3dsad_torch.ops.args import check_ball_query, check_fps, check_nms
+from tpu3dsad_torch.ops.args import (
+    check_ball_query,
+    check_fps,
+    check_iou,
+    check_nms,
+)
 from tpu3dsad_torch.ops.cuda import ball_query as _cuda_bq
 from tpu3dsad_torch.ops.cuda import fps as _cuda_fps
+from tpu3dsad_torch.ops.cuda import iou as _cuda_iou
 from tpu3dsad_torch.ops.cuda import nms as _cuda_nms
 
 
@@ -115,3 +125,17 @@ def greedy_suppress(iou: Tensor, scores: Tensor, valid: Tensor,
 def _(iou, scores, valid, iou_thresh):
     check_nms(iou, scores, valid)
     return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
+@torch.library.custom_op("tpu3dsad_torch::oriented_bev_iou", mutates_args=())
+def oriented_bev_iou(corners_a: Tensor, corners_b: Tensor) -> Tensor:
+    if _kernel(corners_a):
+        return _cuda_iou.oriented_bev_iou(corners_a, corners_b)
+    check_iou(corners_a, corners_b)
+    return _plain.oriented_bev_iou(corners_a, corners_b)
+
+
+@oriented_bev_iou.register_fake
+def _(corners_a, corners_b):
+    check_iou(corners_a, corners_b)
+    return corners_a.new_empty(corners_a.shape[:2] + corners_b.shape[1:2])

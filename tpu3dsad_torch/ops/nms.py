@@ -8,10 +8,13 @@ whose IoU with it exceeds the threshold. Class-aware NMS translates each box
 by class_id × span, with span taken over the whole batch, so boxes of
 different classes never overlap.
 
-Each flavour computes its IoU matrix in torch (the span "parse.iou") and
-hands it to one walk, the custom op tpu3dsad_torch::greedy_suppress
-(ops/library.py): one launch of csrc/nms.cu on a CUDA tensor, the plain
-loop of ops/plain/nms.py on the CPU or inside ops.use_impl("plain").
+Each flavour computes its IoU matrix (the span "parse.iou"), the
+axis-aligned ones in torch, the oriented one by the custom op
+tpu3dsad_torch::oriented_bev_iou (ops/library.py: one launch of
+csrc/iou.cu on a CUDA tensor), and hands it to one walk, the custom op
+tpu3dsad_torch::greedy_suppress: one launch of csrc/nms.cu on a CUDA
+tensor. On the CPU or inside ops.use_impl("plain") both ops run their
+plain versions (ops/plain/iou.py, ops/plain/nms.py).
 """
 
 from __future__ import annotations

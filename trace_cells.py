@@ -41,6 +41,11 @@ mean a record of the window where the cell has such spans:
                     parse.iou included) over its calls, profiled window
                     (latency.nms_launches_per_request)
 
+and `oriented_iou`, where the window ran oriented NMS: the oriented IoU
+kernel's launches, its box pairs and the pairs it clipped (the footprints'
+bounds met) in the measured window, and clipped / pairs (the wrapper's
+counters, ops/cuda/iou.py).
+
 Needs a CUDA device, as the harness does (it exits 2 without one).
 """
 
@@ -63,6 +68,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from portbench import harness  # noqa: E402
+from tpu3dsad_torch.ops.cuda import iou as cuda_iou  # noqa: E402
 from tpu3dsad_torch.utils import trace  # noqa: E402
 
 # the program's ranges in a profiler trace (portbench's traffic drivers'
@@ -132,6 +138,7 @@ class Window:
         self.units = None
         self.gc = None
         self.launches = self.range_calls = None
+        self.iou = None
         self._pauses: list = []  # (generation, seconds) of each pass
         self._gc_t0 = 0.0
 
@@ -153,12 +160,20 @@ class Window:
                     return loop(seconds)
                 first[0] = False
                 trace.collect()  # set-up's records
+                iou = (cuda_iou.launches, cuda_iou.pairs, cuda_iou.clipped())
                 self._pauses.clear()
                 out = loop(seconds)
                 pauses = list(self._pauses)
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
                 self.records = trace.collect()
+                launches, pairs, clipped = (
+                    cuda_iou.launches - iou[0], cuda_iou.pairs - iou[1],
+                    cuda_iou.clipped() - iou[2])
+                if launches:
+                    self.iou = {"launches": launches, "pairs": pairs,
+                                "clipped": clipped,
+                                "clipped_share": clipped / pairs}
                 self.units = out["units"]
                 self.gc = {}
                 for g in (0, 1, 2):
@@ -197,6 +212,7 @@ class Window:
             "replays": sum(1 for r in records if r["phase"] == "replay"
                            and r["name"] == "train.step"),
             "step_cover": step_cover(records),
+            "oriented_iou": self.iou,
             "launches": None if self.launches is None
             else dict(self.launches),
             "range_calls": None if self.range_calls is None
