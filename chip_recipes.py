@@ -21,8 +21,7 @@ card's name and power limit and each leg's wall seconds, under the log's
 name in <log-dir>/summary.json. Data and checkpoints go under --work
 (default build/recipes, which git ignores). `--leg L` runs leg L alone:
 from scratch for leg 1, else resuming from leg L-1's last checkpoint
-under --work. After R3's last leg the val sweep is timed by stage from
-the best snapshot and from random weights on the same scenes.
+under --work.
 
 The bars: the port's mean mAP over the reference's evals in the last
 quarter of the run (epochs >= 75% of it) must reach the reference's mean
@@ -37,7 +36,6 @@ device. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import shutil
 import subprocess
@@ -340,69 +338,6 @@ def run_recipe(key: str, legs, seed: int, work: Path, log_dir: Path) -> dict:
     return entry
 
 
-def sweep_stages(data_root: str, ckpt_dir: Path, work: Path) -> None:
-    """R3's val sweep (eval_detector.run_eval, eval.use_best=true) from the
-    best snapshot, then from random weights (an empty ckpt_dir) on the same
-    cached scenes: host AP ms a batch against forward + parse, and the
-    boxes AP is given a scene."""
-    from chip_smoke import stage_clock
-    from tpu3dsad_torch import eval_detector, train_detector
-    from tpu3dsad_torch.config import parse_cli
-    from tpu3dsad_torch.eval.ap import APCalculator
-
-    print("== R3's val sweep by stage: the best snapshot, then random "
-          f"weights, on {card_line()}", flush=True)
-    empty = work / "random_weights"
-    shutil.rmtree(empty, ignore_errors=True)
-    for label, ckpt, extra in (("best snapshot", ckpt_dir,
-                                ["eval.use_best=true"]),
-                               ("random weights", empty, [])):
-        cfg = parse_cli([*RECIPES["R3"].legs[-1], f"data.root={data_root}",
-                         f"train.ckpt_dir={ckpt}", *extra])
-        kept = []
-        to_lists = train_detector.predictions_to_lists
-
-        def counted(*a, **kw):
-            lists = to_lists(*a, **kw)
-            kept.extend(len(scene) for scene in lists)
-            return lists
-
-        stages = {"forward+parse": [(eval_detector, "parse_predictions")],
-                  "ap": [(train_detector, "predictions_to_lists"),
-                         (train_detector, "parse_groundtruths"),
-                         (APCalculator, "step"),
-                         (APCalculator, "compute_metrics")]}
-        for sweep in (1, 2):
-            kept.clear()
-            with _patched(train_detector, "predictions_to_lists",
-                          counted), stage_clock(stages) as t:
-                t0 = time.perf_counter()
-                out = eval_detector.run_eval(cfg)
-                wall = time.perf_counter() - t0
-            batches = len(t["scenes"])
-            scenes = sum(t["scenes"])
-            fwd = sum(t["forward+parse"]) / batches * 1e3
-            ap = sum(t["ap"]) / batches * 1e3
-            print(f"  {label}, sweep {sweep} (ckpt step {out['ckpt_step']}, "
-                  f"mAP@0.25 {out['mAP@0.25']}): {scenes / wall:.3f} scenes/s"
-                  f" ({wall:.3f} s, {batches} batches of 8); forward + parse"
-                  f" {fwd:.3f} ms a batch; host AP (lists, ground truth, "
-                  f"AP) {ap:.3f} ms a batch; boxes given to AP a scene "
-                  f"{np.mean(kept):.1f} (min {min(kept)}, max {max(kept)})",
-                  flush=True)
-
-
-@contextlib.contextmanager
-def _patched(owner, attr: str, fn):
-    """owner.attr is fn inside the block."""
-    timed = getattr(owner, attr)
-    setattr(owner, attr, fn)
-    try:
-        yield
-    finally:
-        setattr(owner, attr, timed)
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("recipe", choices=sorted(RECIPES))
@@ -422,9 +357,6 @@ def main(argv=None) -> None:
     print(card_line(), flush=True)
     args.work.mkdir(parents=True, exist_ok=True)
     entry = run_recipe(args.recipe, legs, args.seed, args.work, args.log_dir)
-    if args.recipe == "R3" and legs[-1] == len(recipe.legs) - 1:
-        sweep_stages(write_data(recipe, args.work),
-                     args.work / recipe.name / "ckpt", args.work)
     name = recipe.name + (f"_seed{args.seed}" if args.seed else "")
     print(f"{name}: {entry['verdict']} in {entry['steps']} steps, leg "
           f"seconds {entry['leg_seconds']}", flush=True)

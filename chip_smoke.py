@@ -18,23 +18,19 @@ Phases, in order; any failure raises and the script exits nonzero:
     all-masked and tied clouds, a grid repeated along N (ties across the
     CTAs' slices, B > 1), N not a multiple of C*T, slices wholly masked,
     forced plans that leave CTAs with no point (register and memory
-    tiers), and B = 1 at N = 65536: picks must be exactly equal; beside
-    each, the launch plan (cluster size, threads, points a thread, tier)
-    and the us a round;
+    tiers), and B = 1 at N = 65536: picks must be exactly equal;
  3. the ball-query kernel (B3) against its plain version on the 7
     recorded inputs of a served request, of the training step and of the
     config-#4 eval batch (each launch compared 3 times: idx and cnt
-    exactly equal), beside each its plan, time, the share of tiles its box
-    test skips (computed in torch from the inputs) and its bound; then the
-    7 request shapes on uniform clouds and the edge cases (ties, points at
-    d2 == r2 and one ulp inside, centers at a tile box's faces +- r, masked
-    tiles and an all-masked cloud, N % 32 != 0, K > N, empty and saturated
-    balls, a spatially sorted cloud where most tiles skip) at every
-    template instance of the scan, 3 times each;
+    exactly equal); then the 7 request shapes on uniform clouds and the
+    edge cases (ties, points at d2 == r2 and one ulp inside, centers at a
+    tile box's faces +- r, masked tiles and an all-masked cloud, N % 32 !=
+    0, K > N, empty and saturated balls, a spatially sorted cloud where
+    most tiles skip) at every template instance of the scan, 3 times each;
  4. serving: SizeAdaptiveDetector(ModelConfig(num_classes=10)) with seeded
     random weights answers requests of 32 scenes x 20480 points through
-    serving.build_inference_fn: one warm-up request, then the counted and
-    timed ones. Outputs must be finite and of the right shapes, the launch
+    serving.build_inference_fn: one warm-up request, then the counted
+    ones. Outputs must be finite and of the right shapes, the launch
     counters must show 5 FPS, 7 ball-query and 1 NMS-walk launches per
     request and no scatter, and one request rerun with the plain ops on
     the same CUDA tensors must give the same keep mask and launch nothing.
@@ -42,8 +38,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     walk's recorded inputs of phase 1 (a served request of 32 scenes, one
     raw scan served at B = 1 as the latency cell serves it, and the parse
     of the config-#4 eval batch), each launch compared 3 times: keep
-    exactly equal; beside each, the kernel's, the plain loop's and the
-    bound's ms;
+    exactly equal;
  5. the scatter kernel (the gather/group backward, which sums each row
     in index order, whatever its length) on the 9 recorded launches of
     the training step (its own gradients and indices): bitwise equal to
@@ -51,8 +46,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     exactly equal to the plain version on integer-valued gradients of
     each shape; then the same on heavy collisions (all of U on 8 rows),
     K zeros from masked centers, -1 / >= n indices and an odd width;
-    beside each call, its longest row, its plan, and the kernel's,
-    bound's and index_add_'s ms;
+    beside each call, its longest row;
  6. training: train_detector.run_detector at config #3 (ModelConfig(), 18
     classes, 8 scenes x 40960 points, synthetic batches made on the card)
     for one epoch of 8 steps. Losses must be finite, the counters must show
@@ -69,8 +63,8 @@ Phases, in order; any failure raises and the script exits nonzero:
     compared 3 times, since a missed memory fence shows as a rare wrong
     pick), N just above 65536, N = 786432 (the memory tier), a masked
     tail, an all-masked cloud and duplicated points (ties across the
-    cluster's slices): picks exactly equal; beside each, the plan, the us
-    a round, and the B1 entry's time on the same B = 1 input;
+    cluster's slices): picks exactly equal, and the B1 entry's on the
+    same B = 1 input;
  8. the sorted ball query (B4: the Morton-code kernel, two torch sorts,
     then B3 on the permutations with the map-back in its epilogue) against
     the same glue around the plain version (sorted_views, plain, map_back),
@@ -78,9 +72,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     and an all-masked cloud, 3 times each: idx and cnt exactly equal, the
     kernel's codes equal to the plain ones; counts equal to the exact
     tier's, the chosen set equal to it where a ball holds fewer than K
-    points, and K distinct in-ball points where it is full; beside each,
-    the time of the codes and sorts, of the scan, of the exact kernel on
-    the same input, and the share of tiles skipped in either order;
+    points, and K distinct in-ball points where it is full;
  9. config #4 evaluation: eval_detector.run_eval (preset=outdoor,
     data.device_preproc=true, batch 8) over 12 val scenes of 122880 points
     with a checkpoint of seeded random weights, twice. First sweep: 12 B2
@@ -105,9 +97,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     same root packed (pack_dataset), then data.name=packed with
     augmentation on the card and compact votes: the same counts. One Run-A
     batch through the kernel path and the plain path: the same loss and
-    bitwise the same gradients. Printed: each run's step median (steps
-    2-8) and the median wait on next(batches), the loader's and the
-    copy's ms a batch, the pack time, the sweep's ms and peak memory;
+    bitwise the same gradients;
 11. config #4 training from files: 16 train and 4 val KITTI-format scenes
     of 122880 points (data/synthetic_outdoor.py, seed 1). Run A:
     run_detector at preset=outdoor with B2 in the loader
@@ -125,17 +115,13 @@ Phases, in order; any failure raises and the script exits nonzero:
     evaluator (4096 pairs, float64 corners); the kernel on the inputs of
     that sweep's oriented parse (8 x 256 class-shifted boxes, the KITTI
     cell's shape), in 3 launches exactly 0 where the footprints lie apart
-    and within 1e-6 of the plain chain on pairs at least 0.1 m across,
-    timed against it (path train4), with the clipped share of the pairs.
-    Then the kernel inputs of one step with FPS
-    sampling and one with density sampling, recorded: B1 and B3 equal to
-    plain in 3 launches each, B5 bitwise np.add.at (the FPS step's timed,
-    path train4); one step each with FPS sampling, density sampling and
-    the lineage head (5 / 5 / 7 launches) on the kernel and the plain path:
-    the same loss and bitwise the same gradients; B2 on a loader scene
-    against plain. Printed: each run's step median (steps 2-8), the
-    median wait, B2's ms a scene in the loader, the loader's ms a batch
-    with augmentation, the sweep's ms and peak memory.
+    and within 1e-6 of the plain chain on pairs at least 0.1 m across.
+    Then the kernel inputs of one step with FPS sampling and one with
+    density sampling, recorded: B1 and B3 equal to plain in 3 launches
+    each, B5 bitwise np.add.at; one step each with FPS sampling, density
+    sampling and the lineage head (5 / 5 / 7 launches) on the kernel and
+    the plain path: the same loss and bitwise the same gradients; B2 on a
+    loader scene against plain.
 12. k-step blocks (train.steps_per_call=4: on the card the first block
     runs eagerly, then one step is captured into a CUDA graph and each
     block replays it 4 times). (a) Config #3 with device synth: run_detector
@@ -144,25 +130,22 @@ Phases, in order; any failure raises and the script exits nonzero:
     them: losses, parameters, BN statistics, Adam moments and count; the
     counters see 4 eager steps and the captured one (25 / 35 / 45). Then a
     block built apart: a warm-up block, the capture (one step's launches
-    through the wrappers), 5 replayed blocks on the host clock and one
-    under torch.profiler, which must show 5 FPS, 7 + 7 ball-query and 9
-    scatter kernels a replayed step and no wrapper call. (b) Phase 10's
+    through the wrappers), then one replayed block under torch.profiler,
+    which must show 5 FPS, 7 + 7 ball-query and 9 scatter kernels a
+    replayed step and no wrapper call. (b) Phase 10's
     packed split (run B's options) for 2 epochs at k = 1 and k = 4 through
     the stacked host feed: the counts (k = 4: 5 steps through the
     wrappers), finite losses and sweep; then 3 stacked packed blocks
     (augmented on the card; each at another BN momentum, the rate halved
     after steps 4 and 8) through a block, bitwise 12 eager steps on the
-    same slices. Printed: ms a step at k = 1 and k = 4 (the replayed
-    blocks' median over 4), the capture's ms, the busy share of a replayed
-    block, a replayed step's kernels by name and in all, peak memory with
-    the graph's pool, and for (b) each call's ms and host wait.
+    same slices.
 13. config #1, the PointNet++ classifier (models/classifier.py). (a) The
     SSG model, 40 classes, seeded random weights, answers 20 clouds of
     1024 points one at a time in eval mode (fp32) after a warm-up: finite
     logits, 2 FPS and 2 ball-query launches a cloud and no scatter; one
     cloud's launches equal to the plain versions (FPS and ball-query
-    indices, each timed with its plan) and its logits within rtol 1e-5,
-    atol 1e-6 of the plain path's; ms a cloud and one profiled cloud.
+    indices) and its logits within rtol 1e-5, atol 1e-6 of the plain
+    path's.
     (b) train_classifier.run_classifier trains MSG (40 classes, 16 x 1024
     points, synthetic clouds) for one epoch, cut from the reference's 100
     steps to 8, and its 8-batch val sweep: 2 / 6 / 3 launches a step and
@@ -173,9 +156,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     bitwise the same gradients. (c) The 2 + 6 + 3 launches of that step
     recorded (ball query at K = 16, 32, 128 and 32, 64, 128; the scatter
     323 channels wide, two channel slices): FPS equal in 3 launches, ball
-    query in 3, the scatter bitwise np.add.at; each timed with its plan,
-    plain version, bound and (scatter) index_add_, under the path
-    `classify`; then the step under torch.profiler. (d) The shape
+    query in 3, the scatter bitwise np.add.at. (d) The shape
     benchmark: data/synthetic_shapes.py (64 + 16 meshes of each of 10
     families, seed 0), data/preproc_modelnet.py (4096 points a mesh), then
     run_classifier on r5's recipe (MSG, 512 points, batch 16, lr 1e-3, val
@@ -184,12 +165,11 @@ Phases, in order; any failure raises and the script exits nonzero:
 14. the exported serving program (serving.export_detector: torch.export
     of forward + decode + NMS with FPS and ball query as the custom ops
     of ops/library.py). Phase 4's server, config #5 at 32 x 20480,
-    exported and loaded (its export, save and load seconds and bytes;
-    the graph's op nodes 5 fps + 7 ball_query + 2 fp32_cross + 1
-    greedy_suppress), one warm-up request, then 5 requests: the six
-    outputs bitwise the eager program's, 5 FPS, 7 ball-query and 1
-    NMS-walk launches a loaded request, no scatter; ms a request loaded
-    and eager (medians). An export under ops_fast_grouping=true
+    exported and loaded (the graph's op nodes 5 fps + 7 ball_query + 2
+    fp32_cross + 1 greedy_suppress), one warm-up request, then 5
+    requests: the six outputs bitwise the eager program's, 5 FPS, 7
+    ball-query and 1 NMS-walk launches a loaded request, no scatter. An
+    export under ops_fast_grouping=true
     ops_fast_mode=sorted adds one morton_codes node and one sorted call a
     request, bitwise eager. Then phase 4's model as a checkpoint:
     serving.main ckpt= ... out= at train.batch_size=1, run= on raw scenes
@@ -200,15 +180,14 @@ Phases, in order; any failure raises and the script exits nonzero:
     python -m tpu3dsad_torch.demo on the first checkpoint in its own
     process: its files, its scene the synthetic train_batch of
     default_rng(7), its detections the eager program's (classes equal,
-    the floats within 1e-5). The loaded programs' launches go to the
-    path serve_export of the kernels line (serve_export_launches).
+    the floats within 1e-5).
 15. from raw releases, through the port's own tools. (a) Raw files
     written here from a seed: 32 train + 8 val ScanNet scans of 60000
     vertices (binary PLY, aggregation, segments, axis alignment, the
     label TSV) and 8 + 2 KITTI scans of 120000 points (velodyne, labels,
     calib), converted by python -m tpu3dsad_torch.data.preproc_scannet
     (every scan subsampled to the 50000 cap) and preproc_kitti, each in
-    its own process; data.validate passes on both; ms a scene. (b) A
+    its own process; data.validate passes on both. (b) A
     lineage checkpoint.tar for config #3's model in lineage mode (seeded
     tensors under the lineage's names and shapes) through python -m
     tpu3dsad_torch.utils.import_torch: nothing skipped, each placed
@@ -225,8 +204,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     at preset=outdoor on the converted KITTI scans with B2 in the loader,
     one step: B2 once per scene it caches, 5 / 7 / 9 launches. (e)
     ops.knn at [2, 16384, 16384], k = 16, past its slab limit: the
-    indices of the direct path forced on the same inputs. Its launches
-    go to the path from_raw (from_raw_launches).
+    indices of the direct path forced on the same inputs.
 16. parallelism (tpu3dsad_torch/parallel) on this one card: ranks are
     processes started by parallel.launch.spawn, every one on cuda:0,
     joined by gloo on CUDA tensors, asked for by name (NCCL puts one rank
@@ -241,22 +219,20 @@ Phases, in order; any failure raises and the script exits nonzero:
     gradients within the port's per-tensor bar, the ranks' states
     bitwise equal, 5 / 7 / 9 launches a rank a step; rank 0's first step
     recorded, its FPS and ball-query launches equal to plain and its
-    scatters bitwise np.add.at. Printed: ms a step at world 1 and 2, the
-    gradient all-reduce's ms (one flat buffer), peak memory. (b) The val
+    scatters bitwise np.add.at. (b) The val
     sweep of 2 batches at world 2: every metric within rtol 1e-5 of world
     1's. (c) Context parallelism: config #4's model (preset=outdoor, its
     published widths, cp_stages=2) on one KITTI-style scene of 122880
     points with a masked tail, B = 1, 2 ranks: seed_inds, seed_xyz,
     proposal_xyz, raw_params and objectness_scores bitwise the unsharded
     forward (B1, B3); one collective a pick; rank 0's kernel launches
-    equal to plain; launches a rank, ms of the forward and a pick. (d)
+    equal to plain; launches a rank. (d)
     Hybrid DP x CP on a 2 x 2 mesh of 4 ranks: config #4's SA1 stage and
     a kNN at B = 2 x 122880, bitwise the unsharded ops. (e) The user's
     entry: python -m torch.distributed.run --standalone
     --nproc-per-node=1 -m tpu3dsad_torch.train, NCCL, 2 config-#3 steps
     from 16 ScanNet-format scenes: exit 0. A failing rank fails the
-    phase. Its ranks' launches go to the path parallel
-    (parallel_launches).
+    phase.
 17. data parallelism at train.steps_per_call=4: 2 ranks as in phase 16,
     config #3 at 8 x 40960 in fp32. On a data group of more than one rank
     a block runs its 4 steps eagerly (train_lib.DetectorTrainBlock.mode).
@@ -279,10 +255,6 @@ Phases, in order; any failure raises and the script exits nonzero:
     loss within rtol 1e-5 of world 2's, or 4 x the reversed run's step-1
     distance; steps 2-8 printed beside world 2's and the reversed run's,
     each with its relative gap to world 1, with no bar.
-    Printed: ms a step at world 2 for k = 4 and k = 1 and at world 1 for
-    replayed blocks, the host wait a block of the packed feed, the
-    phase's seconds. The ranks' launches go to the path parallel_k
-    (parallel_k_launches).
 18. recipe R1 of chip_recipes.py (the 18-class host-synthetic recipe of
     docs/experiments/r3_18cls_votefactor3.jsonl: 8 x 8192 points, 128
     proposals, lr 2e-3) for its first 50 epochs (400 steps) through
@@ -291,9 +263,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     printed at the reference log's steps beside its losses, and mAP@0.25
     at least 0.118, half the reference's 0.2352 at that epoch. Then one
     step of the trained model on a host batch, recorded: B1 and B3 equal
-    to plain in 3 launches, B5 bitwise np.add.at, each timed (path
-    recipe, recipe_launches). Printed: the step and wait medians, the
-    phase's seconds.
+    to plain in 3 launches, B5 bitwise np.add.at.
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch and its parse (after loading the
@@ -301,19 +271,10 @@ batch, which runs B2 once per scene), and the NMS walk's of one raw scan
 served at B = 1, for phases 2, 3, 4 and 8.
 
 Both sides of each comparison run on the same card; a differing pick is
-printed, never hidden by a tolerance. Kernel times are CUDA-event means
-over repeated launches; bound_ms is the least time the card could take for
-the same work at NVIDIA's published H100 SXM peaks (3.35 TB/s; 67 TFLOP/s
-fp32 outside the tensor cores). The line before the last is a JSON summary
-of the kernels: times summed over one request, one training step, one
-config-#4 eval batch (one scene for B2) and one config-#4 train step
-(train4; B2: one loader scene), and each path's own under by_path;
-launches count every phase's main-path runs, phase 12's as its wrappers
-see them (the warm-up block and the capture), phase 16's and 17's summed
-over their ranks, and traink_replayed_step_launches and _device_ms a
-replayed step's launches and device time by the profiler (path classify:
-phase 13; serve_export_launches: the loaded programs of phase 14); the
-last line names the device.
+printed, never hidden by a tolerance. Nothing here is timed but the
+phases: the line before the last gives each phase's seconds, the last
+names the device. Kernels alone are timed by profile_port.py, the
+benchmark's cells by portbench/run.py, their spans by trace_cells.py.
 """
 
 from __future__ import annotations
@@ -326,7 +287,6 @@ import io
 import json
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -356,9 +316,7 @@ from tpu3dsad_torch.config import (
 from tpu3dsad_torch.data import (
     get_dataset,
     kitti,
-    preproc_kitti,
     preproc_modelnet,
-    preproc_scannet,
     synthetic_indoor,
     synthetic_outdoor,
     synthetic_shapes,
@@ -371,7 +329,7 @@ from tpu3dsad_torch.data.packed import device_prefetch, pack_dataset
 from tpu3dsad_torch.data.synthetic import classification_batch
 from tpu3dsad_torch.data.synthetic_outdoor import write_dataset
 from tpu3dsad_torch.data.validate import validate_root
-from tpu3dsad_torch.eval.ap import APCalculator, box3d_iou_oriented
+from tpu3dsad_torch.eval.ap import box3d_iou_oriented
 from tpu3dsad_torch.eval.parse import parse_predictions
 from tpu3dsad_torch.models.classifier import MSG_SA1, MSG_SA2, build_classifier
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
@@ -442,48 +400,6 @@ STEP4 = {"fps": dict(fps=5, ball_query=7, scatter=9),
          "lineage": dict(fps=5, ball_query=5, scatter=7)}
 STEP4_ARGS = {"fps": [], "density": ["model.proposal_sampling=density"],
               "lineage": ["model.proposal_mode=lineage"]}
-# NVIDIA's published H100 SXM peaks: HBM bytes/s, fp32 FLOP/s (no tensor
-# cores)
-HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
-
-
-class Tally:
-    """One kernel's numbers, summed over its shapes on each main path: the
-    kernel's, the plain version's and the library call's ms, and the least
-    time the card could take, per shape the larger of bytes / HBM_BPS and
-    operations / FP32_FLOPS."""
-
-    def __init__(self):
-        self.paths = {}
-        self.bound_by = {"bytes": 0.0, "operations": 0.0}
-        self.max_abs_err = 0.0
-
-    def add(self, path: str, nbytes: float, nops: float, ms: float,
-            plain_ms: float, library_ms: float | None = None) -> float:
-        """Add one shape's times; returns its bound in ms."""
-        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, nops / FP32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        self.bound_by["bytes" if t_bytes >= t_ops else "operations"] += bound
-        p = self.paths.setdefault(path, {
-            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-            "library_ms": None if library_ms is None else 0.0})
-        p["ms"] += ms
-        p["plain_ms"] += plain_ms
-        p["bound_ms"] += bound
-        if library_ms is not None:
-            p["library_ms"] += library_ms
-        return bound
-
-    def summary(self) -> dict:
-        """Sums over the paths, and each path's own under by_path."""
-        paths = self.paths.values()
-        lib = [p["library_ms"] for p in paths if p["library_ms"] is not None]
-        return {"max_abs_err": self.max_abs_err,
-                **{k: sum(p[k] for p in paths)
-                   for k in ("ms", "plain_ms", "bound_ms")},
-                "bound_by": max(self.bound_by, key=self.bound_by.get),
-                "library_ms": sum(lib) if lib else None,
-                "by_path": self.paths}
 
 
 def counts() -> dict:
@@ -504,36 +420,14 @@ def launches(**given) -> dict:
     return {k: given.pop(k, 0) for k in counts()} | given
 
 
-def once_ms(fn):
-    """(fn(), its ms by CUDA events), one call with no warm-up: for plain
-    versions that take seconds."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean ms per call over `iters` calls after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def require_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
     """Raise, showing the first differing entry, unless exactly equal.
-    Returns the measured max absolute difference, 0 when it returns."""
+    Returns the measured max absolute difference, 0 when it returns.
+    Integer and bool tensors only: the comparison goes through int64,
+    which would truncate floats (bits_differ compares those)."""
+    if got.is_floating_point() or want.is_floating_point():
+        raise TypeError(f"{name}: require_equal takes integer or bool "
+                        f"tensors, not {got.dtype} and {want.dtype}")
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
                              f"{tuple(want.shape)}")
@@ -745,9 +639,8 @@ def capture_eval_batch(outdoor: dict) -> tuple[dict, dict]:
     return loads, calls
 
 
-def phase_fps(gen, train_calls, eval_calls) -> dict:
+def phase_fps(gen, train_calls, eval_calls) -> None:
     print("== FPS kernel vs plain (exact picks)")
-    tally = Tally()
     names = [name for name, _, _ in FPS_SHAPES]
     cases = [("serve", name, cloud(gen, B, n), m, None)
              for name, n, m in FPS_SHAPES]
@@ -755,7 +648,7 @@ def phase_fps(gen, train_calls, eval_calls) -> dict:
               for path, calls in (("train", train_calls), ("eval4", eval_calls))
               for name, (args, kw) in zip(names, calls["fps"])]
     for path, name, xyz, m, mask in cases:
-        fps_case(tally, path, name, xyz, m, mask)
+        fps_case(path, name, xyz, m, mask)
     Plan = cuda_fps.Plan
     # masked tail, an all-masked cloud, exact distance ties on a grid (in
     # place, and a grid repeated along N so that ties straddle the slices of
@@ -789,43 +682,20 @@ def phase_fps(gen, train_calls, eval_calls) -> dict:
              "B=1 N=65536": (cloud(gen, 1, 65536, -30.0, 30.0), None, 2048,
                              None)}
     for label, (x, mk, m, plans) in cases.items():
-        got = cuda_fps.fps_batched(x, m, mk, plans)
-        used = cuda_fps.last_plan
-        require_equal(f"fps {label}", got, plain_fps(x, m, mask=mk))
-        k = cuda_ms(lambda: cuda_fps.fps_batched(x, m, mk, plans), 3)
-        print(f"  {label} [{x.shape[0]},{x.shape[1]}]->{m}: equal; {k:.3f} "
-              f"ms ({k * 1e3 / (m - 1):.3f} us/round; {plan_text(used)})")
-    return tally
+        require_equal(f"fps {label}", cuda_fps.fps_batched(x, m, mk, plans),
+                      plain_fps(x, m, mask=mk))
+        print(f"  {label} [{x.shape[0]},{x.shape[1]}]->{m}: equal")
 
 
-def fps_case(tally, path, name, xyz, m, mask, compares=1) -> None:
+def fps_case(path, name, xyz, m, mask, compares=1) -> None:
     """One recorded B1 call: `compares` launches, each exactly the plain
-    version's picks; then, where a tally is given, timed against the plain
-    version and added to it under `path`."""
+    version's picks."""
     b, n = xyz.shape[:2]
     want = plain_fps(xyz, m, mask=mask)
     for _ in range(compares):
         got = cuda_fps.furthest_point_sample(xyz, m, mask=mask)
         require_equal(f"fps {path} {name}", got, want)
-    used = cuda_fps.last_plan
-    if tally is None:
-        print(f"  {path} {name:9s} [{b},{n}]->{m}: equal in {compares} "
-              f"launches ({plan_text(used)})")
-        return
-    k = cuda_ms(lambda: cuda_fps.furthest_point_sample(xyz, m, mask=mask), 10)
-    p = cuda_ms(lambda: plain_fps(xyz, m, mask=mask), 2)
-    # each of the m - 1 rounds: 3 sub, 3 mul, 2 add, min, compare per
-    # point; xyz (and mask) read once, idx written once
-    bound = tally.add(path, b * n * (12 + (mask is not None)) + b * m * 4,
-                      10.0 * b * n * (m - 1), k, p)
-    print(f"  {path} {name:9s} [{b},{n}]->{m}: kernel {k:.3f} ms "
-          f"({k * 1e3 / (m - 1):.3f} us/round; {plan_text(used)})  plain "
-          f"{p:.3f} ms  bound {bound:.3f} ms  equal in {compares} launches")
-
-
-def plan_text(plan) -> str:
-    return (f"cluster {plan.cluster} x {plan.threads} threads, "
-            f"{plan.tier}")
+    print(f"  {path} {name:9s} [{b},{n}]->{m}: equal in {compares} launches")
 
 
 # the scan's template instances (centers a warp x loads), each at 4 warps
@@ -843,62 +713,6 @@ def check_bq(label, xyz, centers, r, k, mask, want, **kw):
         require_equal(f"{label} idx", got[0], want[0])
         require_equal(f"{label} cnt", got[1], want[1])
     return got
-
-
-def scan_work(xyz, centers, r, k, mask, idx, cnt, perm=None):
-    """What this data needs of a scan, each center up to its K-th hit (the
-    whole cloud where it has fewer), in the kernel's scan order (the Z
-    order of the sorted tier where perm is given): (points an index-order
-    scan tests, points in the 32-point tiles the conservative box test
-    cannot skip, box tests). Computed in torch from the inputs and the
-    output: tile boxes of the valid points, the separation test with the
-    kernel's fp32 operations and threshold."""
-    B, N, _ = xyz.shape
-    tile = cuda_bq.TILE
-    T = -(-N // tile)
-    valid = (torch.ones(B, N, dtype=torch.bool, device=xyz.device)
-             if mask is None else mask.bool())
-    last = idx[..., -1].long()
-    if perm is not None:
-        xyz = torch.gather(xyz, 1, perm[..., None].expand(B, N, 3))
-        valid = torch.gather(valid, 1, perm)
-        rank = torch.empty_like(perm).scatter_(
-            1, perm, torch.arange(N, device=xyz.device).expand(B, N))
-        last = torch.gather(rank, 1, last)
-    last = torch.where(cnt == k, last, N - 1)  # the last point scanned
-    pts = torch.full((B, T * tile, 3), float("nan"), device=xyz.device)
-    pts[:, :N] = torch.where(valid[..., None], xyz, float("nan"))
-    pts = pts.view(B, T, tile, 3)
-    lo = torch.where(pts.isnan(), float("inf"), pts).amin(2)[:, None]
-    hi = torch.where(pts.isnan(), float("-inf"), pts).amax(2)[:, None]
-    thr = cuda_bq.skip_radius_sq(radius_sq(r))
-    kept = tests = 0
-    tiles = torch.arange(T, device=xyz.device)
-    for s in range(0, centers.shape[1], 256):
-        c = centers[:, s:s + 256, None, :]
-        sep = torch.maximum(lo - c, c - hi).clamp_min(0.0)
-        sep2 = (sep[..., 0] * sep[..., 0] + sep[..., 1] * sep[..., 1]
-                ) + sep[..., 2] * sep[..., 2]
-        upto = tiles <= (last[:, s:s + 256, None] // tile)
-        kept += ((sep2 <= thr) & upto).sum().item()
-        tests += upto.sum().item()
-    return (last + 1).sum().item(), tile * kept, tests
-
-
-def bq_cost(b, n, m, k, mask, work) -> tuple[float, float]:
-    """(bytes, operations) of a ball query on this data: xyz (and mask) and
-    centers read once, idx and cnt written once; 9 operations a point an
-    index-order scan tests, or, where the box test skips tiles, 9 a point
-    of the tiles it keeps and 12 a box test, if fewer."""
-    scanned, kept, tests = work
-    nbytes = b * n * (12 + (mask is not None)) + b * m * 12 + b * m * (k + 1) * 4
-    return nbytes, min(9.0 * scanned, 9.0 * kept + 12.0 * tests)
-
-
-def skip_text(work) -> str:
-    scanned, kept, tests = work
-    return (f"tiles skipped {1 - kept / cuda_bq.TILE / max(tests, 1):.3f}, "
-            f"points a center {scanned:.4g} in order / {kept:.4g} kept")
 
 
 def bq_edge_cases(gen) -> dict:
@@ -947,17 +761,16 @@ def bq_edge_cases(gen) -> dict:
     }
 
 
-def phase_ball_query(gen, serve_calls, train_calls, eval_calls) -> dict:
+def phase_ball_query(gen, serve_calls, train_calls, eval_calls) -> None:
     print(f"== ball-query kernel (B3) vs plain (exact idx and cnt, "
           f"{COMPARES} launches each)")
-    tally = Tally()
     names = [name for name, *_ in BQ_SHAPES]
     cases = [(path, name, *args, kw.get("mask"))
              for path, calls in (("serve", serve_calls), ("train", train_calls),
                                  ("eval4", eval_calls))
              for name, (args, kw) in zip(names, calls["ball_query"])]
     for path, name, xyz, centers, r, k, mask in cases:
-        bq_case(tally, path, name, xyz, centers, r, k, mask)
+        bq_case(path, name, xyz, centers, r, k, mask)
     for name, n, m, r, k in BQ_SHAPES:  # uniform clouds, centers unordered
         xyz = cloud(gen, B, n)
         centers = xyz[:, :m].contiguous()
@@ -969,36 +782,18 @@ def phase_ball_query(gen, serve_calls, train_calls, eval_calls) -> dict:
         for launch in EDGE_PLANS:
             check_bq(f"ball_query {label} ({launch})", x, c, r, k, mk, want,
                      launch=launch)
-        work = scan_work(x, c, r, k, mk, *want)
-        per = tuple(w / (x.shape[0] * c.shape[1]) for w in work)
         print(f"  {label}: equal at {len(EDGE_PLANS)} launch shapes (cnt min "
-              f"{want[1].min().item()} max {want[1].max().item()}; "
-              f"{skip_text(per)})")
-    return tally
+              f"{want[1].min().item()} max {want[1].max().item()})")
 
 
-def bq_case(tally, path, name, xyz, centers, r, k, mask) -> None:
+def bq_case(path, name, xyz, centers, r, k, mask) -> None:
     """One recorded B3 call: COMPARES launches exactly equal to the plain
-    version (idx and cnt); then, where a tally is given, timed against
-    the plain version, with its bound, and added under `path`."""
-    (b, n), m = xyz.shape[:2], centers.shape[1]
-    want = plain_bq(xyz, centers, r, k, mask=mask)
-    gi, gc = check_bq(f"ball_query {path} {name}", xyz, centers, r, k, mask,
-                      want)
-    used = cuda_bq.last_plan
-    work = scan_work(xyz, centers, r, k, mask, gi, gc)
-    per = tuple(w / (b * m) for w in work)
-    if tally is None:
-        print(f"  {path} {name:9s} N={n} M={m} r={r:g} K={k}: equal in "
-              f"{COMPARES} launches ({used}); {skip_text(per)}; mean cnt "
-              f"{gc.float().mean():.2f}")
-        return
-    t = cuda_ms(lambda: cuda_bq.ball_query(xyz, centers, r, k, mask=mask), 10)
-    p = cuda_ms(lambda: plain_bq(xyz, centers, r, k, mask=mask), 2)
-    bound = tally.add(path, *bq_cost(b, n, m, k, mask, work), t, p)
-    print(f"  {path} {name:9s} N={n} M={m} r={r:g} K={k}: kernel {t:.3f}"
-          f" ms ({used})  plain {p:.3f} ms  bound {bound:.3f} ms  equal; "
-          f"{skip_text(per)}; mean cnt {gc.float().mean():.2f}")
+    version (idx and cnt)."""
+    n, m = xyz.shape[1], centers.shape[1]
+    _, gc = check_bq(f"ball_query {path} {name}", xyz, centers, r, k, mask,
+                     plain_bq(xyz, centers, r, k, mask=mask))
+    print(f"  {path} {name:9s} N={n} M={m} r={r:g} K={k}: equal in "
+          f"{COMPARES} launches; mean cnt {gc.float().mean():.2f}")
 
 
 def build_server():
@@ -1025,25 +820,14 @@ def make_requests(count: int, seed: int = 0) -> list:
     return batches
 
 
-def phase_serve(card: str) -> dict:
+def phase_serve() -> None:
     print(f"== serving 1 warm-up + {REQUESTS} requests of {B} scenes x "
           f"{N} points")
     cfg, _, infer = build_server()
     warmup, *batches = make_requests(REQUESTS + 1, seed=0)
-    t0 = time.perf_counter()
     infer(*warmup)
-    torch.cuda.synchronize()
-    print(f"  warm-up request (cuBLAS, allocator): "
-          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
-
     reset_counts()
-    times, outs = [], []
-    for pts, mask in batches:
-        t0 = time.perf_counter()
-        out = infer(pts, mask)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        outs.append(out)
+    outs = [infer(pts, mask) for pts, mask in batches]
     served = counts()
     print(f"  launches: {served}")
     if served != launches(fps=5 * REQUESTS, ball_query=7 * REQUESTS,
@@ -1074,43 +858,28 @@ def phase_serve(card: str) -> dict:
     dc = (outs[0]["center"] - plain["center"]).abs().max().item()
     print(f"  plain-ops rerun of request 0: keep and sem_cls identical, "
           f"center max |diff| {dc:.3g}")
-    med = statistics.median(times)
-    print(f"  per warm request: {[round(t * 1e3, 3) for t in times]} ms; "
-          f"median {med * 1e3:.3f} ms = {B / med:.2f} scenes/s on {card}")
-    return {"counts": served, "median_ms": med * 1e3}
 
 
-def phase_nms(serve_calls, eval_calls) -> Tally:
+def phase_nms(serve_calls, eval_calls) -> None:
     """The NMS walk kernel on its recorded inputs (phase 1): COMPARES
-    launches, each exactly the plain loop's keep on the same CUDA tensors,
-    then timed against it. The request of B scenes goes under path serve,
-    the scan at B = 1 under serve_export (the loaded program's B = 1
-    runs), the config-#4 parse under eval4."""
+    launches, each exactly the plain loop's keep on the same CUDA
+    tensors: a request of B scenes, a scan at B = 1 and the config-#4
+    parse."""
     print(f"== NMS walk kernel vs the plain loop (exact keep, {COMPARES} "
           "launches each)")
-    tally = Tally()
-    cases = [("serve", f"request of {B} scenes", serve_calls["nms"][0]),
-             ("serve_export", f"scan of {SCAN_POINTS} points at B = 1",
+    cases = [(f"request of {B} scenes", serve_calls["nms"][0]),
+             (f"scan of {SCAN_POINTS} points at B = 1",
               serve_calls["nms_scan"][0]),
-             ("eval4", "config-#4 parse", eval_calls["nms"][0])]
-    for path, label, (args, kw) in cases:
-        iou, scores, valid, _ = args
+             ("config-#4 parse", eval_calls["nms"][0])]
+    for label, (args, kw) in cases:
+        _, scores, valid, _ = args
         (b, k), kept = scores.shape, None
         want = plain_walk(*args, **kw)
         for _ in range(COMPARES):
             kept = cuda_nms.greedy_suppress(*args, **kw)
-            require_equal(f"nms {path} {label}", kept, want)
-        t = cuda_ms(lambda: cuda_nms.greedy_suppress(*args, **kw), 100)
-        p = cuda_ms(lambda: plain_walk(*args, **kw), 2)
-        # iou, scores and valid read once, keep written once; a cloud's
-        # order takes K^2 key compares and its bitmask K^2 IoU compares
-        bound = tally.add(path, iou.numel() * 4 + b * k * (4 + 1 + 1),
-                          2.0 * b * k * k, t, p)
-        print(f"  {path} {label}: B = {b}, K = {k}, kept {int(kept.sum())} "
-              f"of {int(valid.sum())} valid; kernel {t:.4f} ms  plain "
-              f"{p:.3f} ms  bound {bound:.5f} ms  equal in {COMPARES} "
-              "launches")
-    return tally
+            require_equal(f"nms {label}", kept, want)
+        print(f"  {label}: B = {b}, K = {k}, kept {int(kept.sum())} of "
+              f"{int(valid.sum())} valid; equal in {COMPARES} launches")
 
 
 def add_at(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -1142,11 +911,11 @@ def longest_row(idx: torch.Tensor, n: int) -> int:
     return int(torch.bincount(flat, minlength=idx.shape[0] * n).max())
 
 
-def check_scatter(name, g, idx, n, gen) -> dict:
+def check_scatter(name, g, idx, n, gen) -> int:
     """The kernel on integer-valued gradients of g's shape equal to the
     plain version (exact in any order); on g itself the same bits in 3
-    launches, and bitwise np.add.at on the host. Returns the longest row
-    and max |kernel - plain| on g."""
+    launches, and bitwise np.add.at on the host. Returns the longest
+    row."""
     whole = torch.randint(-64, 65, g.shape, device="cuda",
                           generator=gen).float()
     got = cuda_scatter.scatter_rows(whole, idx, n)
@@ -1159,45 +928,24 @@ def check_scatter(name, g, idx, n, gen) -> dict:
             raise AssertionError(f"scatter {name}: launches differ {at}")
     if (at := bits_differ(outs[0].cpu(), add_at(g, idx, n))) is not None:
         raise AssertionError(f"scatter {name}: kernel != np.add.at {at}")
-    err = (outs[0] - plain_scatter(g, idx, n)).abs().max().item()
-    return {"longest": longest_row(idx, n), "vs_plain": err}
+    return longest_row(idx, n)
 
 
-def scatter_case(tally, path, g, idx, n, gen) -> None:
-    """One recorded B5 call (check_scatter); then, where a tally is given,
-    timed against the plain version and index_add_, and added under
-    `path`."""
-    B, U, C = g.shape
+def scatter_case(path, g, idx, n, gen) -> None:
+    """One recorded B5 call (check_scatter)."""
+    _, U, C = g.shape
     name = f"{path} n={n} U={U} C={C}"
-    found = check_scatter(name, g, idx, n, gen)
-    if tally is None:
-        print(f"  {name:28s}: bitwise np.add.at, the same bits in 3 "
-              f"launches, equal to plain on integer g; longest row "
-              f"{found['longest']}; {cuda_scatter.last_plan}")
-        return
-    tally.max_abs_err = max(tally.max_abs_err, found["vs_plain"])
-    flat = (idx.long() + torch.arange(B, device="cuda")[:, None] * n
-            ).flatten()
-    rows = g.reshape(B * U, C)
-    t = cuda_ms(lambda: cuda_scatter.scatter_rows(g, idx, n), 20)
-    p = cuda_ms(lambda: plain_scatter(g, idx, n), 5)
-    lib = cuda_ms(lambda: torch.zeros(B * n, C, device="cuda").index_add_(
-        0, flat, rows), 20)
-    bound = tally.add(path, 4 * (B * U * C + B * U + B * n * C), B * U * C,
-                      t, p, lib)
-    print(f"  {name:28s}: kernel {t:.3f} ms  plain {p:.3f} ms  "
-          f"index_add_ {lib:.3f} ms  bound {bound:.3f} ms  longest row "
-          f"{found['longest']}; {cuda_scatter.last_plan}; bitwise "
-          f"np.add.at, |kernel - plain| {found['vs_plain']:.3g}")
+    longest = check_scatter(name, g, idx, n, gen)
+    print(f"  {name:28s}: bitwise np.add.at, the same bits in 3 launches, "
+          f"equal to plain on integer g; longest row {longest}")
 
 
-def phase_scatter(gen, train_calls) -> dict:
+def phase_scatter(gen, train_calls) -> None:
     print("== scatter kernel at the training step's launches: bitwise "
           "np.add.at and the same bits in 3 launches (integer g: equal to "
           "plain)")
-    tally = Tally()
     for args, _ in train_calls["scatter"]:
-        scatter_case(tally, "train", *args, gen)
+        scatter_case("train", *args, gen)
     # heavy collisions, masked centers' zeros, out-of-range indices, odd
     # widths
     zeros = torch.randint(0, 1024, (TRAIN_B, 8192), device="cuda",
@@ -1213,12 +961,9 @@ def phase_scatter(gen, train_calls) -> dict:
                                     generator=gen), 300, 47)}
     for label, (idx, n, C) in cases.items():
         g = 8.0 * torch.randn(*idx.shape, C, device="cuda", generator=gen)
-        found = check_scatter(label, g, idx, n, gen)
-        t = cuda_ms(lambda: cuda_scatter.scatter_rows(g, idx, n), 5)
+        longest = check_scatter(label, g, idx, n, gen)
         print(f"  {label}: equal on integer g; the same bits in 3 launches; "
-              f"bitwise np.add.at; longest row {found['longest']}; "
-              f"{cuda_scatter.last_plan}; {t:.3f} ms")
-    return tally
+              f"bitwise np.add.at; longest row {longest}")
 
 
 def train_config(ckpt_dir: str) -> Config:
@@ -1267,17 +1012,14 @@ def check_precision(nn_calls) -> None:
           f"{(prods[0] - prods[1]).abs().max().item():.3g}")
 
 
-def phase_train(card: str, gen, nn_calls) -> dict:
+def phase_train(gen, nn_calls) -> None:
     print(f"== training: run_detector, config #3, {TRAIN_B} x {TRAIN_N} "
           f"points, {TRAIN_STEPS} steps")
     ckpt = tempfile.mkdtemp(prefix="tpu3dsad_torch_ckpt_")
     cfg = train_config(ckpt)
-    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     result = run_detector(cfg)
     trained = counts()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
     print(f"  launches: {trained}")
     if trained != launches(fps=5 * TRAIN_STEPS, ball_query=7 * TRAIN_STEPS,
                            scatter=9 * TRAIN_STEPS):
@@ -1286,16 +1028,7 @@ def phase_train(card: str, gen, nn_calls) -> dict:
     losses = [h["loss"] for h in result.history]
     if result.step != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"steps {result.step}, losses {losses}")
-    for h in result.history:
-        print(f"  step {h['step']}: loss {h['loss']:.6f}  "
-              f"{h['seconds'] * 1e3:.3f} ms")
-    warm = [h["seconds"] for h in result.history[1:]]
-    med = statistics.median(warm)
-    wait = statistics.median(h["wait"] for h in result.history[1:])
-    print(f"  median warm step {med * 1e3:.3f} ms = {TRAIN_B / med:.2f} "
-          f"scenes/s (of it {wait * 1e3:.3f} ms in next(batches), which "
-          f"queues the batch's making on the card); first step {result.history[0]['seconds'] * 1e3:.3f} "
-          f"ms; peak memory allocated {peak / 2**30:.3f} GiB on {card}")
+    print(f"  losses {[round(x, 6) for x in losses]}")
 
     model = result.model
     fresh = build_detector(cfg, model.mean_sizes).state_dict()
@@ -1319,7 +1052,6 @@ def phase_train(card: str, gen, nn_calls) -> dict:
     batch = synthetic_detection_batch(gen, TRAIN_B, TRAIN_N, 18,
                                       vote_candidates=3)
     kernel_vs_plain("one step", model, cfg, state, batch)
-    return {"counts": trained, "median_ms": med * 1e3, "peak_bytes": peak}
 
 
 def kernel_vs_plain(label: str, model, cfg, state, batch,
@@ -1343,20 +1075,16 @@ def kernel_vs_plain(label: str, model, cfg, state, batch,
     if not torch.equal(lk, lp):
         raise AssertionError(f"{label} loss: kernel path {lk.item()!r} vs "
                              f"plain path {lp.item()!r}")
-    most = 0.0
     for name, want in gp.items():
         if (at := bits_differ(gk[name], want)) is not None:
             raise AssertionError(f"{label} grad {name}: kernel path != "
                                  f"plain path {at}")
-        most = max(most, (gk[name] - want).abs().max().item())
     print(f"  {label}, kernel path vs plain path: loss {lk.item():.6f} "
-          f"equal; {len(gp)} gradients bitwise equal (max |kernel - plain| "
-          f"{most!r})")
+          f"equal; {len(gp)} gradients bitwise equal")
 
 
-def phase_fps_flat(gen, scene_call) -> dict:
+def phase_fps_flat(gen, scene_call) -> None:
     print("== large-cloud FPS kernel (B2, cluster) vs plain (exact picks)")
-    tally = Tally()
     (xyz, m), kw = scene_call
     n = 100000
     tail = torch.ones(1, n, dtype=torch.bool, device="cuda")
@@ -1374,29 +1102,15 @@ def phase_fps_flat(gen, scene_call) -> dict:
         ("duplicates", grid.repeat(1, 10, 1).contiguous(), 1024, None),
     ]
     for label, x, m, mask in cases:
-        n = x.shape[1]
-        want, p = once_ms(lambda: plain_fps(x, m, mask=mask))
+        want = plain_fps(x, m, mask=mask)
         # the scene three times: a missed fence shows as a rare wrong pick
         for _ in range(3 if label.startswith("eval4") else 1):
             got = cuda_fps.fps_flat(x, m, mask)
             require_equal(f"fps_flat {label}", got, want)
-        used, cluster = cuda_fps.last_plan, cuda_fps.last_cluster
-        b1, b1_ms = once_ms(lambda: cuda_fps.fps_batched(x, m, mask))
-        require_equal(f"fps B1 at B=1 {label}", b1, want)
-        k = cuda_ms(lambda: cuda_fps.fps_flat(x, m, mask),
-                    5 if label.startswith("eval4") else 3)
-        # phase 2's count: 10 fp32 operations a point in each of the m - 1
-        # rounds; xyz (and mask) read once, idx written once
-        nbytes, nops = n * (12 + (mask is not None)) + m * 4, 10.0 * n * (m - 1)
-        if label.startswith("eval4"):
-            bound = tally.add("eval4", nbytes, nops, k, p)
-        else:
-            bound = max(nbytes / HBM_BPS, nops / FP32_FLOPS) * 1e3
-        print(f"  {label:12s} [1,{n}]->{m}: kernel {k:.3f} ms "
-              f"({k * 1e3 / max(m - 1, 1):.3f} us/round; cluster {cluster}, "
-              f"{plan_text(used)})  B1 entry {b1_ms:.3f} ms  plain {p:.3f} "
-              f"ms  bound {bound:.3f} ms  equal")
-    return tally
+        require_equal(f"fps B1 at B=1 {label}",
+                      cuda_fps.fps_batched(x, m, mask), want)
+        print(f"  {label:12s} [1,{x.shape[1]}]->{m}: equal, and the B1 "
+              "entry's")
 
 
 def in_ball_check(label, xyz, centers, r, k, mask, idx, cnt, exact_idx,
@@ -1431,23 +1145,22 @@ def in_ball_check(label, xyz, centers, r, k, mask, idx, cnt, exact_idx,
         raise AssertionError(f"{label}: a chosen point is not in its ball")
 
 
-def phase_sorted(gen, eval_calls, serve_sa1, train_sa1) -> dict:
+def phase_sorted(gen, eval_calls, serve_sa1, train_sa1) -> None:
     print(f"== sorted ball query (B4: Morton-code kernel, torch sorts, B3 "
           f"with the map-back in its epilogue) vs glue + plain (exact idx and"
           f" cnt, {COMPARES} calls each)")
-    tally = Tally()
     junk = cloud(gen, 4, 8192)
     junk_mask = torch.rand(4, 8192, device="cuda", generator=gen) < 0.7
     junk[~junk_mask] = cloud(gen, 1, int((~junk_mask).sum()), -50.0, 50.0)[0]
     junk_mask[3] = False  # an all-masked cloud
-    cases = [("eval4", "config #4 SA1", *eval_calls["ball_query"][0][0],
+    cases = [("config #4 SA1", *eval_calls["ball_query"][0][0],
               eval_calls["ball_query"][0][1].get("mask")),
-             ("serve", "config #5 SA1", *serve_sa1[0], serve_sa1[1].get("mask")),
-             ("train", "config #3 SA1", *train_sa1[0], train_sa1[1].get("mask")),
-             (None, "masked junk, an all-masked cloud", junk,
+             ("config #5 SA1", *serve_sa1[0], serve_sa1[1].get("mask")),
+             ("config #3 SA1", *train_sa1[0], train_sa1[1].get("mask")),
+             ("masked junk, an all-masked cloud", junk,
               junk[:, :1024].contiguous(), 0.3, 32, junk_mask)]
-    for path, label, xyz, centers, r, k, mask in cases:
-        (b, n), m = xyz.shape[:2], centers.shape[1]
+    for label, xyz, centers, r, k, mask in cases:
+        n = xyz.shape[1]
         if not sorted_bq.applies(n, k):
             raise AssertionError(f"{label}: N={n} K={k} is below the gate")
         for got, want in zip(cuda_bq.morton_codes(xyz, centers, mask),
@@ -1462,81 +1175,39 @@ def phase_sorted(gen, eval_calls, serve_sa1, train_sa1) -> dict:
         ei, ec = cuda_bq.ball_query(xyz, centers, r, k, mask=mask)
         in_ball_check(f"sorted {label}", xyz, centers, r, k, mask, gi, gc,
                       ei, ec)
-        perm, perm_c = sorted_bq.z_order(xyz, centers, mask)
-        work = scan_work(xyz, centers, r, k, mask, gi, gc, perm)
-        exact_work = scan_work(xyz, centers, r, k, mask, ei, ec)
-        per = [tuple(w / (b * m) for w in v) for v in (work, exact_work)]
-        if path is None:
-            print(f"  {label}: equal (cnt max {gc.max().item()}; sorted "
-                  f"{skip_text(per[0])})")
-            continue
-        t = cuda_ms(lambda: sorted_bq.sorted_ball_query(xyz, centers, r, k,
-                                                        mask=mask), 10)
-        with ops.use_impl("plain"):
-            p = cuda_ms(lambda: sorted_bq.sorted_ball_query(
-                xyz, centers, r, k, mask=mask), 2)
-        keys = cuda_ms(lambda: sorted_bq.z_order(xyz, centers, mask), 10)
-        scan = cuda_ms(lambda: cuda_bq.ball_query(
-            xyz, centers, r, k, mask, perm=perm, perm_c=perm_c), 10)
-        scan_plan = cuda_bq.last_plan
-        exact_ms = cuda_ms(lambda: cuda_bq.ball_query(xyz, centers, r, k,
-                                                      mask=mask), 10)
-        cost = bq_cost(b, n, m, k, mask, work)
-        if path == "eval4":
-            bound = tally.add(path, *cost, t, p)
-        else:
-            bound = max(cost[0] / HBM_BPS, cost[1] / FP32_FLOPS) * 1e3
-        print(f"  {label} [{b},{n}] M={m} r={r:g} K={k}: sorted {t:.3f} ms "
-              f"(codes + sorts {keys:.3f}, scan with map-back {scan:.3f} "
-              f"({scan_plan}); exact kernel {exact_ms:.3f})  plain "
-              f"{p:.3f} ms  bound {bound:.3f} ms  equal; sorted "
-              f"{skip_text(per[0])}; exact {skip_text(per[1])}; mean cnt "
-              f"{gc.float().mean():.2f}")
-    return tally
+        print(f"  {label} [{xyz.shape[0]},{n}] M={centers.shape[1]} r={r:g} "
+              f"K={k}: equal; mean cnt {gc.float().mean():.2f}")
 
 
 @contextlib.contextmanager
-def stage_clock(stages: dict):
-    """Time calls by stage on the host clock, the card synchronised at
-    each call's end: stages = {label: [(owner, attribute), ...]}. Yields
-    {label: [seconds per call]}; the eval steps that run_eval builds are
-    timed under "forward+parse" too, and keep each batch's scene_mask
-    count under "scenes"."""
-    seen = {label: [] for label in stages}
-    seen["scenes"] = []
-    originals = []
-    for label, targets in stages.items():
-        for owner, attr in targets:
-            fn = getattr(owner, attr)
-            originals.append((owner, attr, fn))
+def sweep_calls():
+    """Within the block, count the calls of kitti.device_fps (B2 in the
+    loader) under "device_fps", and keep under "scenes" each batch's
+    scene_mask count of the eval steps that
+    train_lib.make_detector_eval_step builds (run_eval's and the val
+    sweep's)."""
+    seen = {"device_fps": 0, "scenes": []}
+    device_fps, make_step = kitti.device_fps, train_lib.make_detector_eval_step
 
-            def timed(*a, _fn=fn, _label=label, **kw):
-                t0 = time.perf_counter()
-                out = _fn(*a, **kw)
-                torch.cuda.synchronize()
-                seen[_label].append(time.perf_counter() - t0)
-                return out
-            setattr(owner, attr, timed)
-    make_step = train_lib.make_detector_eval_step
+    def counted_fps(*a, **kw):
+        seen["device_fps"] += 1
+        return device_fps(*a, **kw)
 
     def counted_step(model, cfg, mesh=None):
         step = make_step(model, cfg, mesh)
 
         def run(batch):
             seen["scenes"].append(int(batch["scene_mask"].sum()))
-            t0 = time.perf_counter()
-            out = step(batch)
-            torch.cuda.synchronize()
-            seen["forward+parse"].append(time.perf_counter() - t0)
-            return out
+            return step(batch)
         return run
+
+    kitti.device_fps = counted_fps
     train_lib.make_detector_eval_step = counted_step
     try:
         yield seen
     finally:
+        kitti.device_fps = device_fps
         train_lib.make_detector_eval_step = make_step
-        for owner, attr, fn in originals:
-            setattr(owner, attr, fn)
 
 
 def plain_keep(cfg, label: str) -> None:
@@ -1567,12 +1238,11 @@ def plain_keep(cfg, label: str) -> None:
           f"({int(keeps[0].sum())} boxes kept)")
 
 
-def phase_eval(card: str, outdoor: dict) -> dict:
+def phase_eval(outdoor: dict) -> None:
     print(f"== config #4 evaluation: run_eval over {EVAL_SCENES} scenes x "
           f"{EVAL_RAW_N} points, batch {EVAL_B}, twice")
     val = Path(outdoor["sweep"]) / "val"
     batches = -(-EVAL_SCENES // EVAL_B)
-    sweeps = {}
     for sweep, extra, want in (
             ("exact", [], launches(fps=5 * batches, fps_flat=EVAL_SCENES,
                                    ball_query=7 * batches, nms=batches)),
@@ -1580,21 +1250,10 @@ def phase_eval(card: str, outdoor: dict) -> dict:
                                              ball_query=7 * batches,
                                              sorted=batches, nms=batches))):
         cfg = eval_config(outdoor["sweep"], outdoor["ckpt"], *extra)
-        stages = {"crop+fps": [(kitti, "range_crop"), (kitti, "device_fps")],
-                  "forward+parse": [(eval_detector, "parse_predictions")],
-                  "ap": [(train_detector, "predictions_to_lists"),
-                         (train_detector, "parse_groundtruths"),
-                         (APCalculator, "step"),
-                         (APCalculator, "compute_metrics")]}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        with stage_clock(stages) as t:
-            t0 = time.perf_counter()
+        with sweep_calls() as t:
             out = eval_detector.run_eval(cfg)
-            wall = time.perf_counter() - t0
         got = counts()
-        peak = torch.cuda.max_memory_allocated()
         print(f"  {sweep} sweep launches: {got}")
         if got != want:
             raise AssertionError(f"{sweep} sweep: launches {got} != {want}")
@@ -1611,23 +1270,13 @@ def phase_eval(card: str, outdoor: dict) -> dict:
         if len(caches) != EVAL_SCENES:
             raise AssertionError(f"{len(caches)} FPS caches written, not "
                                  f"{EVAL_SCENES}")
-        # forward+parse: the eval step (forward and loss) and the parse
-        crop = sum(t["crop+fps"]) / EVAL_SCENES
-        fwd = sum(t["forward+parse"]) / batches
-        ap = sum(t["ap"]) / batches
-        sweeps[sweep] = {"counts": got, "scenes_per_s": EVAL_SCENES / wall,
-                         "peak_bytes": peak}
-        print(f"  {sweep} sweep: {EVAL_SCENES / wall:.3f} scenes/s ({wall:.3f}"
-              f" s); crop + FPS {crop * 1e3:.3f} ms per scene; forward + parse "
-              f"{fwd * 1e3:.3f} ms per batch; host AP "
-              f"{ap * 1e3:.3f} ms per batch; peak memory allocated "
-              f"{peak / 2**30:.3f} GiB on {card}")
+        print(f"  {sweep} sweep: mAP@0.25 {out['mAP@0.25']}, val_loss "
+              f"{out['val_loss']}")
     for sweep, extra in (("exact", []), ("sorted", SORTED_ARGS)):
         cfg = eval_config(outdoor["sweep"], outdoor["ckpt"], *extra)
         train_lib.apply_runtime_config(cfg)
         plain_keep(cfg, sweep)
     train_lib.apply_runtime_config(Config())
-    return sweeps
 
 
 def hostfed_config(root: str, ckpt_dir: str, *extra: str) -> Config:
@@ -1639,43 +1288,13 @@ def hostfed_config(root: str, ckpt_dir: str, *extra: str) -> Config:
                       "train.eval_every=1", "train.log_every=4", *extra])
 
 
-def host_batch_ms(dataset, count: int = 3) -> float:
-    """Median host ms of dataset.train_batch(rng, 8) over `count` calls."""
-    rng = np.random.default_rng(1)
-    times = []
-    for _ in range(count):
-        t0 = time.perf_counter()
-        dataset.train_batch(rng, TRAIN_B)
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def copy_ms(batch: dict, count: int = 5) -> tuple[float, int]:
-    """(median ms by CUDA events, bytes) of copying one host batch from
-    pinned buffers to the card with non_blocking copies, as
-    device_prefetch does."""
-    pinned = [torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-              for v in batch.values()]
-    times = []
-    for _ in range(count):
-        _, ms = once_ms(lambda: [t.to("cuda", non_blocking=True)
-                                 for t in pinned])
-        times.append(ms)
-    return statistics.median(times), sum(t.nbytes for t in pinned)
-
-
-def run_hostfed(label: str, cfg, want: dict, card: str) -> dict:
+def run_hostfed(label: str, cfg, want: dict):
     """One run_detector of phase 10 with its counts from 0: the launches
     must be `want`; one eval record, finite; best.json and best/ written.
-    Prints the step and wait medians (steps 2-8), the sweep and the peak
-    memory."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    Returns its result."""
     reset_counts()
     result = run_detector(cfg)
     got = counts()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
     print(f"  {label} launches: {got}")
     if got != want:
         raise AssertionError(f"{label}: launches {got} != {want}")
@@ -1694,59 +1313,40 @@ def run_hostfed(label: str, cfg, want: dict, card: str) -> dict:
             sorted(p.name for p in (ckpt / "best").iterdir()) != [
                 f"ckpt_{TRAIN_STEPS}.pt"]:
         raise AssertionError(f"{label}: best.json {best}")
-    for h in result.history:
-        print(f"  {label} step {h['step']}: loss {h['loss']:.6f}  "
-              f"{h['seconds'] * 1e3:.3f} ms, of it waiting for the batch "
-              f"{h['wait'] * 1e3:.3f} ms")
-    warm = result.history[1:]
-    med = statistics.median(h["seconds"] for h in warm) * 1e3
-    wait = statistics.median(h["wait"] for h in warm) * 1e3
-    print(f"  {label}: median step {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} "
-          f"scenes/s, median wait on next(batches) {wait:.3f} ms; val sweep "
-          f"({HOSTFED_VAL} scenes, one batch) {ev['seconds'] * 1e3:.3f} ms, "
-          f"mAP@0.25 {ev['mAP@0.25']}, val_loss {ev['val_loss']}; peak "
-          f"memory allocated {peak / 2**30:.3f} GiB on {card}")
-    return {"result": result, "counts": got, "median_ms": med,
-            "wait_ms": wait, "eval_ms": ev["seconds"] * 1e3,
-            "peak_bytes": peak}
+    print(f"  {label}: losses {[round(h['loss'], 6) for h in result.history]}"
+          f"; val sweep ({HOSTFED_VAL} scenes, one batch) mAP@0.25 "
+          f"{ev['mAP@0.25']}, val_loss {ev['val_loss']}")
+    return result
 
 
-def phase_hostfed(card: str, work: Path) -> dict:
+def phase_hostfed(work: Path) -> None:
     """Phase 10 in `work`, whose packed split phase 12 trains on again."""
     print(f"== host-fed training, config #3 from {HOSTFED_TRAIN} + "
           f"{HOSTFED_VAL} ScanNet-format scenes of {HOSTFED_RAW} points, "
           f"{TRAIN_B} x {TRAIN_N} points a batch, {TRAIN_STEPS} steps + one "
           "val sweep, twice")
-    return hostfed_runs(card, work)
+    hostfed_runs(work)
 
 
-def hostfed_runs(card: str, work: Path) -> dict:
+def hostfed_runs(work: Path) -> None:
     root, packed = str(work / "scannet"), str(work / "packed")
-    t0 = time.perf_counter()
     synthetic_indoor.write_dataset(root, scenes=HOSTFED_TRAIN,
                                    val_scenes=HOSTFED_VAL,
                                    num_points=HOSTFED_RAW, seed=0)
-    print(f"  wrote the scenes in {time.perf_counter() - t0:.3f} s")
     want = launches(fps=5 * TRAIN_STEPS + 5, ball_query=7 * TRAIN_STEPS + 7,
                     scatter=9 * TRAIN_STEPS, nms=1)
 
     # Run A: the per-scene loader, host augmentation, colour
     cfg_a = hostfed_config(root, str(work / "ckpt_a"), "data.use_color=true")
     dataset = get_dataset(cfg_a)
-    loader_a = host_batch_ms(dataset)
-    copy_a, bytes_a = copy_ms(dataset.train_batch(np.random.default_rng(2),
-                                                  TRAIN_B))
-    print(f"  run A loader: {loader_a:.3f} ms a batch on the host; copy "
-          f"{copy_a:.3f} ms a batch ({bytes_a / 2**20:.3f} MiB, "
-          f"{bytes_a / copy_a / 1e6:.3f} GB/s)")
-    a = run_hostfed("run A", cfg_a, want, card)
-    model = a["result"].model
+    a = run_hostfed("run A", cfg_a, want)
+    model = a.model
 
     # the best snapshot, restored into a fresh model, evaluates to the
     # logged metrics (mAP, AR, per-class AP, val_loss); then, with another
     # best planted, a second call resumes from the newest checkpoint and
     # not from best/
-    logged = {k: v for k, v in a["result"].evals[0].items()
+    logged = {k: v for k, v in a.evals[0].items()
               if k not in ("epoch", "step", "seconds")}
     fresh = build_detector(cfg_a, dataset.mean_sizes)
     step = train_lib.restore_checkpoint(cfg_a.train.ckpt_dir, fresh, None,
@@ -1776,33 +1376,18 @@ def hostfed_runs(card: str, work: Path) -> dict:
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              dataset.train_batch(np.random.default_rng(3), TRAIN_B).items()}
     kernel_vs_plain("one run-A batch (colour)", model, cfg_a, state, batch)
-    del model, fresh, resumed, state, batch
-    a.pop("result")
+    del model, fresh, resumed, state, batch, a
 
     # Run B: the same root packed, augmentation on the card, compact votes
     src = hostfed_config(root, str(work / "unused"), "data.use_color=true",
                          "data.augment=false", "data.compact_votes=true")
-    t0 = time.perf_counter()
     packed_counts = pack_dataset(get_dataset(src), packed)
-    pack_s = time.perf_counter() - t0
     cfg_b = hostfed_config(packed, str(work / "ckpt_b"), "data.name=packed",
                            "data.use_color=true", "data.device_augment=true",
                            "data.compact_votes=true")
-    loader_b = host_batch_ms(get_dataset(cfg_b))
-    copy_b, bytes_b = copy_ms(get_dataset(cfg_b).train_batch(
-        np.random.default_rng(2), TRAIN_B))
-    print(f"  run B: packed {packed_counts} in {pack_s:.3f} s; loader "
-          f"{loader_b:.3f} ms a batch on the host; copy {copy_b:.3f} ms a "
-          f"batch ({bytes_b / 2**20:.3f} MiB, {bytes_b / copy_b / 1e6:.3f} "
-          "GB/s)")
-    b = run_hostfed("run B", cfg_b, want, card)
-    b.pop("result")
+    print(f"  run B: packed {packed_counts}")
+    run_hostfed("run B", cfg_b, want)
     train_lib.apply_runtime_config(Config())
-    both = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
-    return {"counts": both, "a": {**a, "loader_ms": loader_a,
-                                  "copy_ms": copy_a, "copy_bytes": bytes_a},
-            "b": {**b, "loader_ms": loader_b, "copy_ms": copy_b,
-                  "copy_bytes": bytes_b, "pack_s": pack_s}}
 
 
 def outdoor_config(root: str, ckpt_dir: str, *extra: str) -> Config:
@@ -1817,23 +1402,17 @@ def fps_caches(root: str) -> list:
     return sorted(Path(root).rglob(f"*_fpscache_{EVAL_N}.npy"))
 
 
-def run_outdoor(label: str, cfg, card: str) -> dict:
+def run_outdoor(label: str, cfg) -> tuple[object, dict]:
     """One run_detector of phase 11 with its counts from 0: B2 once per
     scene whose FPS cache it wrote, 5 / 7 / 9 launches a step (STEP4),
     5 and 7 (or 5 with the lineage head) a sweep batch; finite losses, one
-    sweep of finite metrics. Prints the step and wait medians (steps 2-8),
-    B2's ms a scene in the loader, the sweep and the peak memory."""
+    sweep of finite metrics. Returns (its result, its counts)."""
     root = cfg.data.root
     before = len(fps_caches(root))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with stage_clock({"b2": [(kitti, "device_fps")],
-                      "forward+parse": []}) as t:
+    with sweep_calls() as t:
         result = run_detector(cfg)
     got = counts()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
     written = len(fps_caches(root)) - before
     step = launches(**STEP4[cfg.model.proposal_sampling])
     want = {k: step[k] * OUT_STEPS for k in step}
@@ -1843,9 +1422,9 @@ def run_outdoor(label: str, cfg, card: str) -> dict:
     want["iou"] += cfg.eval.use_oriented_nms  # the sweep's one parse
     want["fps_flat"] = written
     print(f"  {label} launches: {got}; FPS caches written {written}")
-    if got != want or len(t["b2"]) != written:
+    if got != want or t["device_fps"] != written:
         raise AssertionError(f"{label}: launches {got} != {want} (B2 once per "
-                             f"scene it cached; {len(t['b2'])} device_fps)")
+                             f"scene it cached; {t['device_fps']} device_fps)")
     losses = [h["loss"] for h in result.history]
     if result.step != OUT_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"{label}: steps {result.step}, losses {losses}")
@@ -1854,24 +1433,10 @@ def run_outdoor(label: str, cfg, card: str) -> dict:
             0.0 <= ev[f"{k}@{th}"] <= 1.0 for th in cfg.eval.ap_iou_threshs
             for k in ("mAP", "AR"))):
         raise AssertionError(f"{label}: sweep of {t['scenes']} scenes, {ev}")
-    for h in result.history:
-        print(f"  {label} step {h['step']}: loss {h['loss']:.6f}  "
-              f"{h['seconds'] * 1e3:.3f} ms, of it waiting for the batch "
-              f"{h['wait'] * 1e3:.3f} ms")
-    warm = result.history[1:]
-    med = statistics.median(h["seconds"] for h in warm) * 1e3
-    wait = statistics.median(h["wait"] for h in warm) * 1e3
-    b2 = statistics.median(t["b2"]) * 1e3 if t["b2"] else None
-    b2_text = f"{b2:.3f} ms" if b2 is not None else "none (all cached)"
-    print(f"  {label}: median step {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} "
-          f"scenes/s, median wait on next(batches) {wait:.3f} ms; B2 in the "
-          f"loader {b2_text} a scene (median of {len(t['b2'])}); val sweep "
-          f"({OUT_VAL} scenes, one batch) {ev['seconds'] * 1e3:.3f} ms, "
-          f"mAP@0.25 {ev['mAP@0.25']}, val_loss {ev['val_loss']}; peak "
-          f"memory allocated {peak / 2**30:.3f} GiB on {card}")
-    return {"result": result, "counts": got, "median_ms": med,
-            "wait_ms": wait, "b2_ms": b2, "eval_ms": ev["seconds"] * 1e3,
-            "peak_bytes": peak}
+    print(f"  {label}: losses {[round(x, 6) for x in losses]}; val sweep "
+          f"({OUT_VAL} scenes, one batch) mAP@0.25 {ev['mAP@0.25']}, "
+          f"val_loss {ev['val_loss']}")
+    return result, got
 
 
 def capture_outdoor_step(kind: str, cfg, batch) -> tuple[dict, object, dict]:
@@ -1893,46 +1458,27 @@ def capture_outdoor_step(kind: str, cfg, batch) -> tuple[dict, object, dict]:
     return calls, model, state
 
 
-def check_step_calls(kind: str, cfg, calls, tallies) -> None:
+def check_step_calls(kind: str, cfg, calls) -> None:
     """Every recorded B1 / B3 / B5 call of a step against its plain
-    version (B1 and B3 in 3 launches each, exactly; B5 bitwise np.add.at);
-    with tallies, timed and added under path train4."""
+    version (B1 and B3 in 3 launches each, exactly; B5 bitwise
+    np.add.at)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    path = "train4" if tallies else f"train4 {kind}"
+    path = f"train4 {kind}"
     fps_names = ["sa1", "sa2", "sa3", "sa4", "proposal"]
     bq_names = ["sa1", "sa2", "sa3", "sa4"] + (
         ["proposal"] if kind == "lineage"
         else [f"bank_{r:g}" for r in cfg.model.cluster_radius_bank])
     for name, (args, kw) in zip(fps_names, calls["fps"]):
-        fps_case(tallies and tallies["fps"], path, name, args[0], args[1],
-                 kw.get("mask"), compares=3)
+        fps_case(path, name, args[0], args[1], kw.get("mask"), compares=3)
     for name, (args, kw) in zip(bq_names, calls["ball_query"]):
-        bq_case(tallies and tallies["ball_query"], path, name, *args,
-                kw.get("mask"))
+        bq_case(path, name, *args, kw.get("mask"))
     for args, _ in calls["scatter"]:
-        scatter_case(tallies and tallies["scatter"], path, *args, gen)
+        scatter_case(path, *args, gen)
 
 
-def resident_step_ms(model, cfg, batch) -> float:
-    """Median host ms of 5 train steps (train_lib's, with the optimizer)
-    on one batch already on the card, after a warm-up, each ending by
-    reading its loss: the step without the feed."""
-    train_lib.apply_runtime_config(cfg)
-    optimizer = train_lib.make_optimizer(cfg.train, 2, model.parameters())
-    step = train_lib.make_detector_steps(model, optimizer, cfg)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    times = []
-    for _ in range(6):
-        t0 = time.perf_counter()
-        float(step(batch, gen, train_lib.bn_momentum_at(cfg.train, 0))["loss"])
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times[1:]) * 1e3
-
-
-def loader_b2(tally, root: str) -> None:
+def loader_b2(root: str) -> None:
     """B2 on the cropped cloud of train scene 0, as the loader pads it:
-    exactly the plain version's picks in 3 launches, timed, added under
-    path train4."""
+    exactly the plain version's picks in 3 launches."""
     pc = np.load(sorted(Path(root, "train").glob("*_pc.npy"))[0])
     pc = pc[kitti.range_crop(pc)]
     n = pc.shape[0]
@@ -1941,21 +1487,15 @@ def loader_b2(tally, root: str) -> None:
     xyz[0, :n] = torch.from_numpy(np.ascontiguousarray(pc[:, :3])).cuda()
     mask = torch.zeros(1, budget, dtype=torch.bool, device="cuda")
     mask[0, :n] = True
-    want, p = once_ms(lambda: plain_fps(xyz, EVAL_N, mask=mask))
+    want = plain_fps(xyz, EVAL_N, mask=mask)
     for _ in range(3):
         require_equal("fps_flat train4 scene", cuda_fps.fps_flat(
             xyz, EVAL_N, mask), want)
-    k = cuda_ms(lambda: cuda_fps.fps_flat(xyz, EVAL_N, mask), 3)
-    # phase 2's count: 10 fp32 operations a point a round
-    bound = tally.add("train4", budget * 13 + EVAL_N * 4,
-                      10.0 * budget * (EVAL_N - 1), k, p)
     print(f"  B2 on train scene 0 ([1,{budget}], {n} cropped points) -> "
-          f"{EVAL_N}: kernel {k:.3f} ms (cluster {cuda_fps.last_cluster}, "
-          f"{plan_text(cuda_fps.last_plan)})  plain {p:.3f} ms  bound "
-          f"{bound:.3f} ms  equal in 3 launches")
+          f"{EVAL_N}: equal in 3 launches")
 
 
-def oriented_iou_check(cfg, model, tally: Tally) -> None:
+def oriented_iou_check(cfg, model) -> None:
     """oriented_bev_iou on the card (one launch of the kernel,
     csrc/iou.cu), on the decoded corners of one sweep batch (scene 0, 64
     proposals: 4096 pairs), within 1e-4 of the host evaluator's
@@ -2013,7 +1553,7 @@ def oriented_iou_check(cfg, model, tally: Tally) -> None:
           f"{int((size.min(-1) <= 1e-4).sum())} of 64 boxes at the 1e-4 m "
           f"size floor; the evaluator on float32 corners off by >= 1e-4 at "
           f"{fp32_off} pairs)")
-    iou_case(tally, *(a.clone() for a in seen[0]))
+    iou_case(*(a.clone() for a in seen[0]))
 
 
 def footprint_pairs(a: torch.Tensor, b: torch.Tensor):
@@ -2036,19 +1576,17 @@ def footprint_pairs(a: torch.Tensor, b: torch.Tensor):
     return apart, wide
 
 
-def iou_case(tally: Tally, a: torch.Tensor, b: torch.Tensor) -> None:
+def iou_case(a: torch.Tensor, b: torch.Tensor) -> None:
     """The oriented IoU kernel on the inputs one oriented parse gave it
     (phase 11's sweep batch, class-shifted as nms_oriented shifts them:
     the eval-kitti-b8 cell's shape, B = 8, K = L = 256): COMPARES launches,
     each exactly 0 where the footprints lie apart and within 1e-6 of the
     plain chain on the pairs whose footprints are both at least 0.1 m
-    across (the slivers listed), then timed against it under path train4;
-    the clipped share of the pairs from the kernel's counter."""
+    across (the slivers listed)."""
     print(f"== oriented IoU kernel vs the plain chain ({COMPARES} launches)")
     (B, K), L = a.shape[:2], b.shape[1]
     want = plain_iou(a, b)
     apart, wide = footprint_pairs(a, b)
-    cuda_iou.reset()
     for _ in range(COMPARES):
         got = cuda_iou.oriented_bev_iou(a, b)
         if got[apart].any():
@@ -2059,50 +1597,36 @@ def iou_case(tally: Tally, a: torch.Tensor, b: torch.Tensor) -> None:
         if not worst <= 1e-6:
             raise AssertionError(f"oriented IoU: |kernel - plain| {worst} on "
                                  "pairs at least 0.1 m across")
-    clipped, pairs = cuda_iou.clipped(), cuda_iou.pairs
     thin = ~wide & ~apart
-    t = cuda_ms(lambda: cuda_iou.oriented_bev_iou(a, b), 100)
-    p = cuda_ms(lambda: plain_iou(a, b), 3)
-    # corners read once and the IoU written once; 4 comparisons a pair,
-    # and for a pair that clips ~600 operations (4 steps over at most 8
-    # vertices of ~18 each, the shoelace, the z overlap)
-    bound = tally.add("train4", 4 * (a.numel() + b.numel() + B * K * L),
-                      4.0 * B * K * L + 600.0 * clipped / COMPARES, t, p)
-    tally.max_abs_err = max(tally.max_abs_err, worst)
-    print(f"  B = {B}, K = {K}, L = {L}: clipped {clipped} of {pairs} pairs "
-          f"({100.0 * clipped / pairs:.4f}%) in {COMPARES} launches; "
-          f"bitwise the chain at {int((got == want).sum())} of {got.numel()}"
-          f"; widest gap {worst:.3g} on {int(wide.sum())} pairs at least "
-          f"0.1 m across, {gap[thin].max().item() if thin.any() else 0.0:.3g}"
-          f" on {int(thin.sum())} slivers (not held); kernel {t:.4f} ms  "
-          f"plain {p:.3f} ms  bound {bound:.5f} ms")
-    cuda_iou.reset()
+    print(f"  B = {B}, K = {K}, L = {L}: bitwise the chain at "
+          f"{int((got == want).sum())} of {got.numel()}; widest gap "
+          f"{worst:.3g} on {int(wide.sum())} pairs at least 0.1 m across, "
+          f"{gap[thin].max().item() if thin.any() else 0.0:.3g} on "
+          f"{int(thin.sum())} slivers (not held)")
 
 
-def phase_outdoor_train(card: str, tallies: dict) -> dict:
+def phase_outdoor_train() -> None:
     print(f"== config #4 training from {OUT_TRAIN} + {OUT_VAL} KITTI-format "
           f"scenes of {EVAL_RAW_N} points, {TRAIN_B} x {EVAL_N} points a "
           f"batch, {OUT_STEPS} steps + one val sweep, twice")
     work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_kitti_"))
     try:
-        return outdoor_runs(card, tallies, work)
+        outdoor_runs(work)
     finally:
         train_lib.apply_runtime_config(Config())
         shutil.rmtree(work, ignore_errors=True)
 
 
-def outdoor_runs(card: str, tallies: dict, work: Path) -> dict:
+def outdoor_runs(work: Path) -> None:
     root = str(work / "kitti")
-    t0 = time.perf_counter()
     write_dataset(root, scenes=OUT_TRAIN, val_scenes=OUT_VAL,
                   num_points=EVAL_RAW_N, seed=1)
-    print(f"  wrote the scenes in {time.perf_counter() - t0:.3f} s")
 
     # Run A: B2 in the loader on the first pass, host augmentation,
     # expanded votes, FPS proposal sampling, 3D NMS
     cfg_a = outdoor_config(root, str(work / "ckpt_a"))
-    a = run_outdoor("run A", cfg_a, card)
-    model = a["result"].model
+    a, _ = run_outdoor("run A", cfg_a)
+    model = a.model
     fresh = build_detector(cfg_a, kitti.KITTI_MEAN_SIZES).state_dict()
     state = copy.deepcopy(model.state_dict())
     for kind in ("weight", "running_mean", "running_var"):
@@ -2120,9 +1644,7 @@ def outdoor_runs(card: str, tallies: dict, work: Path) -> dict:
     filled = counts()["fps_flat"]
     if len(fps_caches(root)) != OUT_TRAIN + OUT_VAL:
         raise AssertionError(f"{len(fps_caches(root))} FPS caches")
-    loader = host_batch_ms(dataset)
-    print(f"  {filled} scenes not loaded by run A cached; loader with "
-          f"augmentation (caches read): {loader:.3f} ms a batch on the host")
+    print(f"  {filled} scenes not loaded by run A cached")
 
     reset_counts()
     resumed = run_detector(cfg_a)
@@ -2155,43 +1677,32 @@ def outdoor_runs(card: str, tallies: dict, work: Path) -> dict:
                                  " from run A's")
     print("  run B's first host batch (int8 owners), decoded on the card: "
           "points, vote_targets and vote_mask bitwise run A's")
-    b = run_outdoor("run B", cfg_b, card)
-    if b["counts"]["fps_flat"]:
+    b, b_counts = run_outdoor("run B", cfg_b)
+    if b_counts["fps_flat"]:
         raise AssertionError("run B ran B2 on cached scenes")
-    model_b = b["result"].model
-    oriented_iou_check(cfg_b, model_b, tallies["iou"])
-    del model_b, b["result"], a["result"], model, state
+    oriented_iou_check(cfg_b, b.model)
+    del b, a, model, state
 
     # the kernel inputs of one step of each head and sampling, against
-    # the plain versions; the FPS-sampling step's are timed (path train4)
+    # the plain versions
     batch = {k: torch.from_numpy(v).cuda() for k, v in first[0].items()}
-    resident = {}
     for kind in ("fps", "density", "lineage"):
         cfg = outdoor_config(root, str(work / "unused"), *STEP4_ARGS[kind])
         if kind != "lineage":
             calls, model, state = capture_outdoor_step(kind, cfg, batch)
-            check_step_calls(kind, cfg, calls, tallies if kind == "fps"
-                             else None)
+            check_step_calls(kind, cfg, calls)
             del calls
         else:
             model = build_detector(cfg, kitti.KITTI_MEAN_SIZES)
             state = copy.deepcopy(model.state_dict())
         kernel_vs_plain(f"one outdoor {kind} step", model, cfg, state, batch,
                         launches(**STEP4[kind]))
-        resident[kind] = resident_step_ms(model, cfg, batch)
         del model, state
-    print("  train step on one batch held on the card (no feed), median of "
-          "5 after a warm-up: " + ", ".join(
-              f"{k} sampling {v:.3f} ms" if k != "lineage"
-              else f"lineage head {v:.3f} ms" for k, v in resident.items()))
-    loader_b2(tallies["fps_flat"], root)
-    both = {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
-    return {"counts": both, "a": a, "b": b, "loader_ms": loader,
-            "resident_ms": resident}
+    loader_b2(root)
 
 
-# train.steps_per_call of phase 12; replayed blocks timed after the capture
-K_STEPS, REPLAY_BLOCKS = 4, 5
+# train.steps_per_call of phase 12
+K_STEPS = 4
 # the kernels of one replayed config-#3 step, by the names torch.profiler
 # gives them, with the counter of their wrapper: 5 FPS (B1), 7 ball
 # queries of two launches (B3's staging and scan) and 9 scatters (B5, in
@@ -2200,25 +1711,6 @@ REPLAY_KERNELS = {"fps_cluster_kernel": ("fps", 5),
                   "stage_kernel": ("ball_query", 7),
                   "ball_query_kernel": ("ball_query", 7),
                   "scatter_kernel": ("scatter", 9)}
-
-
-def busy_share(trace_events: list) -> tuple[int, float, float]:
-    """(kernels, busy us, span us) of the chrome-trace events of category
-    'kernel': busy is the union of their intervals, span runs from the first
-    kernel's start to the last kernel's end."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace_events
-                   if e.get("cat") == "kernel")
-    if not spans:
-        raise RuntimeError("the trace holds no kernel: no device time seen")
-    busy, run_start, run_end = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > run_end:
-            busy += run_end - run_start
-            run_start, run_end = start, end
-        else:
-            run_end = max(run_end, end)
-    busy += run_end - run_start
-    return len(spans), busy, max(e for _, e in spans) - spans[0][0]
 
 
 def kernel_times(trace_events: list) -> list[tuple[str, float, int]]:
@@ -2275,38 +1767,26 @@ def require_bitwise(label: str, got: dict, want: dict) -> None:
                              f"entries differ, first {differ[:8]}")
 
 
-def run_counted(cfg, want: dict, steps: int = TRAIN_STEPS
-                ) -> tuple[object, int]:
-    """(run_detector(cfg), peak bytes) with its counts from 0, which must
-    be `want` (finite losses, `steps` steps)."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def run_counted(cfg, want: dict, steps: int = TRAIN_STEPS):
+    """run_detector(cfg) with its counts from 0, which must be `want`
+    (finite losses, `steps` steps)."""
     reset_counts()
     result = run_detector(cfg)
     got = counts()
-    torch.cuda.synchronize()
     if got != want:
         raise AssertionError(f"launches {got} != {want}")
     losses = [h["loss"] for h in result.history]
     if result.step != steps or not np.isfinite(losses).all():
         raise AssertionError(f"steps {result.step}, losses {losses}")
-    return result, torch.cuda.max_memory_allocated()
+    return result
 
 
-def block_ms(block, batches, gen, bn_m) -> float:
-    """Host ms of one block call that ends by reading its losses."""
-    t0 = time.perf_counter()
-    block(batches, gen, bn_m)["loss"].tolist()
-    return (time.perf_counter() - t0) * 1e3
-
-
-def replayed_synth_block(card: str, work: Path) -> dict:
+def replayed_synth_block(work: Path) -> None:
     """A config-#3 device-synth block built apart from run_detector, so the
-    replay can be timed and traced: a warm-up block, the capture, then
-    REPLAY_BLOCKS blocks on the host clock (each ends by reading its
-    losses) and one under torch.profiler. The wrappers' counters see the
-    capture's launches and none of a replay's; the profiler counts the
-    replayed kernels by name."""
+    replay can be traced: a warm-up block, the capture, then one replayed
+    block under torch.profiler. The wrappers' counters see the capture's
+    launches and none of a replay's; the profiler counts the replayed
+    kernels by name."""
     cfg = k_config(str(work / "apart"), K_STEPS)
     train_lib.apply_runtime_config(cfg)
     model = build_detector(cfg)
@@ -2319,51 +1799,28 @@ def replayed_synth_block(card: str, work: Path) -> dict:
         synth_fn=lambda: synthetic_detection_batch(
             data_gen, TRAIN_B, TRAIN_N, 18, vote_candidates=3))
     bn_m = train_lib.bn_momentum_at(cfg.train, 0)
-    warm = block_ms(block, None, step_gen, bn_m)
-    torch.cuda.reset_peak_memory_stats()
+    block(None, step_gen, bn_m)["loss"].tolist()  # the warm-up block
     reset_counts()
-    first = block_ms(block, None, step_gen, bn_m)
+    block(None, step_gen, bn_m)["loss"].tolist()  # the capture, a replay
     captured = counts()
     if captured != launches(fps=5, ball_query=7, scatter=9):
         raise AssertionError(f"the capture launched {captured}, not one "
                              "step's 5 / 7 / 9")
-    times = [block_ms(block, None, step_gen, bn_m)
-             for _ in range(REPLAY_BLOCKS)]
     _, events = traced(lambda: block(None, step_gen, bn_m)["loss"].tolist())
     if counts() != captured:
         raise AssertionError(f"replays went through the wrappers: "
                              f"{counts()}")
-    peak = torch.cuda.max_memory_allocated()
-    kernels, busy, span = busy_share(events)
     by_name = {name: 0 for name in REPLAY_KERNELS}
-    device_us = {name: 0.0 for name in REPLAY_KERNELS}
-    for name, us, n in kernel_times(events):
+    for name, _, n in kernel_times(events):
         for key in REPLAY_KERNELS:
             if re.search(rf"\b{key}\b", name):
                 by_name[key] += n
-                device_us[key] += us
     want = {k: n * K_STEPS for k, (_, n) in REPLAY_KERNELS.items()}
     if by_name != want:
         raise AssertionError(f"a replayed block ran {by_name}, not {want}")
-    med = statistics.median(times) / K_STEPS
-    print(f"  replayed block (apart from run_detector): warm-up block "
-          f"{warm:.3f} ms, capture + first replayed block {first:.3f} ms "
-          f"(capture {block.capture_seconds * 1e3:.3f} ms), replayed blocks "
-          f"{', '.join(f'{t:.3f}' for t in times)} ms: {med:.3f} ms a step "
-          f"on {card}")
-    print(f"  a replayed step's kernels by name (torch.profiler, one block "
-          f"/ {K_STEPS}; device ms): " + ", ".join(
-              f"{k} {v // K_STEPS} ({device_us[k] / K_STEPS / 1e3:.3f})"
-              for k, v in by_name.items())
-          + f"; all kernels {kernels / K_STEPS:.1f}; busy share "
-          f"{busy / span:.3f} ({busy / 1e3:.3f} of {span / 1e3:.3f} ms); "
-          f"peak memory allocated with the graph's pool "
-          f"{peak / 2**30:.3f} GiB on {card}")
-    return {"step_ms": med, "capture_ms": block.capture_seconds * 1e3,
-            "busy_share": busy / span, "kernels_a_step": kernels / K_STEPS,
-            "replay_launches": by_name, "peak_bytes": peak,
-            "replay_device_ms": {k: us / K_STEPS / 1e3
-                                 for k, us in device_us.items()}}
+    print(f"  replayed block (apart from run_detector): a replayed step's "
+          f"kernels by name (torch.profiler, one block / {K_STEPS}): "
+          + ", ".join(f"{k} {v // K_STEPS}" for k, v in by_name.items()))
 
 
 def stacked_blocks(dataset, count: int) -> list:
@@ -2420,7 +1877,7 @@ def graph_vs_eager_host(cfg) -> None:
           f"{len(got[True]) - 2} tensors and the count")
 
 
-def phase_train_k(card: str, hostfed_work: Path) -> dict:
+def phase_train_k(hostfed_work: Path) -> None:
     print(f"== k-step blocks: run_detector, config #3, "
           f"train.steps_per_call={K_STEPS} (a CUDA graph of one step "
           f"replayed {K_STEPS} times a block) against 1, {TRAIN_B} x "
@@ -2433,32 +1890,22 @@ def phase_train_k(card: str, hostfed_work: Path) -> dict:
     work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_k_"))
     try:
         # (a) device synth: two eager runs, then the block
-        states, results = [], {}
+        states = []
         for label, k in (("k=1", 1), ("k=1 again", 1), (f"k={K_STEPS}",
                                                          K_STEPS)):
-            result, peak = run_counted(k_config(str(work / label), k),
-                                       step_counts if k == 1 else k_counts)
+            result = run_counted(k_config(str(work / label), k),
+                                 step_counts if k == 1 else k_counts)
             states.append(trained_state(
                 [h["loss"] for h in result.history], result.model,
                 result.optimizer))
-            results[label] = (result.history, peak)
-        total = dict(k_counts)
         require_bitwise("two eager runs", states[1], states[0])
         require_bitwise(f"k={K_STEPS} vs k=1", states[2], states[0])
-        del states
-        for label, (history, peak) in results.items():
-            med = statistics.median(h["seconds"] for h in history[1:]) * 1e3
-            each = ", ".join(f"{h['seconds'] * 1e3:.3f}" for h in history)
-            print(f"  device synth {label}: losses "
-                  f"{[round(h['loss'], 4) for h in history]}; ms a step "
-                  f"{each} (median of steps 2-8 {med:.3f}); peak memory "
-                  f"allocated {peak / 2**30:.3f} GiB on {card}")
-        print(f"  two eager runs bitwise equal, and k={K_STEPS} (a warm-up "
-              "block, then a replayed one) bitwise equal to them: losses, "
+        print(f"  device synth: losses {states[0]['loss'].tolist()}; two "
+              f"eager runs bitwise equal, and k={K_STEPS} (a warm-up block, "
+              "then a replayed one) bitwise equal to them: losses, "
               "parameters, BN statistics, moments, count")
-        eager_ms = statistics.median(
-            h["seconds"] for h in results["k=1"][0][1:]) * 1e3
-        replayed = replayed_synth_block(card, work)
+        del states
+        replayed_synth_block(work)
 
         # (b) the packed split of phase 10's run B through the stacked
         # feed, two epochs, so that at k the last two blocks only replay
@@ -2467,44 +1914,22 @@ def phase_train_k(card: str, hostfed_work: Path) -> dict:
                  "data.device_augment=true", "data.compact_votes=true",
                  "train.num_epochs=2", "train.eval_every=2")
         steps = 2 * TRAIN_STEPS
-        host = {}
         for k in (1, K_STEPS):
             cfg = hostfed_config(packed, str(work / f"packed_{k}"), *extra,
                                  f"train.steps_per_call={k}")
             ran = steps if k == 1 else K_STEPS + 1
             want = launches(fps=5 * ran + 5, ball_query=7 * ran + 7,
                             scatter=9 * ran, nms=1)
-            result, peak = run_counted(cfg, want, steps)
-            if k > 1:
-                total = {n: total[n] + want[n] for n in total}
+            result = run_counted(cfg, want, steps)
             (ev,) = result.evals
             if not np.isfinite(ev["val_loss"]):
                 raise AssertionError(f"packed k={k}: eval {ev}")
-            calls = [result.history[i:i + k] for i in range(0, steps, k)]
-            call_ms = [sum(h["seconds"] for h in c) * 1e3 for c in calls]
-            waits = [sum(h["wait"] for h in c) * 1e3 for c in calls]
-            # k = 1: steps 2-16; k: the blocks after the capture's
-            settled = slice(1, None) if k == 1 else slice(2, None)
-            med = statistics.median(call_ms[settled]) / k
-            wait = statistics.median(waits[settled])
-            host[k] = {"median_ms": med, "wait_ms": wait}
             print(f"  packed k={k}: losses "
-                  f"{[round(h['loss'], 4) for h in result.history]}; ms a "
-                  f"call {', '.join(f'{t:.3f}' for t in call_ms)}, of it "
-                  f"host wait {', '.join(f'{w:.3f}' for w in waits)}; "
-                  f"{med:.3f} ms a step and {wait:.3f} ms of wait a call "
-                  f"(medians of calls {'2-16' if k == 1 else '3-4'}); val "
-                  f"sweep {ev['seconds'] * 1e3:.3f} ms; peak memory "
-                  f"allocated {peak / 2**30:.3f} GiB on {card}")
+                  f"{[round(h['loss'], 4) for h in result.history]}")
         graph_vs_eager_host(cfg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     train_lib.apply_runtime_config(Config())
-    print(f"  ms a step: k=1 {eager_ms:.3f} (run_detector, median of steps "
-          f"2-8), k={K_STEPS} {replayed['step_ms']:.3f} (replayed blocks, "
-          f"median over {REPLAY_BLOCKS} / {K_STEPS}); capture "
-          f"{replayed['capture_ms']:.3f} ms; on {card}")
-    return {"counts": total, "eager_ms": eager_ms, **replayed, "host": host}
 
 
 # config #1, the PointNet++ classifier (BASELINE config #1: ModelNet40, 40
@@ -2572,18 +1997,7 @@ def cls_grads_of(model, state, batch, bn_m, seed: int = 3):
                            for n, p in model.named_parameters()}
 
 
-def profile_text(events: list, per: int = 1) -> str:
-    """Kernels, busy share and the five longest kernels (device ms) of a
-    trace, divided by `per` runs."""
-    kernels, busy, span = busy_share(events)
-    top = ", ".join(f"{name[:48]} {us / per / 1e3:.3f} ({n // per})"
-                    for name, us, n in kernel_times(events)[:5])
-    return (f"{kernels / per:.0f} kernels, busy share {busy / span:.3f} "
-            f"({busy / per / 1e3:.3f} of {span / per / 1e3:.3f} ms); "
-            f"longest: {top}")
-
-
-def cls_serve(card: str) -> dict:
+def cls_serve() -> None:
     """(a) the SSG classifier answers B = 1 clouds in eval mode."""
     print(f"  (a) SSG, {CLS_CLASSES} classes, seeded random weights: "
           f"1 warm-up + {CLS_REQUESTS} clouds of {CLS_N} points, one at a "
@@ -2594,12 +2008,7 @@ def cls_serve(card: str) -> dict:
     with torch.inference_mode():
         model(clouds[0]["points"])
         reset_counts()
-        times, outs = [], []
-        for c in clouds[1:]:
-            t0 = time.perf_counter()
-            outs.append(model(c["points"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        outs = [model(c["points"]) for c in clouds[1:]]
         served = counts()
         want = launches(**{k: v * CLS_REQUESTS for k, v in CLS_SERVE.items()})
         if served != want:
@@ -2613,46 +2022,33 @@ def cls_serve(card: str) -> dict:
             kernel = model(clouds[1]["points"])
         with ops.use_impl("plain"):
             plain = model(clouds[1]["points"])
-        _, events = traced(lambda: [model(c["points"]) for c in clouds[1:6]])
     # the same indices on the plain ops, and logits within rtol 1e-5,
     # atol 1e-6 (the same torch ops on the same indices)
     if not torch.allclose(kernel, plain, rtol=1e-5, atol=1e-6):
         raise AssertionError(f"logits: kernel path vs plain path max |diff| "
                              f"{(kernel - plain).abs().max().item()}")
-    tally = Tally()
     for name, (args, kw) in zip(("sa1", "sa2"), calls["fps"]):
-        fps_case(tally, "request", name, *args, kw.get("mask"))
+        fps_case("request", name, *args, kw.get("mask"))
     for name, (args, kw) in zip(("sa1", "sa2"), calls["ball_query"]):
-        bq_case(tally, "request", name, *args, kw.get("mask"))
-    med = statistics.median(times)
+        bq_case("request", name, *args, kw.get("mask"))
     print(f"  plain-ops rerun of cloud 1: FPS and ball-query indices equal, "
-          f"logits max |diff| {(kernel - plain).abs().max().item():.3g}; "
-          f"kernels of one cloud: {tally.paths['request']['ms']:.3f} ms "
-          f"(plain {tally.paths['request']['plain_ms']:.3f})")
-    print(f"  ms a cloud {', '.join(f'{t * 1e3:.3f}' for t in times)}; "
-          f"median {med * 1e3:.3f} ms = {1 / med:.2f} clouds/s on {card}")
-    print(f"  one cloud under torch.profiler (5 clouds): "
-          f"{profile_text(events, 5)}")
-    return {"counts": served, "median_ms": med * 1e3}
+          f"logits max |diff| {(kernel - plain).abs().max().item():.3g}")
 
 
-def cls_train(card: str, work: Path, tallies: dict) -> dict:
+def cls_train(work: Path) -> None:
     """(b) MSG training through run_classifier, a resume, and one step on
     the kernel and the plain path; (c) the recorded launches of one step
-    against their plain versions, timed under the path `classify`."""
+    against their plain versions."""
     cfg = cls_config("model.classifier_msg=true", "data.name=synthetic",
                      f"train.batch_size={CLS_B}", "train.num_epochs=1",
                      "train.log_every=4", f"train.ckpt_dir={work}")
     print(f"  (b) run_classifier: MSG, {CLS_CLASSES} classes, {CLS_B} x "
           f"{CLS_N} points, one synthetic epoch cut to {CLS_STEPS} steps, "
           f"and {CLS_VAL} val batches")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     with synthetic_epoch(CLS_STEPS):
         reset_counts()
         result = train_classifier.run_classifier(cfg)
         trained = counts()
-        peak = torch.cuda.max_memory_allocated()
         reset_counts()
         again = train_classifier.run_classifier(cfg)
         resumed = counts()
@@ -2670,16 +2066,10 @@ def cls_train(card: str, work: Path, tallies: dict) -> dict:
         if all(torch.equal(state[k], fresh[k]) for k in state
                if k.endswith(kind)):
             raise AssertionError(f"no {kind} moved in training")
-    steps_ms = [h["seconds"] * 1e3 for h in result.history[1:]]
     (ev,) = result.evals
     print(f"  launches {trained}; losses "
           f"{[round(x, 4) for x in losses]}; val acc "
-          f"{ev['val_acc']:.4f} over {ev['n_scenes']} clouds; median step "
-          f"{statistics.median(steps_ms):.3f} ms (steps 2-{CLS_STEPS}, "
-          f"host batch and copy included; first step "
-          f"{result.history[0]['seconds'] * 1e3:.3f} ms); val sweep "
-          f"{ev['seconds'] * 1e3:.3f} ms; peak memory allocated "
-          f"{peak / 2**30:.3f} GiB on {card}")
+          f"{ev['val_acc']:.4f} over {ev['n_scenes']} clouds")
     if ((again.start_step, again.step) != (CLS_STEPS, CLS_STEPS)
             or resumed != launches() or any(
                 not torch.equal(v, state[k])
@@ -2710,7 +2100,7 @@ def cls_train(card: str, work: Path, tallies: dict) -> dict:
           "bitwise equal")
 
     print("  (c) the launches of one MSG step, recorded, against their "
-          "plain versions (exact; scatter bitwise np.add.at), timed")
+          "plain versions (exact; scatter bitwise np.add.at)")
     with recording() as calls:
         cls_grads_of(model, state, batch, bn_m)
     found = {k: len(v) for k, v in calls.items()}
@@ -2719,39 +2109,27 @@ def cls_train(card: str, work: Path, tallies: dict) -> dict:
     scales = [f"sa{lvl}.{s}" for lvl, sa in ((1, MSG_SA1), (2, MSG_SA2))
               for s in range(len(sa["radii"]))]
     for name, (args, kw) in zip(("sa1", "sa2"), calls["fps"]):
-        fps_case(tallies["fps"], "classify", name, *args, kw.get("mask"),
-                 compares=3)
+        fps_case("classify", name, *args, kw.get("mask"), compares=3)
     for name, (args, kw) in zip(scales, calls["ball_query"]):
-        bq_case(tallies["ball_query"], "classify", name, *args,
-                kw.get("mask"))
+        bq_case("classify", name, *args, kw.get("mask"))
     gen = torch.Generator(device="cuda").manual_seed(13)
     for args, _ in calls["scatter"]:
-        scatter_case(tallies["scatter"], "classify", *args, gen)
-    del calls
-    _, events = traced(lambda: cls_grads_of(model, state, batch, bn_m))
-    print(f"  one MSG step (forward + backward, fp32) under torch.profiler: "
-          f"{profile_text(events)}")
-    return {"counts": trained, "median_ms": statistics.median(steps_ms),
-            "peak_bytes": peak}
+        scatter_case("classify", *args, gen)
 
 
-def cls_shapes(card: str, work: Path) -> dict:
+def cls_shapes(work: Path) -> None:
     """(d) the shape benchmark end to end: synthetic_shapes, then
     preproc_modelnet, then run_classifier on r5's recipe."""
     print(f"  (d) the shape benchmark: {SHAPES_TRAIN} + {SHAPES_TEST} OFF "
           f"meshes of each of {len(synthetic_shapes.SHAPE_CLASSES)} families "
           f"(seed 0), sampled to 4096 points, then MSG at 512 points for "
           f"{SHAPES_EPOCHS} epochs")
-    t0 = time.perf_counter()
     written = synthetic_shapes.generate(str(work / "off"), SHAPES_TRAIN,
                                         SHAPES_TEST, seed=0)
-    t1 = time.perf_counter()
     converted = preproc_modelnet.export_all(str(work / "off"),
                                             str(work / "npy"),
                                             num_points=4096)
-    t2 = time.perf_counter()
-    print(f"  wrote {written} in {(t1 - t0) * 1e3:.3f} ms; converted "
-          f"{converted} in {(t2 - t1) * 1e3:.3f} ms")
+    print(f"  wrote {written}; converted {converted}")
     cfg = parse_cli([*SHAPES_ARGS, f"data.root={work / 'npy'}",
                      f"train.ckpt_dir={work / 'ckpt'}"])
     reset_counts()
@@ -2765,42 +2143,22 @@ def cls_shapes(card: str, work: Path) -> dict:
     if ran != want:
         raise AssertionError(f"launches {ran} != {want}")
     curve = [round(e["val_acc"], 4) for e in result.evals]
-    per_epoch = [sum(h["seconds"] for h in result.history[i:i + steps])
-                 for i in range(0, len(result.history), steps)]
     print(f"  launches {ran}; val acc by epoch {curve} (r5 on the CPU: "
-          f"0.9625, 0.9875, 1.0, 1.0); train seconds an epoch "
-          f"{[round(s, 3) for s in per_epoch]} ({steps} steps, host loader "
-          f"included); val sweeps ms "
-          f"{[round(e['seconds'] * 1e3, 3) for e in result.evals]} on {card}")
+          f"0.9625, 0.9875, 1.0, 1.0)")
     if len(curve) != SHAPES_EPOCHS or curve[-1] < SHAPES_TARGET:
         raise AssertionError(f"val acc {curve}: the last below "
                              f"{SHAPES_TARGET}")
-    return {"counts": ran, "val_acc": curve}
 
 
-def phase_classify(card: str, tallies: dict, work: Path) -> dict:
+def phase_classify(work: Path) -> None:
     print("== config #1, the classifier: serving, MSG training, its "
           "launches against plain, the shape benchmark")
-    seconds = []
-
-    def timed(fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        seconds.append(time.perf_counter() - t0)
-        return out
-
     try:
-        served = timed(cls_serve, card)
-        trained = timed(cls_train, card, work / "msg", tallies)
-        shapes = timed(cls_shapes, card, work / "shapes")
+        cls_serve()
+        cls_train(work / "msg")
+        cls_shapes(work / "shapes")
     finally:
         train_lib.apply_runtime_config(Config())
-    print(f"  phase 13 seconds: (a) {seconds[0]:.1f}, (b) + (c) "
-          f"{seconds[1]:.1f}, (d) {seconds[2]:.1f}")
-    total = {k: served["counts"][k] + trained["counts"][k]
-             + shapes["counts"][k] for k in served["counts"]}
-    return {"counts": total, "serve": served, "train": trained,
-            "shapes": shapes}
 
 
 # phase 14: the exported serving program. Config #5's CLI export is B = 1
@@ -2819,31 +2177,6 @@ PROGRAM_OPS = {"fps": 5, "ball_query": 7, "fp32_cross": 2,
                "greedy_suppress": 1}
 
 
-@contextlib.contextmanager
-def timed_calls(seconds: dict, module, *names: str):
-    """Within the block, add the host seconds of each call of
-    module.<name> to seconds[name]."""
-    originals = {name: getattr(module, name) for name in names}
-
-    def wrap(name, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                seconds[name] = (seconds.get(name, 0.0)
-                                 + time.perf_counter() - t0)
-        return call
-
-    for name, fn in originals.items():
-        setattr(module, name, wrap(name, fn))
-    try:
-        yield seconds
-    finally:
-        for name, fn in originals.items():
-            setattr(module, name, fn)
-
-
 def graph_calls(path: str) -> dict:
     """{op: nodes} of the custom ops in the program saved at `path`."""
     calls = {}
@@ -2855,81 +2188,52 @@ def graph_calls(path: str) -> dict:
     return calls
 
 
-def synced_ms(fn):
-    """(fn(), host ms of the call through a synchronise)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
-def export_checked(cfg, model, path: str, want_calls: dict) -> dict:
-    """export_detector at B x N with its export and save seconds, the load
-    seconds, and the program's custom-op nodes, which must be want_calls."""
-    seconds = {}
-    with timed_calls(seconds, torch.export, "export", "save"):
-        manifest = serving.export_detector(cfg, model, model.mean_sizes, B,
-                                           path)
-    t0 = time.perf_counter()
+def export_checked(cfg, model, path: str, want_calls: dict):
+    """export_detector at B x N, loaded back; the program's custom-op
+    nodes must be want_calls. Returns the loaded program."""
+    manifest = serving.export_detector(cfg, model, model.mean_sizes, B, path)
     program = serving.load(path).module()
-    seconds["load"] = time.perf_counter() - t0
     calls = graph_calls(path)
     if calls != want_calls:
         raise AssertionError(f"exported graph's op nodes {calls} != "
                              f"{want_calls}")
-    print(f"  exported {B} x {N}: export {seconds['export']:.3f} s, save "
-          f"{seconds['save']:.3f} s, load {seconds['load']:.3f} s, "
-          f"{manifest['bytes']} bytes; nodes {calls}")
-    return {"program": program, "seconds": seconds,
-            "bytes": manifest["bytes"], "calls": calls}
+    print(f"  exported {B} x {N}: {manifest['bytes']} bytes; nodes {calls}")
+    return program
 
 
-def serve_artifact(card: str, work: Path) -> dict:
+def serve_artifact(work: Path) -> SizeAdaptiveDetector:
     """(a) config #5 exported at B = 32 and loaded: bitwise the eager
     program on 5 requests, 5 + 7 launches a request; then one request of
-    an export under the sorted tier."""
+    an export under the sorted tier. Returns the model."""
     cfg, model, infer = build_server()
     cfg = dataclasses.replace(cfg, data=DataConfig(name="synthetic",
                                                    num_points=N))
     warmup, *batches = make_requests(REQUESTS + 1, seed=14)
-    art = export_checked(cfg, model, str(work / "serve.pt2"), PROGRAM_OPS)
-    program = art["program"]
+    program = export_checked(cfg, model, str(work / "serve.pt2"), PROGRAM_OPS)
     with torch.no_grad():
         program(*warmup)
     infer(*warmup)
     reset_counts()
-    loaded, loaded_ms = [], []
-    for pts, mask in batches:
-        with torch.no_grad():
-            out, ms = synced_ms(lambda: program(pts, mask))
-        loaded.append(out)
-        loaded_ms.append(ms)
+    with torch.no_grad():
+        loaded = [program(pts, mask) for pts, mask in batches]
     served = counts()
     if served != launches(**{k: v * REQUESTS for k, v in SERVED.items()}):
         raise AssertionError(f"loaded program's launches {served} != 5, 7, "
                              "1 (NMS) and 0 (scatter) a request")
-    eager_ms = []
     for (pts, mask), out in zip(batches, loaded):
-        want, ms = synced_ms(lambda: infer(pts, mask))
-        eager_ms.append(ms)
-        require_bitwise("loaded vs eager request", out, want)
+        require_bitwise("loaded vs eager request", out, infer(pts, mask))
     kept = [int(o["keep"].sum()) for o in loaded]
     print(f"  {REQUESTS} requests: loaded bitwise eager (6 outputs), "
-          f"launches {served}, kept {kept}; ms a request loaded "
-          f"{[round(t, 3) for t in loaded_ms]} (median "
-          f"{statistics.median(loaded_ms):.3f}), eager "
-          f"{[round(t, 3) for t in eager_ms]} (median "
-          f"{statistics.median(eager_ms):.3f}) on {card}")
+          f"launches {served}, kept {kept}")
 
     train_lib.apply_runtime_config(parse_cli(SORTED_ARGS))
     try:
         fast = export_checked(cfg, model, str(work / "sorted.pt2"),
                               {**PROGRAM_OPS, "morton_codes": 1})
         with torch.no_grad():
-            fast["program"](*warmup)
+            fast(*warmup)
             reset_counts()
-            out = fast["program"](*batches[0])
+            out = fast(*batches[0])
         got = counts()
         want = infer(*batches[0])
     finally:
@@ -2938,11 +2242,7 @@ def serve_artifact(card: str, work: Path) -> dict:
         raise AssertionError(f"sorted program's launches {got}")
     require_bitwise("sorted loaded vs eager request", out, want)
     print(f"  sorted tier (SA1): loaded bitwise eager, launches {got}")
-    total = {k: served[k] + got[k] for k in served}
-    return {"counts": total, "seconds": art["seconds"], "bytes": art["bytes"],
-            "loaded_ms": statistics.median(loaded_ms),
-            "eager_ms": statistics.median(eager_ms),
-            "sorted_seconds": fast["seconds"], "model": model, "cfg": cfg}
+    return model
 
 
 def cli_output(argv: list) -> dict:
@@ -2954,7 +2254,7 @@ def cli_output(argv: list) -> dict:
 
 
 def cli_round_trip(label: str, args: list, model, colours: bool,
-                   work: Path) -> dict:
+                   work: Path) -> str:
     """(b) ckpt= ... out= on a checkpoint of `model`, then run= on each of
     CLI_SCENES: detection for detection the eager program on
     prepare_scene_batch's tensors, 5 + 7 launches a scene."""
@@ -2963,9 +2263,7 @@ def cli_round_trip(label: str, args: list, model, colours: bool,
     optimizer = train_lib.make_optimizer(cfg.train, 1, model.parameters())
     train_lib.save_checkpoint(ckpt, model, optimizer, 1)
     out = str(work / f"{label}.pt2")
-    t0 = time.perf_counter()
     report = cli_output([f"ckpt={ckpt}", f"out={out}", *args])
-    seconds = time.perf_counter() - t0
     if (report["ckpt_step"], report["batch_size"], report["with_features"],
             report["platforms"]) != (1, 1, colours, ["cuda"]):
         raise AssertionError(f"{label} export report {report}")
@@ -2994,11 +2292,11 @@ def cli_round_trip(label: str, args: list, model, colours: bool,
                                  f"{len(dets)} detections != eager "
                                  f"{len(want)} (or their values differ)")
         found.append(len(dets))
-    print(f"  CLI {label}: export {seconds:.3f} s ({report['bytes']} bytes, "
-          f"source {report['source_dataset']!r}); run= on {CLI_SCENES} "
-          f"points: {found} detections, each equal to the eager program's; "
-          f"launches {total}")
-    return {"counts": total, "ckpt": ckpt, "seconds": seconds}
+    print(f"  CLI {label}: export ({report['bytes']} bytes, source "
+          f"{report['source_dataset']!r}); run= on {CLI_SCENES} points: "
+          f"{found} detections, each equal to the eager program's; launches "
+          f"{total}")
+    return ckpt
 
 
 def demo_check(ckpt: str, model, work: Path) -> None:
@@ -3008,11 +2306,9 @@ def demo_check(ckpt: str, model, work: Path) -> None:
     (the same classes; the floats within 1e-5, another process)."""
     out = work / "demo"
     args = [f"train.ckpt_dir={ckpt}", *SERVE_ARGS]
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "tpu3dsad_torch.demo",
                            f"out={out}", *args], capture_output=True,
                           text=True, timeout=600)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"demo failed:\n{proc.stderr[-4000:]}")
     with open(out / "detections.json") as f:
@@ -3041,30 +2337,24 @@ def demo_check(ckpt: str, model, work: Path) -> None:
         need.add("pred_boxes.obj")
     if not need <= set(files):
         raise AssertionError(f"demo wrote {files}")
-    print(f"  demo: {seconds:.1f} s in its own process, {len(got)} "
-          f"detections (max |diff| {worst:.3g} against this process's), "
-          f"files {files}")
+    print(f"  demo, in its own process: {len(got)} detections (max |diff| "
+          f"{worst:.3g} against this process's), files {files}")
 
 
-def phase_serve_export(card: str, work: Path) -> dict:
+def phase_serve_export(work: Path) -> None:
     print(f"== the exported serving program: config #5 exported at {B} x "
           f"{N}, loaded, against the eager program; the export / run CLI "
           "and the demo")
     work.mkdir(parents=True)
     train_lib.apply_runtime_config(Config())  # the CLIs' matmul precision
-    art = serve_artifact(card, work)
+    model = serve_artifact(work)
     (work / "scannet").mkdir()  # a ScanNet root for its mean sizes
     colour_cfg = parse_cli([*COLOUR_ARGS, f"data.root={work / 'scannet'}"])
     colour = build_detector(colour_cfg, get_dataset(colour_cfg).mean_sizes)
-    clis = [cli_round_trip("points", SERVE_ARGS, art["model"], False, work),
-            cli_round_trip("colour", [*COLOUR_ARGS,
-                                      f"data.root={work / 'scannet'}"],
-                           colour, True, work)]
-    demo_check(clis[0]["ckpt"], art["model"], work)
-    total = {k: art["counts"][k] + sum(c["counts"][k] for c in clis)
-             for k in art["counts"]}
-    return {**{k: v for k, v in art.items() if k not in ("model", "cfg")},
-            "counts": total, "cli_seconds": [c["seconds"] for c in clis]}
+    ckpt = cli_round_trip("points", SERVE_ARGS, model, False, work)
+    cli_round_trip("colour", [*COLOUR_ARGS, f"data.root={work / 'scannet'}"],
+                   colour, True, work)
+    demo_check(ckpt, model, work)
 
 
 # phase 15: from a raw release to a trained, evaluated and served model
@@ -3292,17 +2582,15 @@ def write_lineage_checkpoint(cfg, path: Path, seed: int = 0) -> dict:
     return weights
 
 
-def run_module(module: str, args: list) -> tuple[dict, float]:
-    """python -m <module> <args> in its own process: (the JSON of its last
-    stdout line, wall seconds). Its exit code must be 0."""
-    t0 = time.perf_counter()
+def run_module(module: str, args: list) -> dict:
+    """python -m <module> <args> in its own process: the JSON of its last
+    stdout line. Its exit code must be 0."""
     proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
                           capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"{module} exited {proc.returncode}:\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 class TeeStderr(io.StringIO):
@@ -3315,25 +2603,19 @@ class TeeStderr(io.StringIO):
 
 def raw_convert(work: Path) -> dict:
     """(a) Both raw releases written and converted by the port's
-    converters, each in its own process; both outputs validated. Prints
-    the host ms a scene (the process's wall, interpreter start and imports
-    included, and export_scene alone in this process)."""
-    t0 = time.perf_counter()
+    converters, each in its own process; both outputs validated."""
     scans, labels = write_raw_scannet(work / "raw_scannet")
     kitti_raw = write_raw_kitti(work / "raw_kitti")
-    print(f"  wrote {sum(RAW_SCANNET)} raw ScanNet scans of {RAW_VERTS} "
-          f"vertices and {sum(RAW_KITTI)} KITTI scans of {RAW_KITTI_N} "
-          f"points in {time.perf_counter() - t0:.3f} s")
     scannet_out, kitti_out = str(work / "scannet"), str(work / "kitti")
     raw = work / "raw_scannet"
-    report, s_scannet = run_module("tpu3dsad_torch.data.preproc_scannet", [
+    report = run_module("tpu3dsad_torch.data.preproc_scannet", [
         f"scans={scans}", f"labels={labels}", f"out={scannet_out}",
         f"train_list={raw / 'train.txt'}", f"val_list={raw / 'val.txt'}"])
     if report["written"] != {"train": RAW_SCANNET[0],
                              "val": RAW_SCANNET[1]}:
         raise AssertionError(f"preproc_scannet wrote {report}")
     raw = work / "raw_kitti"
-    report, s_kitti = run_module("tpu3dsad_torch.data.preproc_kitti", [
+    report = run_module("tpu3dsad_torch.data.preproc_kitti", [
         f"root={kitti_raw}", f"out={kitti_out}",
         f"train_list={raw / 'train.txt'}", f"val_list={raw / 'val.txt'}"])
     if report["written"] != {"train": RAW_KITTI[0], "val": RAW_KITTI[1]}:
@@ -3345,30 +2627,11 @@ def raw_convert(work: Path) -> dict:
     vert = np.load(Path(scannet_out) / "train" / "scene0000_00_vert.npy")
     if vert.shape != (min(RAW_VERTS, 50000), 6):  # the converter's cap
         raise AssertionError(f"a converted scene is {vert.shape}")
-    label_map = preproc_scannet.read_label_mapping(labels)
-    in_process = []
-    for scene in ("scene0000_00", "scene0001_00", "scene0002_00"):
-        t0 = time.perf_counter()
-        preproc_scannet.export_scene(f"{scans}/{scene}", scene, label_map)
-        in_process.append((time.perf_counter() - t0) * 1e3)
-    in_kitti = []
-    for idx in ("000000", "000001", "000002"):
-        t0 = time.perf_counter()
-        preproc_kitti.export_scene(kitti_raw, "training", idx)
-        in_kitti.append((time.perf_counter() - t0) * 1e3)
-    ms = {"scannet_process_ms_a_scene": s_scannet * 1e3 / sum(RAW_SCANNET),
-          "kitti_process_ms_a_scene": s_kitti * 1e3 / sum(RAW_KITTI),
-          "scannet_export_scene_ms": statistics.median(in_process),
-          "kitti_export_scene_ms": statistics.median(in_kitti)}
-    print(f"  converted: preproc_scannet {s_scannet:.3f} s for "
-          f"{sum(RAW_SCANNET)} scans ({ms['scannet_process_ms_a_scene']:.3f} "
-          f"ms a scene, process start included; export_scene alone "
-          f"{ms['scannet_export_scene_ms']:.3f} ms), preproc_kitti "
-          f"{s_kitti:.3f} s for {sum(RAW_KITTI)} "
-          f"({ms['kitti_process_ms_a_scene']:.3f} ms a scene; export_scene "
-          f"{ms['kitti_export_scene_ms']:.3f} ms); data.validate passes on "
+    print(f"  converted {sum(RAW_SCANNET)} raw ScanNet scans of {RAW_VERTS} "
+          f"vertices (preproc_scannet) and {sum(RAW_KITTI)} KITTI scans of "
+          f"{RAW_KITTI_N} points (preproc_kitti); data.validate passes on "
           "both")
-    return {"scannet": scannet_out, "kitti": kitti_out, "ms": ms}
+    return {"scannet": scannet_out, "kitti": kitti_out}
 
 
 def raw_import(work: Path, root: str) -> str:
@@ -3378,7 +2641,7 @@ def raw_import(work: Path, root: str) -> str:
     cfg = parse_cli([*RAW_MODEL, f"data.root={root}"])
     tar, out = work / "checkpoint.tar", work / "imported"
     weights = write_lineage_checkpoint(cfg, tar)
-    report, seconds = run_module("tpu3dsad_torch.utils.import_torch", [
+    report = run_module("tpu3dsad_torch.utils.import_torch", [
         f"ckpt={tar}", f"out={out}", *RAW_MODEL, f"data.root={root}"])
     if (report["skipped"], report["copied"], report["total_source_tensors"]
             ) != ([], len(weights), len(weights)):
@@ -3391,12 +2654,12 @@ def raw_import(work: Path, root: str) -> str:
         placed = state["model"][key]
         if not torch.equal(placed, weights[name].reshape(placed.shape)):
             raise AssertionError(f"{name} -> {key} is not its source")
-    print(f"  imported {report['copied']} lineage tensors in {seconds:.3f} s "
-          "(its process), none skipped, each bitwise its source")
+    print(f"  imported {report['copied']} lineage tensors (its own "
+          "process), none skipped, each bitwise its source")
     return str(out)
 
 
-def raw_train(work: Path, root: str, ckpt: str) -> dict:
+def raw_train(work: Path, root: str, ckpt: str) -> None:
     """(c) The import fine-tuned through the train entry, in this process:
     RAW_EPOCHS epochs with a sweep after each, the first one profiled,
     TensorBoard asked for; then eval_detector.main on the result, and the
@@ -3406,11 +2669,9 @@ def raw_train(work: Path, root: str, ckpt: str) -> dict:
             f"train.num_epochs={RAW_EPOCHS}", "train.eval_every=1",
             "train.log_every=4", f"train.profile_dir={profile}",
             f"train.tb_dir={tb}", "ops_impl=pallas"]
-    torch.cuda.synchronize()
     reset_counts()
     err = TeeStderr()
-    with stage_clock({"forward+parse": []}) as t, \
-            contextlib.redirect_stderr(err):
+    with sweep_calls() as t, contextlib.redirect_stderr(err):
         result = train_entry.main(args)
     got = counts()
     sweeps = len(t["scenes"])
@@ -3440,19 +2701,9 @@ def raw_train(work: Path, root: str, ckpt: str) -> dict:
     for ev in result.evals:
         if not (np.isfinite(ev["val_loss"]) and 0 <= ev["mAP@0.25"] <= 1):
             raise AssertionError(f"sweep {ev}")
-    warm = result.history[1:]
-    med = statistics.median(h["seconds"] for h in warm) * 1e3
-    wait = statistics.median(h["wait"] for h in warm) * 1e3
-    sweep_ms = [ev["seconds"] * 1e3 for ev in result.evals]
-    first = [h["seconds"] * 1e3 for h in result.history[:RAW_STEPS // 2]]
-    later = [h["seconds"] * 1e3 for h in result.history[RAW_STEPS // 2:]]
     print(f"  resumed at step {result.start_step}, trained to "
-          f"{result.step}: losses {[round(x, 4) for x in losses]}; median "
-          f"step {med:.3f} ms (steps 3-{result.step}), wait {wait:.3f} ms; "
-          f"the profiled epoch's steps {[round(x, 3) for x in first]} ms, "
-          f"the next epoch's {[round(x, 3) for x in later]} ms; sweeps "
-          f"{[round(x, 3) for x in sweep_ms]} ms, mAP@0.25 "
-          f"{[ev['mAP@0.25'] for ev in result.evals]}; trace "
+          f"{result.step}: losses {[round(x, 4) for x in losses]}; sweeps' "
+          f"mAP@0.25 {[ev['mAP@0.25'] for ev in result.evals]}; trace "
           f"{trace.stat().st_size} bytes; {tb_text}")
 
     reset_counts()
@@ -3471,10 +2722,8 @@ def raw_train(work: Path, root: str, ckpt: str) -> dict:
           f"{evaluated['val_loss']}, launches {eval_counts}")
 
     program = str(work / "imported.pt2")
-    t0 = time.perf_counter()
     report = cli_output([f"ckpt={ckpt}", f"out={program}", *RAW_MODEL,
                          f"data.root={root}", "train.batch_size=1"])
-    export_s = time.perf_counter() - t0
     scene = sorted(Path(root, "val").glob("*_vert.npy"))[0]
     reset_counts()
     dets = cli_output([f"run={program}", f"scene={scene}"])["detections"]
@@ -3486,17 +2735,12 @@ def raw_train(work: Path, root: str, ckpt: str) -> dict:
         raise AssertionError(f"served the import: launches {serve_counts}, "
                              f"{len(dets)} detections vs plain {len(plain)}, "
                              f"report {report}")
-    print(f"  serving.main: exported step {report['ckpt_step']} in "
-          f"{export_s:.3f} s; run= on {scene.name}: {len(dets)} detections, "
-          f"equal to the plain ops'; launches {serve_counts}")
-    total = {k: got[k] + eval_counts[k] + serve_counts[k] for k in got}
-    return {"counts": total, "step_ms": med, "wait_ms": wait,
-            "profiled_step_ms": first, "later_step_ms": later,
-            "sweep_ms": sweep_ms, "eval_map": evaluated["mAP@0.25"],
-            "export_s": export_s}
+    print(f"  serving.main: exported step {report['ckpt_step']}; run= on "
+          f"{scene.name}: {len(dets)} detections, equal to the plain ops'; "
+          f"launches {serve_counts}")
 
 
-def raw_capture_profiled(work: Path, root: str) -> dict:
+def raw_capture_profiled(work: Path, root: str) -> None:
     """(c') train.steps_per_call=RAW_K from scratch with the profiler on:
     its first epoch holds the eager block and the captured step, so the
     CUDA graph is captured under an active profiler."""
@@ -3520,37 +2764,31 @@ def raw_capture_profiled(work: Path, root: str) -> dict:
           f"the graph captured under the profiler; losses "
           f"{[round(x, 4) for x in losses]}, launches {got}, trace "
           f"{(profile / 'trace.json').stat().st_size} bytes")
-    return {"counts": got}
 
 
-def raw_outdoor(work: Path, root: str) -> dict:
+def raw_outdoor(work: Path, root: str) -> None:
     """(d) Config #4 from the converted KITTI scenes through the train
     entry, one epoch of one step: B2 once per scene the loader caches."""
     args = ["preset=outdoor", f"data.root={root}", "data.device_preproc=true",
             "train.num_epochs=1", "train.log_every=1",
             f"train.ckpt_dir={work / 'outdoor'}"]
     reset_counts()
-    with stage_clock({"b2": [(kitti, "device_fps")],
-                      "forward+parse": []}) as t:
+    with sweep_calls() as t:
         result = train_entry.main(args)
     got = counts()
     written = len(fps_caches(root))
     want = launches(**STEP4["fps"], fps_flat=written)
     losses = [h["loss"] for h in result.history]
-    if got != want or len(t["b2"]) != written or not written or \
+    if got != want or t["device_fps"] != written or not written or \
             result.step != 1 or not np.isfinite(losses).all():
         raise AssertionError(f"outdoor from raw: launches {got} != {want}, "
-                             f"{len(t['b2'])} device_fps, step "
+                             f"{t['device_fps']} device_fps, step "
                              f"{result.step}, losses {losses}")
-    b2 = statistics.median(t["b2"]) * 1e3
-    print(f"  config #4 from the converted scenes: loss {losses[0]:.6f}, "
-          f"step {result.history[0]['seconds'] * 1e3:.3f} ms; B2 once per "
-          f"scene cached ({written}), {b2:.3f} ms a scene; launches {got}")
-    return {"counts": got, "b2_ms": b2,
-            "step_ms": result.history[0]["seconds"] * 1e3}
+    print(f"  config #4 from the converted scenes: loss {losses[0]:.6f}; B2 "
+          f"once per scene cached ({written}); launches {got}")
 
 
-def raw_knn(gen) -> dict:
+def raw_knn(gen) -> None:
     """(e) ops.knn at [KNN_B, KNN_N, KNN_N], k = KNN_K, past the slab
     limit, against the direct path forced on the same inputs."""
     query, support = cloud(gen, KNN_B, KNN_N), cloud(gen, KNN_B, KNN_N)
@@ -3561,49 +2799,30 @@ def raw_knn(gen) -> dict:
     d_dir, i_dir = plain_knn._knn_direct(query, support, KNN_K, valid)
     require_equal("knn idx: slab scan vs direct", i_scan, i_dir)
     err = (d_scan - d_dir).abs().max().item()
-    scan_ms = cuda_ms(lambda: ops.knn(query, support, KNN_K), 3)
-    direct_ms = cuda_ms(
-        lambda: plain_knn._knn_direct(query, support, KNN_K, valid), 3)
     print(f"  ops.knn [{KNN_B}, {KNN_N}, {KNN_N}] k = {KNN_K}: the slab scan "
           f"({-(-KNN_N // (plain_knn._SLAB_LIMIT // (KNN_B * KNN_N)))} slabs)"
-          f" picks the direct path's indices, max |d2 diff| {err}; scan "
-          f"{scan_ms:.3f} ms, direct {direct_ms:.3f} ms")
-    return {"scan_ms": scan_ms, "direct_ms": direct_ms, "max_abs_err": err}
+          f" picks the direct path's indices, max |d2 diff| {err}")
 
 
-def phase_from_raw(card: str, gen, work: Path) -> dict:
+def phase_from_raw(gen, work: Path) -> None:
     print(f"== from raw releases: {sum(RAW_SCANNET)} ScanNet scans and "
           f"{sum(RAW_KITTI)} KITTI scans converted, a lineage checkpoint "
           "imported, fine-tuned through the train entry, evaluated, served; "
-          f"config #4 from the converted scans; ops.knn on {card}")
+          "config #4 from the converted scans; ops.knn")
     print("  importable here: " + ", ".join(
         f"{name} {importlib.util.find_spec(name) is not None}"
         for name in ("PIL", "tensorboard")) + " (preproc_sunrgbd needs PIL; "
           "it is checked by its CPU tests, not here)")
     work.mkdir(parents=True)
-    seconds = {}
-
-    def timed(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        seconds[name] = time.perf_counter() - t0
-        return out
-
     try:
-        data = timed("a", raw_convert, work)
-        ckpt = timed("b", raw_import, work, data["scannet"])
-        trained = timed("c", raw_train, work, data["scannet"], ckpt)
-        captured = timed("c'", raw_capture_profiled, work, data["scannet"])
-        outdoor = timed("d", raw_outdoor, work, data["kitti"])
-        knn = timed("e", raw_knn, gen)
+        data = raw_convert(work)
+        ckpt = raw_import(work, data["scannet"])
+        raw_train(work, data["scannet"], ckpt)
+        raw_capture_profiled(work, data["scannet"])
+        raw_outdoor(work, data["kitti"])
+        raw_knn(gen)
     finally:
         train_lib.apply_runtime_config(Config())
-    print("  phase 15 seconds: " + ", ".join(
-        f"({k}) {v:.1f}" for k, v in seconds.items()))
-    total = {k: trained["counts"][k] + captured["counts"][k]
-             + outdoor["counts"][k] for k in trained["counts"]}
-    return {"counts": total, "seconds": seconds, "convert_ms": data["ms"],
-            "train": trained, "outdoor": outdoor, "knn": knn}
 
 
 # ------------------------------------------------ phase 16: parallelism
@@ -3706,18 +2925,6 @@ def eval_grads(model, cfg, batch, group=None) -> dict:
     return {n: host(p.grad) for n, p in model.named_parameters()}
 
 
-def host_ms(fn, iters: int) -> float:
-    """Mean host ms a call over `iters` calls, from a synchronised start
-    to a synchronised end (a collective through the host blocks it)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
 def host(t: torch.Tensor) -> torch.Tensor:
     """A copy of t on the host (never an alias of a tensor the run goes on
     to change)."""
@@ -3748,7 +2955,7 @@ def compare_recorded(label: str, calls: dict, gen) -> None:
 
 def dp_rank_steps(rank: int, mesh, work: Path) -> dict:
     """PAR_STEPS steps, each from the world-1 run's state before it, on
-    this rank's rows of its batch: loss, ms, launches, gradients, state."""
+    this rank's rows of its batch: loss, launches, gradients, state."""
     cfg = par_config(str(work / "dp2"))
     train_lib.apply_runtime_config(cfg)
     model = build_detector(cfg, device=PAR_DEVICE)
@@ -3759,7 +2966,6 @@ def dp_rank_steps(rank: int, mesh, work: Path) -> dict:
     bn_m = train_lib.bn_momentum_at(cfg.train, 0)
     seen = picks_hook(model)
     out = []
-    torch.cuda.reset_peak_memory_stats()
     for i in range(PAR_STEPS):
         state = torch.load(work / f"state_{i}.pt", map_location=PAR_DEVICE)
         model.load_state_dict(state["model"])
@@ -3768,15 +2974,11 @@ def dp_rank_steps(rank: int, mesh, work: Path) -> dict:
                                        map_location=PAR_DEVICE), mesh)
         record = (recording() if rank == 0 and i == 0
                   else contextlib.nullcontext())
-        torch.cuda.synchronize()
         torch.distributed.barrier()
         reset_counts()
-        t0 = time.perf_counter()
         with record as calls:
-            metrics = step(batch, gen, bn_m)
-            loss = metrics["loss"].item()
-        ms = (time.perf_counter() - t0) * 1e3
-        out.append({"loss": loss, "ms": ms, "counts": counts(),
+            loss = step(batch, gen, bn_m)["loss"].item()
+        out.append({"loss": loss, "counts": counts(),
                     "picks": seen["picks"],
                     "grads": {n: host(p.grad) for n, p in
                               model.named_parameters()},
@@ -3785,16 +2987,11 @@ def dp_rank_steps(rank: int, mesh, work: Path) -> dict:
         if calls is not None:
             compare_recorded(f"rank 0, DP step 1 ({TRAIN_B // PAR_WORLD} "
                              f"scenes)", calls, gen)
-    peak = torch.cuda.max_memory_allocated()
-    grads = [p.grad for p in model.parameters()]
-    sync = cuda_ms(lambda: collectives.all_reduce_coalesced(
-        grads, mesh.group("data")), 5)
     model.load_state_dict(torch.load(work / "state_0.pt",
                                      map_location=PAR_DEVICE)["model"])
     batch = shard_batch(torch.load(work / "batch_0.pt",
                                    map_location=PAR_DEVICE), mesh)
-    return {"steps": out, "peak_bytes": peak, "allreduce_ms": sync,
-            "allreduce_floats": sum(g.numel() for g in grads),
+    return {"steps": out,
             "eval_grads": eval_grads(model, cfg, batch,
                                      train_lib.data_axis(mesh))}
 
@@ -3811,34 +3008,29 @@ def dp_rank_sweep(mesh, work: Path) -> dict:
                                  cfg.model.num_heading_bins, cfg.eval)
 
     reset_counts()
-    t0 = time.perf_counter()
     metrics = train_detector.evaluate(cfg, model, get_dataset(cfg),
                                       eval_step, parse,
                                       num_batches=PAR_SWEEP, mesh=mesh)
-    return {"metrics": metrics, "counts": counts(),
-            "seconds": time.perf_counter() - t0}
+    return {"metrics": metrics, "counts": counts()}
 
 
 def cp_rank(rank: int, work: Path) -> dict:
     """The CP forward over a ('points',) mesh of the ranks: end points,
-    launches, collectives, ms; and the sharded FPS of SA1 alone, timed."""
+    launches, collectives; and the collectives of SA1's sharded FPS
+    alone."""
     mesh = make_mesh((-1,), ("points",))
     cfg = cp_model_config()
     train_lib.apply_runtime_config(cfg)
     model = build_detector(cfg, device=PAR_DEVICE)
     scene = torch.load(work / "cp_scene.pt", map_location=PAR_DEVICE)
     record = recording() if rank == 0 else contextlib.nullcontext()
-    torch.cuda.synchronize()
     torch.distributed.barrier()
     reset_counts()
     calls0 = collectives.calls
-    t0 = time.perf_counter()
     with record as calls, torch.no_grad():
         ep = model(scene["points"], mask=scene["mask"], cp_mesh=mesh)
-        torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     found = {"counts": counts(), "collectives": collectives.calls - calls0,
-             "ms": ms, "end_points": {k: ep[k].cpu() for k in CP_KEYS}}
+             "end_points": {k: ep[k].cpu() for k in CP_KEYS}}
     if calls is not None:
         compare_recorded("rank 0, CP forward", calls,
                          torch.Generator(device=PAR_DEVICE).manual_seed(3))
@@ -3847,13 +3039,9 @@ def cp_rank(rank: int, work: Path) -> dict:
     npoint = cfg.model.sa_npoints[0]
     torch.distributed.barrier()
     calls0 = collectives.calls
-    _, fps_ms = once_ms(lambda: point_sharded.sharded_fps(
-        scene["points"], npoint, mesh, mask=scene["mask"]))
-    found["fps_ms"] = fps_ms
+    point_sharded.sharded_fps(scene["points"], npoint, mesh,
+                              mask=scene["mask"])
     found["fps_collectives"] = collectives.calls - calls0
-    record = torch.zeros(1, 5, device=PAR_DEVICE)  # one pick's [B, 5]
-    found["collective_ms"] = host_ms(lambda: collectives.all_gather(
-        record, mesh.group("points")), 200)
     return found
 
 
@@ -3877,15 +3065,13 @@ def hybrid_rank(rank: int, world: int, work: str) -> dict:
     m = cfg.model
     torch.distributed.barrier()
     reset_counts()
-    t0 = time.perf_counter()
     sa = point_sharded.sharded_sa_stage(
         c["xyz"], c["feats"], m.sa_npoints[0], m.sa_radii[0],
         m.sa_nsamples[0], mesh, mask=c["mask"], batch_axis="data")
     knn = point_sharded.sharded_knn(c["query"], c["xyz"], HYBRID_KNN_K, mesh,
                                     support_mask=c["mask"], batch_axis="data")
-    torch.cuda.synchronize()
     return {"sa": [t.cpu() for t in sa], "knn": [t.cpu() for t in knn],
-            "counts": counts(), "ms": (time.perf_counter() - t0) * 1e3,
+            "counts": counts(),
             "coords": (mesh.axis_index("data"), mesh.axis_index("points"))}
 
 
@@ -3904,7 +3090,6 @@ def dp_world_one(work: Path) -> dict:
     bn_m = train_lib.bn_momentum_at(cfg.train, 0)
     seen = picks_hook(model)
     steps = []
-    torch.cuda.reset_peak_memory_stats()
     for i in range(PAR_STEPS):
         torch.save({"model": model.state_dict(),
                     "optimizer": optimizer.state_dict()},
@@ -3912,15 +3097,11 @@ def dp_world_one(work: Path) -> dict:
         batch = synthetic_detection_batch(data_gen, TRAIN_B, TRAIN_N, 18,
                                           vote_candidates=3)
         torch.save(batch, work / f"batch_{i}.pt")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         loss = step(batch, gen, bn_m)["loss"].item()
         steps.append({"loss": loss, "picks": seen["picks"],
-                      "ms": (time.perf_counter() - t0) * 1e3,
                       "grads": {n: p.grad.clone() for n, p in
                                 model.named_parameters()},
                       "state": copy.deepcopy(model.state_dict())})
-    peak = torch.cuda.max_memory_allocated()
     floor = []
     for i, w in enumerate(steps):  # the same steps, scenes in reverse
         state = torch.load(work / f"state_{i}.pt")
@@ -3942,11 +3123,9 @@ def dp_world_one(work: Path) -> dict:
         return parse_predictions(end_points, model.mean_sizes,
                                  cfg.model.num_heading_bins, cfg.eval)
 
-    t0 = time.perf_counter()
     sweep = train_detector.evaluate(cfg, model, get_dataset(cfg), eval_step,
                                     parse, num_batches=PAR_SWEEP)
-    return {"steps": steps, "peak_bytes": peak, "sweep": sweep,
-            "sweep_seconds": time.perf_counter() - t0, "eval_grads": grads,
+    return {"steps": steps, "sweep": sweep, "eval_grads": grads,
             "floor": floor}
 
 
@@ -3963,12 +3142,8 @@ def cp_world_one(work: Path) -> dict:
     model = build_detector(cfg, device=PAR_DEVICE)
     reset_counts()
     with torch.no_grad():
-        ep, ms = once_ms(lambda: model(points, mask=mask))
-    found = {"end_points": {k: ep[k] for k in CP_KEYS}, "ms": ms,
-             "counts": counts()}
-    _, found["fps_ms"] = once_ms(lambda: ops.furthest_point_sample(
-        points, cfg.model.sa_npoints[0], mask=mask))
-    return found
+        ep = model(points, mask=mask)
+    return {"end_points": {k: ep[k] for k in CP_KEYS}, "counts": counts()}
 
 
 def hybrid_world_one(work: Path) -> dict:
@@ -4011,12 +3186,10 @@ def entry_run(work: Path) -> dict:
             f"train.batch_size={TRAIN_B}", "train.num_epochs=1",
             "train.eval_every=2", "train.log_every=1",
             f"train.ckpt_dir={ckpt}"]
-    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node=1", "-m", "tpu3dsad_torch.train", *args],
         cwd=REPO, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"torchrun exited {proc.returncode}:\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
@@ -4031,40 +3204,32 @@ def entry_run(work: Path) -> dict:
                              f"checkpoint {list(ckpt.glob('*'))}")
     print(f"  (e) torchrun --standalone --nproc-per-node=1 -m "
           f"tpu3dsad_torch.train: '{joined[0]}', 2 steps, losses "
-          f"{[s['train/loss'] for s in steps]}, ckpt_2.pt, {seconds:.1f} s "
-          "in all")
-    return {"seconds": seconds}
+          f"{[s['train/loss'] for s in steps]}, ckpt_2.pt")
 
 
-def phase_parallel(card: str, work: Path) -> dict:
+def phase_parallel(work: Path) -> None:
     print(f"== parallelism on one card: {PAR_WORLD} ranks (DP, config #3 "
           f"{TRAIN_B} x {TRAIN_N}; CP, config #4's model on {CP_N} points) "
           f"and 4 (hybrid 2 x 2), backend {PAR_BACKEND} on CUDA tensors "
           f"(asked for by name: NCCL takes one rank a card); then torchrun "
-          f"with NCCL; on {card}")
+          f"with NCCL")
     work.mkdir(parents=True)
     try:
-        return parallel_runs(work)
+        parallel_runs(work)
     finally:
         train_lib.apply_runtime_config(Config())
 
 
-def parallel_runs(work: Path) -> dict:
-    seconds = {}
-    t0 = time.perf_counter()
+def parallel_runs(work: Path) -> None:
     one = dp_world_one(work)
     cp_one = cp_world_one(work)
     hy_one = hybrid_world_one(work)
-    seconds["world 1"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     ranks = launch.spawn(par_rank, PAR_WORLD, backend=PAR_BACKEND,
                          device=PAR_DEVICE, args=(str(work),))
-    seconds["2 ranks"] = time.perf_counter() - t0
 
     # (a) DP training
     print(f"  (a) DP: {PAR_STEPS} steps, each from world 1's state before "
           "it; ranks hold their rows of its batch")
-    total = {k: 0 for k in counts()}
     for i, w in enumerate(one["steps"]):
         for rank, r in enumerate(ranks):
             s = r["dp"]["steps"][i]
@@ -4093,7 +3258,6 @@ def parallel_runs(work: Path) -> dict:
             if pdiff >= 2e-2:
                 raise AssertionError(f"rank {rank} step {i + 1}: parameters "
                                      f"differ by {pdiff}")
-            total = {k: total[k] + s["counts"][k] for k in total}
         if any(not torch.equal(v, ranks[1]["dp"]["steps"][i]["state"][k])
                for k, v in ranks[0]["dp"]["steps"][i]["state"].items()):
             raise AssertionError(f"step {i + 1}: the ranks' states differ")
@@ -4117,15 +3281,6 @@ def parallel_runs(work: Path) -> dict:
     print(f"  gradients with BatchNorm on its running statistics (step 1's "
           f"state and batch): max |world 2 - world 1| {worst:.3g}, "
           f"{rel:.3g} of a tensor's max, {share:.3f} of the bar")
-    ms1 = [s["ms"] for s in one["steps"]]
-    ms2 = [max(r["dp"]["steps"][i]["ms"] for r in ranks)
-           for i in range(PAR_STEPS)]
-    print(f"  ms a step (fp32): world 1 {[f'{m:.1f}' for m in ms1]}, world "
-          f"2 (slower rank) {[f'{m:.1f}' for m in ms2]}; the gradient "
-          f"all-reduce {ranks[0]['dp']['allreduce_ms']:.3f} ms a step "
-          f"({ranks[0]['dp']['allreduce_floats']} floats, one flat buffer); "
-          f"peak memory world 1 {one['peak_bytes'] / 2**30:.3f} GiB, a rank "
-          f"{[round(r['dp']['peak_bytes'] / 2**30, 3) for r in ranks]} GiB")
 
     # (b) the sweep
     for rank, r in enumerate(ranks):
@@ -4138,13 +3293,10 @@ def parallel_runs(work: Path) -> dict:
                                                        rtol=1e-5, atol=0):
                     raise AssertionError(f"rank {rank} sweep {k}/{c}: "
                                          f"{have} vs {want}")
-        total = {k: total[k] + r["sweep"]["counts"][k] for k in total}
     flat = {k: v for k, v in one["sweep"].items() if not isinstance(v, dict)}
     print(f"  (b) DP sweep of {PAR_SWEEP} batches: metrics within rtol 1e-5 "
-          f"of world 1's on both ranks, per class too ({flat}); "
-          f"{ranks[0]['sweep']['seconds']:.1f} s against "
-          f"{one['sweep_seconds']:.1f} s; launches rank 0 "
-          f"{ranks[0]['sweep']['counts']}")
+          f"of world 1's on both ranks, per class too ({flat}); launches "
+          f"rank 0 {ranks[0]['sweep']['counts']}")
 
     # (c) CP
     for rank, r in enumerate(ranks):
@@ -4159,7 +3311,6 @@ def parallel_runs(work: Path) -> dict:
             raise AssertionError(f"CP rank {rank}: {c['collectives']} "
                                  f"collectives in the forward, "
                                  f"{c['fps_collectives']} in SA1's FPS")
-        total = {k: total[k] + c["counts"][k] for k in total}
     c = ranks[0]["cp"]
     npoint = cp_model_config().model.sa_npoints[0]
     print(f"  (c) CP forward at {CP_N} points, cp_stages=2: {CP_KEYS} "
@@ -4168,17 +3319,11 @@ def parallel_runs(work: Path) -> dict:
           f"included); launches a rank {c['counts']}, 2 of the B3 ones at "
           f"the sharded levels, on each rank's shard "
           f"{c['sharded_level_bq']}; world 1 {cp_one['counts']} (SA1's FPS "
-          f"at B = 1 is B2); forward {c['ms']:.1f} ms against "
-          f"{cp_one['ms']:.1f} unsharded; SA1's sharded FPS "
-          f"{c['fps_ms'] / npoint * 1e3:.1f} us a pick (its collective "
-          f"alone {c['collective_ms'] * 1e3:.1f} us, rank 0) against the "
-          f"unsharded FPS's {cp_one['fps_ms'] / npoint * 1e3:.1f}")
+          f"at B = 1 is B2)")
 
     # (d) hybrid
-    t0 = time.perf_counter()
     hybrid = launch.spawn(hybrid_rank, 4, backend=PAR_BACKEND,
                           device=PAR_DEVICE, args=(str(work),))
-    seconds["4 ranks"] = time.perf_counter() - t0
     for rank, r in enumerate(hybrid):
         d, _ = r["coords"]
         for name, got, want in (
@@ -4193,20 +3338,11 @@ def parallel_runs(work: Path) -> dict:
                     raise AssertionError(f"hybrid rank {rank} {name}: {at}")
             else:
                 require_equal(f"hybrid rank {rank} {name}", got, want)
-        total = {k: total[k] + r["counts"][k] for k in total}
     print(f"  (d) hybrid 2 x 2 at B = {HYBRID_B} x {CP_N}: the SA1 stage and "
           f"kNN (k = {HYBRID_KNN_K} of {HYBRID_KNN_M}) bitwise the unsharded "
-          f"ops on every rank; {max(r['ms'] for r in hybrid):.1f} ms; "
-          f"launches a rank {hybrid[0]['counts']}")
+          f"ops on every rank; launches a rank {hybrid[0]['counts']}")
 
-    t0 = time.perf_counter()
-    entry = entry_run(work)
-    seconds["torchrun"] = time.perf_counter() - t0
-    print("  phase 16 seconds: " + ", ".join(f"{k} {v:.1f}"
-                                              for k, v in seconds.items()))
-    return {"counts": total, "seconds": seconds, "entry": entry,
-            "ms_world1": ms1, "ms_world2": ms2,
-            "allreduce_ms": ranks[0]["dp"]["allreduce_ms"]}
+    entry_run(work)
 
 
 # -------------------------------------------- phase 17: DP k-step blocks
@@ -4260,7 +3396,7 @@ def dpk_run(cfg, steps: int) -> dict:
                              f"losses {losses} (want {steps} steps)")
     rows = [json.loads(line) for line in out.getvalue().splitlines()
             if line.startswith("{")]
-    return {"result": result, "counts": got,
+    return {"result": result,
             "logged": [r["step"] for r in rows if "train/loss" in r],
             "block": [line for line in err.getvalue().splitlines()
                       if line.startswith("train block")]}
@@ -4291,14 +3427,9 @@ def dpk_synth(rank: int, work: Path) -> dict:
     require_bitwise(f"rank {rank}: k={DPK} vs k=1 resumed from ckpt_"
                     f"{TRAIN_STEPS}.pt", run_state(resumed[DPK]),
                     run_state(resumed[1]))
-    # the path's own launches: the k = DPK runs (k = 1 is the reference)
-    total = {n: runs[DPK]["counts"][n] + resumed[DPK]["counts"][n]
-             for n in counts()}
     return {"losses": [h["loss"] for h in runs[DPK]["result"].history],
-            "ms": {k: [h["seconds"] * 1e3 for h in runs[k]["result"].history
-                       + resumed[k]["result"].history] for k in runs},
             "logged": runs[DPK]["logged"] + resumed[DPK]["logged"],
-            "block": runs[DPK]["block"], "counts": total,
+            "block": runs[DPK]["block"],
             "ckpts": sorted(p.name for p in (work / f"synth_{DPK}").iterdir())}
 
 
@@ -4310,13 +3441,7 @@ def dpk_packed(rank: int, mesh, work: Path, packed: str) -> dict:
     first step's kernel inputs)."""
     cfg = hostfed_config(packed, str(work / "packed_run"), *DPK_PACKED,
                          f"train.steps_per_call={DPK}")
-    run = dpk_run(cfg, TRAIN_STEPS)
-    hist = run["result"].history
-    waits = [sum(h["wait"] for h in hist[i:i + DPK]) * 1e3
-             for i in range(0, TRAIN_STEPS, DPK)]
-    ms = [h["seconds"] * 1e3 for h in hist]
-    total = dict(run["counts"])
-    del run
+    dpk_run(cfg, TRAIN_STEPS)
 
     dataset = get_dataset(cfg)
     rng = np.random.default_rng(5)
@@ -4371,8 +3496,6 @@ def dpk_packed(rank: int, mesh, work: Path, packed: str) -> dict:
         if counts() != step_counts(2 * DPK):
             raise AssertionError(f"rank {rank}: {counts()} launches for 2 "
                                  f"blocks ({'block' if blocked else 'eager'})")
-        if blocked:  # the eager steps are the reference
-            total = {n: total[n] + counts()[n] for n in total}
         got[blocked] = trained_state(losses, model, optimizer)
         del model, optimizer
     require_bitwise(f"rank {rank}: 2 packed blocks vs {2 * DPK} eager DP "
@@ -4381,8 +3504,7 @@ def dpk_packed(rank: int, mesh, work: Path, packed: str) -> dict:
         compare_recorded("rank 0, DP k-block path, step 1 (packed, "
                          f"{TRAIN_B // PAR_WORLD} scenes)", recorded,
                          torch.Generator(device="cuda").manual_seed(3))
-    return {"ms": ms, "waits": waits, "counts": total,
-            "losses": got[True]["loss"].tolist(), "bn_ms": bn_ms}
+    return {"losses": got[True]["loss"].tolist(), "bn_ms": bn_ms}
 
 
 def dpk_rank(rank: int, world: int, work: str, packed: str) -> dict:
@@ -4425,7 +3547,6 @@ def world_one_run(cfg) -> dict:
                 "times a call)"]:
         raise AssertionError(f"world 1 block: {mode}")
     return {"losses": [h["loss"] for h in result.history],
-            "ms": [h["seconds"] * 1e3 for h in result.history],
             "mode": mode[0], "counts": counts()}
 
 
@@ -4440,28 +3561,22 @@ def dpk_world_one(work: Path) -> dict:
     return one | {"reversed": rev["losses"]}
 
 
-def phase_parallel_k(card: str, work: Path, packed: Path) -> dict:
+def phase_parallel_k(work: Path, packed: Path) -> None:
     print(f"== DP k-step blocks: run_detector at train.steps_per_call={DPK} "
           f"on {PAR_WORLD} ranks ({PAR_BACKEND} on CUDA tensors, every rank "
           f"on cuda:0), config #3 at {TRAIN_B} x {TRAIN_N} in fp32: eager "
-          "blocks on the data group; world 1's captured block beside it; "
-          f"on {card}")
+          "blocks on the data group; world 1's captured block beside it")
     work.mkdir(parents=True)
     try:
-        return parallel_k_runs(card, work, packed)
+        parallel_k_runs(work, packed)
     finally:
         train_lib.apply_runtime_config(Config())
 
 
-def parallel_k_runs(card: str, work: Path, packed: Path) -> dict:
-    seconds = {}
-    t0 = time.perf_counter()
+def parallel_k_runs(work: Path, packed: Path) -> None:
     ranks = launch.spawn(dpk_rank, PAR_WORLD, backend=PAR_BACKEND,
                          device=PAR_DEVICE, args=(str(work), str(packed)))
-    seconds[f"{PAR_WORLD} ranks"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     one = dpk_world_one(work)
-    seconds["world 1"] = time.perf_counter() - t0
 
     # (a) the card's synthetic feed
     lead = ranks[0]["synth"]
@@ -4523,31 +3638,6 @@ def parallel_k_runs(card: str, work: Path, packed: Path) -> dict:
           f"), reversed {[float(f'{g:.3g}') for g in gap_rev]} (most "
           f"{max(gap_rev):.3g})")
 
-    # times: each step's ms is its call's over k
-    slower = {k: [max(r["synth"]["ms"][k][i] for r in ranks)
-                  for i in range(2 * TRAIN_STEPS)] for k in (DPK, 1)}
-    starts = range(0, 2 * TRAIN_STEPS, DPK)  # each block's first step
-    k_ms = statistics.median(slower[DPK][DPK:])
-    eager_ms = statistics.median(slower[1][1:])
-    replayed = statistics.median(one["ms"][2 * DPK:])
-    waits = [[round(w, 3) for w in r["packed"]["waits"]] for r in ranks]
-    print(f"  ms a step (slower rank): world 2 k={DPK} by block "
-          f"{[round(slower[DPK][i], 3) for i in starts]}"
-          f" (median of blocks 2-4 {k_ms:.3f}), world 2 k=1 "
-          f"{[round(v, 3) for v in slower[1]]} (median of steps 2-16 "
-          f"{eager_ms:.3f}); world 1 k={DPK} by block "
-          f"{[round(one['ms'][i], 3) for i in starts]}"
-          f" (replayed blocks 3-4 {replayed:.3f}); packed k={DPK} world 2 "
-          f"{[round(v, 3) for v in ranks[0]['packed']['ms'][::DPK]]} ms a "
-          f"step by block, host wait a block {waits} ms (rank 0, rank 1); "
-          f"on {card}")
-    total = {n: sum(r["synth"]["counts"][n] + r["packed"]["counts"][n]
-                    for r in ranks) for n in counts()}
-    print("  phase 17 seconds: " + ", ".join(f"{k} {v:.1f}"
-                                              for k, v in seconds.items())
-          + f"; launches over the ranks {total}")
-    return {"counts": total, "seconds": seconds, "k_ms": k_ms,
-            "eager_ms": eager_ms, "replayed_ms": replayed, "waits": waits}
 
 # phase 18: recipe R1 of chip_recipes.py (the 18-class host-synthetic
 # recipe of docs/experiments/r3_18cls_votefactor3.jsonl) for its first
@@ -4558,13 +3648,12 @@ RECIPE_EPOCHS, RECIPE_SEED, RECIPE_GATE = 50, 2, 0.118
 RECIPE_VAL_BATCHES = 4  # the synthetic val set
 
 
-def phase_recipe(card: str, work: Path, tallies: dict) -> dict:
+def phase_recipe(work: Path) -> None:
     recipe = chip_recipes.RECIPES["R1"]
     steps = RECIPE_EPOCHS * recipe.steps_per_epoch
     print(f"== recipe R1 ({recipe.name}, {recipe.reference}): the first "
           f"{RECIPE_EPOCHS} epochs ({steps} steps) through run_detector at "
           f"train.seed={RECIPE_SEED}, the eval at epoch {RECIPE_EPOCHS - 1}")
-    t0 = time.perf_counter()
     cfg = parse_cli([*chip_recipes.leg_argv(recipe, 0, "", str(work),
                                             RECIPE_SEED),
                      f"train.num_epochs={RECIPE_EPOCHS}"])
@@ -4590,16 +3679,11 @@ def phase_recipe(card: str, work: Path, tallies: dict) -> dict:
     print("  train/loss at the reference's logged steps, port / reference: "
           + ", ".join(f"{s}: {losses[s - 1]:.4f} / {v:.4f}"
                       for s, v in sorted(ref_loss.items())))
-    warm = result.history[1:]
-    med = statistics.median(h["seconds"] for h in warm) * 1e3
-    wait = statistics.median(h["wait"] for h in warm) * 1e3
     print(f"  epoch {ev['epoch']}: mAP@0.25 {ev['mAP@0.25']} against the "
           f"reference's {ref_map['eval/mAP@0.25']} (gate {RECIPE_GATE}), "
           f"mAP@0.5 {ev['mAP@0.5']} / {ref_map['eval/mAP@0.5']}, AR@0.25 "
           f"{ev['AR@0.25']} / {ref_map['eval/AR@0.25']}, val_loss "
-          f"{ev['val_loss']} / {ref_map['eval/val_loss']}; median step "
-          f"{med:.3f} ms, of it waiting for the batch {wait:.3f} ms; sweep "
-          f"{ev['seconds'] * 1e3:.3f} ms on {card}")
+          f"{ev['val_loss']} / {ref_map['eval/val_loss']}")
     if ev["epoch"] != RECIPE_EPOCHS - 1 or not ev["mAP@0.25"] >= RECIPE_GATE:
         raise AssertionError(f"recipe R1: eval {ev['epoch']} mAP@0.25 "
                              f"{ev['mAP@0.25']} < {RECIPE_GATE}")
@@ -4622,16 +3706,12 @@ def phase_recipe(card: str, work: Path, tallies: dict) -> dict:
     bq_names = ["sa1", "sa2", "sa3", "sa4"] + [
         f"bank_{r:g}" for r in cfg.model.cluster_radius_bank]
     for name, (args, kw) in zip(fps_names, calls["fps"]):
-        fps_case(tallies["fps"], "recipe", name, args[0], args[1],
-                 kw.get("mask"), compares=3)
+        fps_case("recipe", name, args[0], args[1], kw.get("mask"),
+                 compares=3)
     for name, (args, kw) in zip(bq_names, calls["ball_query"]):
-        bq_case(tallies["ball_query"], "recipe", name, *args, kw.get("mask"))
+        bq_case("recipe", name, *args, kw.get("mask"))
     for args, _ in calls["scatter"]:
-        scatter_case(tallies["scatter"], "recipe", *args, gen)
-    seconds = time.perf_counter() - t0
-    print(f"  phase 18 seconds: {seconds:.1f}")
-    return {"counts": got, "map": ev["mAP@0.25"], "median_ms": med,
-            "seconds": seconds}
+        scatter_case("recipe", *args, gen)
 
 
 def main() -> None:
@@ -4641,7 +3721,7 @@ def main() -> None:
         """Record the seconds since the last phase ended."""
         laps[phase] = time.perf_counter() - t0 - sum(laps.values())
 
-    card = phase_device()
+    phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
     work = Path(tempfile.mkdtemp(prefix="tpu3dsad_torch_outdoor_"))
     try:
@@ -4650,53 +3730,46 @@ def main() -> None:
         eval_loads, eval_calls = capture_eval_batch(outdoor)
         serve_calls = capture_request()
         lap("1")
-        fps_t = phase_fps(gen, train_calls, eval_calls)
+        phase_fps(gen, train_calls, eval_calls)
         lap("2")
-        bq_t = phase_ball_query(gen, serve_calls, train_calls, eval_calls)
+        phase_ball_query(gen, serve_calls, train_calls, eval_calls)
         lap("3")
-        served = phase_serve(card)
-        nms_t = phase_nms(serve_calls, eval_calls)
+        phase_serve()
+        phase_nms(serve_calls, eval_calls)
         lap("4")
-        scatter_t = phase_scatter(gen, train_calls)
+        phase_scatter(gen, train_calls)
         lap("5")
         nn_calls = train_calls["three_nn"]
         train_sa1 = train_calls["ball_query"][0]
         serve_sa1 = serve_calls["ball_query"][0]
         del serve_calls
         del train_calls  # keep the recorded tensors out of training's peak
-        trained = phase_train(card, gen, nn_calls)
+        phase_train(gen, nn_calls)
         lap("6")
-        flat_t = phase_fps_flat(gen, eval_loads["fps"][0])
+        phase_fps_flat(gen, eval_loads["fps"][0])
         lap("7")
         del eval_loads
-        sorted_t = phase_sorted(gen, eval_calls, serve_sa1, train_sa1)
+        phase_sorted(gen, eval_calls, serve_sa1, train_sa1)
         lap("8")
-        evaluated = phase_eval(card, outdoor)
+        phase_eval(outdoor)
         lap("9")
-        hostfed = phase_hostfed(card, work / "hostfed")
+        phase_hostfed(work / "hostfed")
         lap("10")
-        iou_t = Tally()
-        trained4 = phase_outdoor_train(card, {
-            "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t,
-            "fps_flat": flat_t, "iou": iou_t})
+        phase_outdoor_train()
         lap("11")
-        trained_k = phase_train_k(card, work / "hostfed")
+        phase_train_k(work / "hostfed")
         lap("12")
-        classified = phase_classify(card, {
-            "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t},
-            work / "classify")
+        phase_classify(work / "classify")
         lap("13")
-        exported = phase_serve_export(card, work / "export")
+        phase_serve_export(work / "export")
         lap("14")
-        from_raw = phase_from_raw(card, gen, work / "raw")
+        phase_from_raw(gen, work / "raw")
         lap("15")
-        parallel = phase_parallel(card, work / "parallel")
+        phase_parallel(work / "parallel")
         lap("16")
-        parallel_k = phase_parallel_k(card, work / "parallel_k",
-                                      work / "hostfed" / "packed")
+        phase_parallel_k(work / "parallel_k", work / "hostfed" / "packed")
         lap("17")
-        recipe = phase_recipe(card, work / "recipe", {
-            "fps": fps_t, "ball_query": bq_t, "scatter": scatter_t})
+        phase_recipe(work / "recipe")
         lap("18")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4705,103 +3778,9 @@ def main() -> None:
     if jax_side:
         raise AssertionError(f"the port imported JAX or its package: "
                              f"{jax_side}")
-    paths = {"serve": served["counts"], "train": trained["counts"],
-             "eval4": {**evaluated["exact"]["counts"],
-                       "sorted": evaluated["sorted"]["counts"]["sorted"]},
-             "hostfed": hostfed["counts"], "train4": trained4["counts"],
-             "traink": trained_k["counts"], "classify": classified["counts"],
-             "serve_export": exported["counts"],
-             "from_raw": from_raw["counts"], "parallel": parallel["counts"],
-             "parallel_k": parallel_k["counts"], "recipe": recipe["counts"]}
-
-    def entry(name, counter, source, replaces, tally):
-        times = tally.summary()
-        for path, t in times["by_path"].items():
-            t["launches"] = paths[path][counter]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": sum(c[counter] for c in paths.values()),
-                "hostfed_launches": paths["hostfed"][counter],
-                "serve_export_launches": paths["serve_export"][counter],
-                "from_raw_launches": paths["from_raw"][counter],
-                "parallel_launches": paths["parallel"][counter],
-                "parallel_k_launches": paths["parallel_k"][counter],
-                "recipe_launches": paths["recipe"][counter],
-                "traink_replayed_step_launches": sum(
-                    n for k, n in trained_k["replay_launches"].items()
-                    if REPLAY_KERNELS[k][0] == counter) // K_STEPS,
-                "traink_replayed_step_device_ms": sum(
-                    ms for k, ms in trained_k["replay_device_ms"].items()
-                    if REPLAY_KERNELS[k][0] == counter),
-                **times}
-
-    kernels = [
-        entry("fps", "fps", "tpu3dsad_torch/csrc/fps.cu",
-              "tpu3dsad/ops/pallas/fps.py:44", fps_t),
-        entry("fps_flat", "fps_flat", "tpu3dsad_torch/csrc/fps.cu",
-              "tpu3dsad/ops/pallas/fps.py:142", flat_t),
-        entry("ball_query", "ball_query", "tpu3dsad_torch/csrc/ball_query.cu",
-              "tpu3dsad/ops/pallas/ball_query.py:54", bq_t),
-        entry("sorted_ball_query", "sorted",
-              "tpu3dsad_torch/ops/sorted.py + tpu3dsad_torch/csrc/"
-              "ball_query.cu", "tpu3dsad/ops/pallas/ball_query.py:282",
-              sorted_t),
-        entry("scatter_rows", "scatter", "tpu3dsad_torch/csrc/scatter.cu",
-              "tpu3dsad/ops/pallas/scatter.py:92", scatter_t),
-        entry("nms_walk", "nms", "tpu3dsad_torch/csrc/nms.cu",
-              "tpu3dsad/ops/nms.py:81", nms_t),
-        entry("oriented_iou", "iou", "tpu3dsad_torch/csrc/iou.cu",
-              "tpu3dsad/ops/boxes.py:150", iou_t),
-    ]
-    print("kernel ms / plain_ms / library_ms / bound_ms: summed over the "
-          "main-path shapes of one served request (32 x 20480), one "
-          "config-#3 training step (8 x 40960), one config-#4 eval batch "
-          "(8 x 16384; fps_flat: one scene), one config-#4 train step "
-          "(train4, 8 x 16384; fps_flat: one loader scene) and one config-#1 "
-          f"MSG train step (classify, {CLS_B} x {CLS_N}), each path's "
-          f"own under by_path; launches: the {REQUESTS} served requests, the "
-          f"{TRAIN_STEPS} training steps, one config-#4 sweep of "
-          f"{EVAL_SCENES} scenes (exact grouping; sorted_ball_query: the "
-          f"sweep with ops_fast_mode=sorted), the 2 x {TRAIN_STEPS} "
-          "host-fed steps and 2 val batches of phase 10 (under "
-          f"hostfed_launches) and the 2 x {OUT_STEPS} config-#4 steps, 2 "
-          "val batches and B2 in the loader of phase 11 (train4), and "
-          f"phase 12's train.steps_per_call={K_STEPS} runs (device synth "
-          "and packed: the eager warm-up block and the captured step, "
-          "which the counters see; traink_replayed_step_launches counts a "
-          "replayed step's launches by name with torch.profiler), and phase "
-          f"13's {CLS_REQUESTS} classified clouds, {CLS_STEPS} MSG steps and "
-          f"{CLS_VAL} val batches, and the shape benchmark's "
-          f"{SHAPES_EPOCHS} epochs and sweeps (classify), and phase 14's "
-          f"loaded programs: {REQUESTS} requests at {B} x {N}, one under the "
-          "sorted tier, and 4 run= scenes at B = 1 (path serve_export, "
-          "under serve_export_launches), and phase 15's lineage import "
-          f"fine-tuned for {RAW_STEPS} steps with its {RAW_EPOCHS} sweeps, "
-          f"evaluated and served once, its steps_per_call={RAW_K} run (the "
-          "eager block and the captured step) and the config-#4 step from "
-          "the converted KITTI scans with B2 in its loader (path from_raw, "
-          f"under from_raw_launches), and phase 16's ranks, summed over "
-          f"them: {PAR_STEPS} DP steps and a {PAR_SWEEP}-batch sweep on "
-          f"{PAR_WORLD} ranks, the CP forward on {PAR_WORLD} and the hybrid "
-          "SA1 stage on 4 (path parallel, under parallel_launches), and "
-          f"phase 17's ranks, summed over them: 4 x {TRAIN_STEPS} steps a "
-          f"rank at train.steps_per_call={DPK} (the synthetic run, its "
-          "resume, the packed run and 2 packed blocks built apart), eager "
-          "blocks on the data group (path parallel_k, under "
-          f"parallel_k_launches), and phase 18's {RECIPE_EPOCHS} epochs of "
-          "recipe R1 (8 x 8192 points, 18 classes) with its sweep (path "
-          "recipe, under recipe_launches; its times: one recorded step); "
-          "nms_walk's times are on the walk's inputs recorded in phase 1: "
-          f"a request of {B} scenes (serve), a raw scan served at B = 1 "
-          "(serve_export) and the parse of a config-#4 eval batch (eval4), "
-          "and its launches one a parse on every path; oriented_iou's times "
-          "are on the inputs of phase 11's oriented parse (train4: 8 scenes "
-          "of 256 boxes, class-shifted), its launches one an oriented "
-          "parse")
     print("seconds by phase (1: the build and the recordings): " + ", ".join(
         f"{k} {v:.1f}" for k, v in laps.items())
           + f"; in all {time.perf_counter() - t0:.1f}")
-    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,56 +1,16 @@
 #!/usr/bin/env python3
-"""Where one request's, or one training step's, time goes in the PyTorch /
-CUDA port, on one GPU.
+"""The port's kernels timed alone on one GPU, each launch shape held to
+the plain version first.
 
-    python3 profile_port.py [--trace PATH]          # serving, config #5
-    python3 profile_port.py --train [--trace PATH]  # training, config #3
-    python3 profile_port.py --eval [--trace PATH]   # evaluation, config #4
     python3 profile_port.py --fps                   # FPS per call and plan
     python3 profile_port.py --ball-query            # ball query per call and plan
     python3 profile_port.py --scatter               # scatter per call and plan
     python3 profile_port.py --scatter-calls PATH    # scatter calls, any tree
     python3 profile_port.py --span-cost             # the tracer's host cost
 
-Serving drives the program of chip_smoke.py (BASELINE config #5: 32 scenes
-x 20480 points, seeded random weights, served through
-serving.build_inference_fn) and prints:
-
- 1. the host wall ms of each timed request (synchronised after each);
- 2. the program's spans (tpu3dsad_torch/utils/trace.py), the median over
-    REQUESTS requests of each span's device ms (its CUDA events) and host
-    ms: serve.program, the detector's backbone (SA1-4, FP1-2), voting and
-    proposal, parse.decode and parse.nms. Nothing synchronises inside a
-    request;
- 3. the same for REQUESTS single scans through the whole serving path,
-    as `python -m tpu3dsad_torch.serving run=...` serves one: a raw scan
-    of SCAN_POINTS points fitted to one scene of N points
-    (prepare_scene_batch: serve.prepare), the program at B = 1
-    (serve.program and its spans), then the listing of the kept boxes
-    (detections: serve.detections, with the outputs' copy to the host in
-    serve.d2h);
- 4. torch.profiler over PROFILED requests (the spans are its ranges): ops
-    and kernels by self device time, then the device's busy share, the
-    union of the kernel intervals over the span from the first kernel's
-    start to the last kernel's end.
-
-WARMUP requests run first and are not timed. The chrome trace is written
-to --trace (default build/profile/request_trace.json).
-
---train does the same for the train step of chip_smoke.py's phase 6
-(config #3: 8 scenes x 40960 points, 18 classes, train.bf16_matmul on, so
-the MLP products may run as TF32), make_detector_steps' step on a batch
-made on the card beforehand: its spans (train.step, train.forward with
-the detector's, train.loss, train.backward, train.optimizer) as medians
-over REQUESTS steps after WARMUP; then torch.profiler over PROFILED steps,
-the busy share, and the kernels by device time with the GEMM kernels
-listed apart, so their names show which precision cuBLAS ran.
-
---eval does it for one batch of chip_smoke.py's phase 9 (config #4:
-preset=outdoor, 8 scenes of 122880 raw points cropped and sampled to
-16384 by the cluster FPS, seeded random weights): the eval step and the
-parse, the detector's and parse's spans as medians over REQUESTS batches
-after WARMUP, then torch.profiler over PROFILED batches. Loading the
-batch (crop, FPS, votes) is the host's and is timed by the smoke.
+The program's spans on the benchmark cells' own traffic are read by
+trace_cells.py (--workload <cell>), and the kernels of a cell by time and
+its idle gaps by portbench/run.py --trace 1.
 
 --fps times the FPS kernel (csrc/fps.cu) at each main-path FPS call (the 5
 of a request, a train step and an eval batch, and one config-#4 scene),
@@ -75,9 +35,9 @@ scatter calls of one config-#3 train step, on their recorded inputs, and
 on heavy collisions (all of U on 8 rows), at the plan that
 ops/cuda/scatter.py chooses and then at variants of it: the warps a CTA
 and the channel slices. Each launch is first held bitwise to np.add.at on
-the host, then timed by CUDA events (host included, as the smoke times
-it); then plan()'s and index_add_'s device time by kernel
-(torch.profiler), and each variant's sum over the step.
+the host, then timed by CUDA events (host included); then plan()'s and
+index_add_'s device time by kernel (torch.profiler), and each variant's
+sum over the step.
 
 --scatter-calls PATH times ops.scatter_rows, whichever scatter kernel the
 package on the path has, at the 9 scatter calls of one train step saved
@@ -96,14 +56,10 @@ CUDA event, and of recording a made one again.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import json
 import shutil
-import statistics
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -116,25 +72,16 @@ from chip_smoke import (
     TRAIN_N,
     B,
     N,
-    build_server,
-    busy_share,
+    add_at,
+    bits_differ,
     capture_eval_batch,
     capture_request,
     capture_train_step,
-    cuda_ms,
-    eval_config,
-    kernel_times,
-    make_requests,
+    longest_row,
     phase_device,
-    plan_text,
     prepare_outdoor,
     require_equal,
-    train_config,
 )
-from tpu3dsad_torch import serving, train_lib
-from tpu3dsad_torch.data import get_dataset
-from tpu3dsad_torch.eval.parse import parse_predictions
-from tpu3dsad_torch.data.device_pipeline import synthetic_detection_batch
 from tpu3dsad_torch import ops
 from tpu3dsad_torch.ops import sorted as sorted_bq
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
@@ -143,192 +90,26 @@ from tpu3dsad_torch.ops.cuda import fps as cuda_fps
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
-from tpu3dsad_torch.train_detector import build_detector
 from tpu3dsad_torch.utils import trace
 
 # the bucketed crop of a config-#4 scene of 122880 raw points (4096s)
 SCENE_N = 118784
 
-REQUESTS, WARMUP, PROFILED = 5, 3, 3
-SCAN_POINTS = 50000  # a raw scan, as the latency cell of portbench serves
 
-
-def span_table(run, what: str) -> None:
-    """run() REQUESTS times with the program's tracer on, synchronising
-    after each: print the host wall ms of each, then each span's median
-    device and host ms (utils/trace.py)."""
-    walls = []
-    trace.enable()
-    for _ in range(REQUESTS):
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    trace.enable(False)
-    records = trace.collect()
-    device, host = trace.times(records), trace.times(records, clock="host")
-    print(f"host wall per {what} ms: {[round(t, 3) for t in walls]}")
-    print(f"span (median of {REQUESTS}):         device ms    host ms")
-    for name, ts in device.items():
-        print(f"  {name:26s} {statistics.median(ts):9.3f} "
-              f"{statistics.median(host[name]):10.3f}")
-
-
-@contextlib.contextmanager
-def profiled():
-    """torch.profiler over the host and the card, with the program's
-    tracer on so that its spans are ranges of the trace."""
-    trace.enable()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            yield prof
-    finally:
-        trace.enable(False)
-        trace.collect()
-
-
-def is_gemm(name: str) -> bool:
-    low = name.lower()
-    return any(tag in low for tag in ("gemm", "xmma", "cutlass", "wgmma"))
-
-
-def print_trace(prof, path: Path, card: str, what: str) -> list:
-    """Export the profile's chrome trace to `path`, print the busy share,
-    and return the trace events."""
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    trace = json.loads(path.read_text())["traceEvents"]
-    n, busy, span = busy_share(trace)
-    print(f"kernels: {n}; busy {busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms "
-          f"kernel span = {busy / span:.3f} busy share over {what}; {card}")
-    return trace
-
-
-def profile_serve(card: str, trace_path: Path) -> None:
-    _, _, infer = build_server()
-    batches = make_requests(REQUESTS, seed=0)  # PROFILED <= REQUESTS
-    for i in range(WARMUP):
-        infer(*batches[i % len(batches)])
+def cuda_ms(fn, iters: int) -> float:
+    """Mean ms per call over `iters` calls after one warm-up call."""
+    fn()
     torch.cuda.synchronize()
-    served = iter(batches)
-    span_table(lambda: infer(*next(served)), "request")
-
-    manifest = {"batch_size": 1, "num_points": N, "with_features": False}
-    rng = np.random.default_rng(1)
-    scans = [rng.uniform(-3, 3, (SCAN_POINTS, 3)).astype(np.float32)
-             for _ in range(WARMUP + REQUESTS)]
-
-    def scan():
-        """One raw scan fitted, served and listed."""
-        raw = scans.pop()
-        serving.detections(infer(*serving.prepare_scene_batch(raw, manifest)))
-
-    for _ in range(WARMUP):
-        scan()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
     torch.cuda.synchronize()
-    span_table(scan, f"scan of {SCAN_POINTS} points at B = 1")
-
-    with profiled() as prof:
-        t0 = time.perf_counter()
-        for batch in batches[:PROFILED]:
-            infer(*batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    print(f"profiled window: {PROFILED} requests, host wall "
-          f"{wall:.3f} ms")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=25))
-    print_trace(prof, trace_path, card, f"{PROFILED} requests")
+    return start.elapsed_time(end) / iters
 
 
-def profile_train(card: str, trace_path: Path) -> None:
-    cfg = train_config(str(trace_path.parent / "ckpt"))
-    train_lib.apply_runtime_config(cfg)
-    model = build_detector(cfg)
-    optimizer = train_lib.make_optimizer(cfg.train, 8, model.parameters())
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    bn_m = train_lib.bn_momentum_at(cfg.train, 0)
-    train_step = train_lib.make_detector_steps(model, optimizer, cfg)
-
-    def step():
-        """A batch made on the card, then one train step on it."""
-        batch = synthetic_detection_batch(
-            gen, TRAIN_B, TRAIN_N, cfg.model.num_classes,
-            cfg.data.max_boxes, vote_candidates=cfg.data.vote_candidates)
-        train_step(batch, gen, bn_m)
-
-    for _ in range(WARMUP):
-        step()
-    torch.cuda.synchronize()
-    span_table(step, "step (the batch made on the card, then the step)")
-
-    with profiled() as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    print(f"profiled window: {PROFILED} train steps, host wall "
-          f"{wall:.3f} ms")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=25))
-    trace = print_trace(prof, trace_path, card, f"{PROFILED} train steps")
-    kernels = kernel_times(trace)
-    total = sum(us for _, us, _ in kernels)
-    print(f"kernels by device time over {PROFILED} steps "
-          f"({total / 1e3:.3f} ms):")
-    for name, us, n in kernels[:20]:
-        print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:110]}")
-    gemms = [k for k in kernels if is_gemm(k[0])]
-    print(f"GEMM kernels ({sum(us for _, us, _ in gemms) / 1e3:.3f} ms, "
-          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}):")
-    for name, us, n in gemms:
-        print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:160]}")
-
-
-def profile_eval(card: str, trace_path: Path) -> None:
-    work = trace_path.parent / "outdoor"
-    shutil.rmtree(work, ignore_errors=True)
-    outdoor = prepare_outdoor(work)
-    cfg = eval_config(outdoor["sweep"], outdoor["ckpt"])
-    train_lib.apply_runtime_config(cfg)
-    dataset = get_dataset(cfg)
-    batch = next(dataset.val_batches(np.random.default_rng(0), EVAL_B))
-    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    model = build_detector(cfg, dataset.mean_sizes)
-    train_lib.restore_checkpoint(cfg.train.ckpt_dir, model, None,
-                                 for_eval=True)
-    eval_step = train_lib.make_detector_eval_step(model, cfg)
-
-    def run():
-        """One batch's eval step and parse."""
-        ep, _ = eval_step(batch)
-        parse_predictions(ep, model.mean_sizes, cfg.model.num_heading_bins,
-                          cfg.eval)
-
-    for _ in range(WARMUP):
-        run()
-    torch.cuda.synchronize()
-    span_table(run, "eval batch")
-
-    with profiled() as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED):
-            run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    print(f"profiled window: {PROFILED} eval batches, host wall "
-          f"{wall:.3f} ms")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=25))
-    trace = print_trace(prof, trace_path, card, f"{PROFILED} eval batches")
-    kernels = kernel_times(trace)
-    print(f"kernels by device time over {PROFILED} batches "
-          f"({sum(us for _, us, _ in kernels) / 1e3:.3f} ms):")
-    for name, us, n in kernels[:20]:
-        print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:110]}")
-    shutil.rmtree(work, ignore_errors=True)
 
 
 def fps_cases() -> list[tuple[str, str, int, int, int]]:
@@ -382,7 +163,7 @@ def profile_fps(card: str) -> None:
                           cuda_fps.fps_batched(xyz, m, mask, plans), want)
             used = cuda_fps.last_plan
             ms = cuda_ms(lambda: cuda_fps.fps_batched(xyz, m, mask, plans), 5)
-            print(f"  {plan_text(used):40s} {ms:9.3f} ms "
+            print(f"  {str(used):40s} {ms:9.3f} ms "
                   f"{ms * 1e3 / (m - 1):7.3f} us/round  equal"
                   f"{'  <- plan(), as launched' if plans is None else ''}")
     print(f"on {card}")
@@ -542,7 +323,6 @@ def profile_scatter(card: str) -> None:
              (torch.arange(u, device="cuda") * n // u).expand(b, u))):
         calls.append((what, normal(131), idx.int().contiguous(), n))
     calls.append(("SA2's indices, one channel", normal(1), sa2_idx, n))
-    from chip_smoke import add_at, bits_differ, longest_row
 
     per_call = []  # {label: ms} of each step call
     for i, (what, g, idx, n) in enumerate(calls):
@@ -662,28 +442,23 @@ def profile_span_cost(card: str, spans: int = 20000) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--train", action="store_true",
-                      help="profile the config-#3 train step instead")
-    mode.add_argument("--eval", action="store_true",
-                      help="profile a config-#4 eval batch instead")
+    mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--fps", action="store_true",
                       help="time the FPS kernel per main-path call and "
-                           "cluster size instead")
+                           "cluster size")
     mode.add_argument("--ball-query", action="store_true",
                       help="time the ball-query kernel per main-path call "
-                           "and launch shape instead")
+                           "and launch shape")
     mode.add_argument("--scatter", action="store_true",
                       help="time the scatter kernel per train-step call "
-                           "and launch shape instead")
+                           "and launch shape")
     mode.add_argument("--scatter-calls", type=Path, default=None,
                       metavar="PATH",
                       help="time ops.scatter_rows at the train step's "
                            "scatter calls saved in PATH (saved first if "
-                           "absent) instead")
+                           "absent)")
     mode.add_argument("--span-cost", action="store_true",
-                      help="time the tracer's spans instead")
-    ap.add_argument("--trace", type=Path, default=None)
+                      help="time the tracer's spans")
     args = ap.parse_args()
     card = phase_device()
     if args.fps:
@@ -694,15 +469,8 @@ def main() -> None:
         profile_scatter(card)
     elif args.scatter_calls:
         profile_scatter_calls(card, args.scatter_calls)
-    elif args.span_cost:
-        profile_span_cost(card)
-    elif args.train:
-        profile_train(card, args.trace or Path("build/profile/train_trace.json"))
-    elif args.eval:
-        profile_eval(card, args.trace or Path("build/profile/eval_trace.json"))
     else:
-        profile_serve(card,
-                      args.trace or Path("build/profile/request_trace.json"))
+        profile_span_cost(card)
 
 
 if __name__ == "__main__":

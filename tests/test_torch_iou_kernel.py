@@ -295,14 +295,9 @@ def test_counters(card):
     cuda_iou.reset()
     library.oriented_bev_iou(a, o)
     library.oriented_bev_iou(a, o)
-    assert (cuda_iou.launches, cuda_iou.pairs) == (2, 2 * 8 * 256 * 256)
-    clipped = cuda_iou.clipped()
-    # each box meets itself; the rest pass the footprint test only near
-    off = apart(a, o)
-    assert clipped == 2 * int((~off).sum())
-    assert 2 * 8 * 256 <= clipped < 0.05 * cuda_iou.pairs
+    assert cuda_iou.launches == 2
     cuda_iou.reset()
-    assert (cuda_iou.launches, cuda_iou.pairs, cuda_iou.clipped()) == (0, 0, 0)
+    assert cuda_iou.launches == 0
 
 
 @pytest.mark.card
@@ -311,7 +306,7 @@ def test_c_entry_refuses_past_the_cap(card):
     a = torch.zeros(1, k, 8, 3, device=card)
     iou = torch.empty(1, k, k, device=card)
     err = build.library().tpu3dsad_oriented_iou(
-        a.data_ptr(), a.data_ptr(), iou.data_ptr(), None, 1, k, k,
+        a.data_ptr(), a.data_ptr(), iou.data_ptr(), 1, k, k,
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="tpu3dsad_oriented_iou"):

@@ -1,0 +1,144 @@
+"""The primitives that decide whether a check of chip_smoke.py passes on
+the card (exact equality of integer tensors, the bits of float tensors,
+the host scatter the kernel is held to, a scatter's longest row, the FPS
+templates' spills in the ptxas log) and the kernel times of a profiler
+trace by which its phase 12 counts a replayed step's kernels, on the CPU
+with hand-made inputs."""
+
+import numpy as np
+import pytest
+import torch
+
+# six pytest-xdist workers share 8 cores: one intra-op thread each
+torch.set_num_threads(1)
+
+from chip_smoke import (
+    add_at,
+    bits_differ,
+    fps_templates,
+    kernel_times,
+    longest_row,
+    require_equal,
+)
+
+
+def test_kernel_times_sums_by_name_most_time_first():
+    events = [{"cat": "kernel", "name": "a", "ts": 0, "dur": 3},
+              {"cat": "kernel", "name": "b", "ts": 5, "dur": 10},
+              {"cat": "kernel", "name": "a", "ts": 20, "dur": 4},
+              {"cat": "cpu_op", "name": "b", "ts": 0, "dur": 99}]
+    assert kernel_times(events) == [("b", 10.0, 1), ("a", 7.0, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.uint8])
+def test_require_equal_returns_0_on_equal_ints(dtype):
+    got = torch.arange(24, dtype=dtype).reshape(2, 3, 4)
+    assert require_equal("idx", got, got.clone()) == 0
+
+
+def test_require_equal_names_the_first_differing_index():
+    want = torch.arange(24, dtype=torch.int32).reshape(2, 3, 4)
+    got = want.clone()
+    got[1, 2, 0] = -7
+    with pytest.raises(AssertionError,
+                       match=r"idx: kernel != plain at \(1, 2, 0\): kernel "
+                             r"-7 plain 20 \(1 entries differ\)"):
+        require_equal("idx", got, want)
+
+
+def test_require_equal_refuses_another_shape():
+    with pytest.raises(AssertionError, match=r"cnt: shape \(2, 3\) vs "
+                                             r"\(3, 2\)"):
+        require_equal("cnt", torch.zeros(2, 3, dtype=torch.int32),
+                      torch.zeros(3, 2, dtype=torch.int32))
+
+
+def test_require_equal_on_bool_masks():
+    keep = torch.tensor([[True, False, True], [False, False, True]])
+    assert require_equal("keep", keep, keep.clone()) == 0
+    other = keep.clone()
+    other[0, 1] = True
+    with pytest.raises(AssertionError, match=r"at \(0, 1\)"):
+        require_equal("keep", other, keep)
+
+
+@pytest.mark.parametrize("got, want", [
+    # through int64, 0.25 and 0.5 both truncate to 0 and would pass
+    (torch.tensor([0.25, 1.0]), torch.tensor([0.5, 1.0])),
+    (torch.tensor([1, 2], dtype=torch.int32), torch.tensor([1.0, 2.0])),
+], ids=["float", "float beside int"])
+def test_require_equal_refuses_floats(got, want):
+    with pytest.raises(TypeError, match="integer or bool"):
+        require_equal("iou", got, want)
+
+
+_ONE_ULP = float(np.nextafter(np.float32(1.0), np.float32(2.0)))
+
+
+@pytest.mark.parametrize("a, b, want", [
+    ([1.5, -2.0, 3.0], [1.5, -2.0, 3.0], None),
+    ([1.0, 0.0], [1.0, -0.0], "at (1,): 0.0 vs -0.0 (1 entries differ)"),
+    ([1.0, 2.0], [_ONE_ULP, 2.0],
+     f"at (0,): 1.0 vs {_ONE_ULP!r} (1 entries differ)"),
+    ([float("nan"), 4.0], [float("nan"), 4.0], None),
+], ids=["equal", "signed zero", "one ulp", "same NaN"])
+def test_bits_differ(a, b, want):
+    assert bits_differ(torch.tensor(a), torch.tensor(b)) == want
+
+
+def test_bits_differ_tells_nan_payloads_apart():
+    quiet = torch.tensor([0x7FC00000], dtype=torch.int32).view(torch.float32)
+    other = torch.tensor([0x7FC00001], dtype=torch.int32).view(torch.float32)
+    assert bits_differ(quiet, quiet.clone()) is None
+    assert bits_differ(quiet, other).endswith("(1 entries differ)")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_add_at_sums_in_index_order_dropping_out_of_range(seed):
+    rng = np.random.default_rng(seed)
+    b, u, c, n = 3, 200, 5, 7
+    g = torch.from_numpy(rng.standard_normal((b, u, c)).astype(np.float32)
+                         * np.float32(1e3))
+    idx = torch.from_numpy(rng.integers(-1, n + 2, (b, u)).astype(np.int32))
+    want = np.zeros((b, n, c), np.float32)
+    for i in range(b):
+        for j in range(u):
+            row = int(idx[i, j])
+            if 0 <= row < n:
+                for k in range(c):
+                    want[i, row, k] = np.float32(want[i, row, k]
+                                                 + g[i, j, k].numpy())
+    got = add_at(g, idx, n)
+    assert got.dtype == torch.float32 and got.shape == (b, n, c)
+    assert bits_differ(got, torch.from_numpy(want)) is None
+
+
+def test_longest_row_counts_each_cloud_apart():
+    # cloud 0: row 2 twice, row 0 once, -1 and 4 dropped; cloud 1: row 2
+    # twice, row 3 once, 9 dropped. Rows of two clouds never add up.
+    idx = torch.tensor([[2, 0, 2, -1, 4], [2, 3, 2, 9, 1]], dtype=torch.int32)
+    assert longest_row(idx, 4) == 2
+    idx[1, 4] = 2
+    assert longest_row(idx, 4) == 3
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118fps_cluster_kernelILi0EEEvPKfPKbPfPiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118fps_cluster_kernelILi0EEEvPKfPKbPfPiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 2112 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113stage_kernelEPKfPKbPfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113stage_kernelEPKfPKbPfiii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118fps_cluster_kernelILi16EEEvPKfPKbPfPiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118fps_cluster_kernelILi16EEEvPKfPKbPfPiiiii
+    16 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 168 registers, 2112 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def test_fps_templates_reads_registers_and_spills():
+    assert fps_templates(PTXAS_LOG) == {0: (40, 0), 16: (168, 32)}
+    assert fps_templates("") == {}

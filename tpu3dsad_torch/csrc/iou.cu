@@ -47,8 +47,7 @@
 // arrays (the 4 top corners, z min and max, the volume computed as the
 // chain's volume() computes it, the footprint's bounds), then walks its
 // kRows x L pairs kThreads at a time, neighbouring threads on neighbouring
-// columns. The pairs that clipped are counted with __syncthreads_count and
-// added to the caller's counter with one atomic a CTA. K, L <= 1024.
+// columns. K, L <= 1024.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -218,8 +217,7 @@ __device__ float clip_iou(const float* rf, int nr, int r, const float* cf,
 __global__ void __launch_bounds__(kThreads)
     oriented_iou_kernel(const float* __restrict__ ca,
                         const float* __restrict__ cb, float* __restrict__ iou,
-                        unsigned long long* __restrict__ clipped, int k,
-                        int l, int tiles) {
+                        int k, int l, int tiles) {
   extern __shared__ float smem[];
   float* rf = smem;                  // [kFields][kRows]
   float* cf = smem + kFields * kRows;  // [kFields][l]
@@ -238,35 +236,26 @@ __global__ void __launch_bounds__(kThreads)
 
   float* out = iou + (static_cast<size_t>(cloud) * k + r0) * l;
   const int total = rows * l;
-  int count = 0;
-  for (int base = 0; base < total; base += kThreads) {
-    const int p = base + threadIdx.x;
-    bool clip = false;
-    if (p < total) {
-      const int r = p / l, c = p - r * l;
-      // strictly apart (false for NaN bounds): no vertex survives the clip
-      clip = !(rf[kXHi * kRows + r] < cf[kXLo * l + c] ||
-               cf[kXHi * l + c] < rf[kXLo * kRows + r] ||
-               rf[kYHi * kRows + r] < cf[kYLo * l + c] ||
-               cf[kYHi * l + c] < rf[kYLo * kRows + r]);
-      out[p] = clip ? clip_iou(rf, kRows, r, cf, l, c) : 0.0f;
-    }
-    count += __syncthreads_count(clip);
+  for (int p = threadIdx.x; p < total; p += kThreads) {
+    const int r = p / l, c = p - r * l;
+    // strictly apart (false for NaN bounds): no vertex survives the clip
+    const bool clip = !(rf[kXHi * kRows + r] < cf[kXLo * l + c] ||
+                        cf[kXHi * l + c] < rf[kXLo * kRows + r] ||
+                        rf[kYHi * kRows + r] < cf[kYLo * l + c] ||
+                        cf[kYHi * l + c] < rf[kYLo * kRows + r]);
+    out[p] = clip ? clip_iou(rf, kRows, r, cf, l, c) : 0.0f;
   }
-  if (threadIdx.x == 0 && clipped != nullptr && count > 0)
-    atomicAdd(clipped, static_cast<unsigned long long>(count));
 }
 
 }  // namespace
 
 // corners_a [B, K, 8, 3] and corners_b [B, L, 8, 3] f32, contiguous; iou
-// [B, K, L] f32, written whole; clipped: an int64 counter the clipped pairs
-// are added to, or null. One launch of B ceil(K / 8) CTAs on `stream`;
-// returns cudaErrorInvalidValue for K or L above 1024, else the
+// [B, K, L] f32, written whole. One launch of B ceil(K / 8) CTAs on
+// `stream`; returns cudaErrorInvalidValue for K or L above 1024, else the
 // attribute's or the launch's error.
 extern "C" int tpu3dsad_oriented_iou(const float* ca, const float* cb,
-                                     float* iou, long long* clipped, int b,
-                                     int k, int l, void* stream) {
+                                     float* iou, int b, int k, int l,
+                                     void* stream) {
   if (b <= 0 || k <= 0 || l <= 0) return static_cast<int>(cudaSuccess);
   if (k > kMaxBoxes || l > kMaxBoxes)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -278,7 +267,6 @@ extern "C" int tpu3dsad_oriented_iou(const float* ca, const float* cb,
   if (err != cudaSuccess) return static_cast<int>(err);
   oriented_iou_kernel<<<b * tiles, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      ca, cb, iou, reinterpret_cast<unsigned long long*>(clipped), k, l,
-      tiles);
+      ca, cb, iou, k, l, tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,9 +61,8 @@ _SIGNATURES = {
     # iou, scores, its batch and candidate strides (floats), valid, keep,
     # b, k, iou threshold, stream
     "tpu3dsad_nms_walk": (_P, _P, _LL, _LL, _P, _P, _I, _I, _F, _P),
-    # corners_a, corners_b, iou, clip counter (int64, or null), b, k, l,
-    # stream
-    "tpu3dsad_oriented_iou": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # corners_a, corners_b, iou, b, k, l, stream
+    "tpu3dsad_oriented_iou": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -5,16 +5,9 @@ the reference's XLA in tpu3dsad/ops/boxes.py) with one launch: a thread a
 pair, the clip in registers, and only for the pairs whose footprints can
 meet.
 
-Counters, so a run can show that its oriented NMS went through the kernel
-and how much of it clipped:
-
-  * `launches`: the kernel's launches by this wrapper, one an nms_oriented
-    call;
-  * `pairs`: the box pairs (B K L) of those launches;
-  * `clipped()`: the pairs whose footprints' bounds met, so that the kernel
-    clipped them; the kernel adds them up on the device (one atomic a
-    CTA) and this function reads them back (a synchronisation: never on
-    the served path). `reset()` zeroes all three.
+`launches` counts the kernel's launches by this wrapper, one an
+nms_oriented call, so a run can show that its oriented NMS went through
+the kernel; `reset()` zeroes it.
 """
 
 from __future__ import annotations
@@ -30,31 +23,11 @@ from tpu3dsad_torch.ops.cuda.common import points_arg, ptr, stream
 MAX_K = 1024  # boxes a cloud on either side; the C entry refuses more
 
 launches = 0
-pairs = 0
-_clipped: dict[int, torch.Tensor] = {}  # device index -> int64 counter
-
-
-def _counter(dev: torch.device) -> torch.Tensor | None:
-    """The device's clip counter, made on first use; None (count nothing)
-    where that first use is inside a CUDA graph capture, which would
-    record the counter's zeroing into the graph."""
-    counter = _clipped.get(dev.index)
-    if counter is None and not torch.cuda.is_current_stream_capturing():
-        counter = _clipped[dev.index] = torch.zeros(
-            (), dtype=torch.int64, device=dev)
-    return counter
-
-
-def clipped() -> int:
-    """The pairs clipped since the last reset(), over every device."""
-    return sum(int(c.item()) for c in _clipped.values())
 
 
 def reset() -> None:
-    global launches, pairs
-    launches = pairs = 0
-    for counter in _clipped.values():
-        counter.zero_()
+    global launches
+    launches = 0
 
 
 def oriented_bev_iou(corners_a: torch.Tensor,
@@ -63,7 +36,7 @@ def oriented_bev_iou(corners_a: torch.Tensor,
     fp32: the plain chain's arithmetic in its order (ops/plain/iou.py),
     exactly 0 where the two footprints' bounds lie apart. K and L are at
     most MAX_K."""
-    global launches, pairs
+    global launches
     check_iou(corners_a, corners_b)
     (B, K), L = corners_a.shape[:2], corners_b.shape[1]
     if max(K, L) > MAX_K:
@@ -80,10 +53,8 @@ def oriented_bev_iou(corners_a: torch.Tensor,
             if dev.index == torch.cuda.current_device()
             else torch.cuda.device(dev))
     with here:
-        err = lib.tpu3dsad_oriented_iou(ptr(a), ptr(b), ptr(iou),
-                                        ptr(_counter(dev)), B, K, L,
+        err = lib.tpu3dsad_oriented_iou(ptr(a), ptr(b), ptr(iou), B, K, L,
                                         stream(a))
     build.check(err, "tpu3dsad_oriented_iou")
     launches += 1
-    pairs += B * K * L
     return iou

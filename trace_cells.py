@@ -42,9 +42,8 @@ mean a record of the window where the cell has such spans:
                     (latency.nms_launches_per_request)
 
 and `oriented_iou`, where the window ran oriented NMS: the oriented IoU
-kernel's launches, its box pairs and the pairs it clipped (the footprints'
-bounds met) in the measured window, and clipped / pairs (the wrapper's
-counters, ops/cuda/iou.py).
+kernel's launches in the measured window (the wrapper's counter,
+ops/cuda/iou.py).
 
 Needs a CUDA device, as the harness does (it exits 2 without one).
 """
@@ -160,20 +159,15 @@ class Window:
                     return loop(seconds)
                 first[0] = False
                 trace.collect()  # set-up's records
-                iou = (cuda_iou.launches, cuda_iou.pairs, cuda_iou.clipped())
+                iou = cuda_iou.launches
                 self._pauses.clear()
                 out = loop(seconds)
                 pauses = list(self._pauses)
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
                 self.records = trace.collect()
-                launches, pairs, clipped = (
-                    cuda_iou.launches - iou[0], cuda_iou.pairs - iou[1],
-                    cuda_iou.clipped() - iou[2])
-                if launches:
-                    self.iou = {"launches": launches, "pairs": pairs,
-                                "clipped": clipped,
-                                "clipped_share": clipped / pairs}
+                if cuda_iou.launches > iou:
+                    self.iou = {"launches": cuda_iou.launches - iou}
                 self.units = out["units"]
                 self.gc = {}
                 for g in (0, 1, 2):
