@@ -460,34 +460,38 @@ def phase_device() -> str:
             print(f"  ptxas: {line.strip()}")
     if build.ptxas_log:
         report = fps_templates(build.ptxas_log)
-        for points, (regs, spill) in sorted(report.items()):
-            print(f"  fps_cluster_kernel<{points}>: {regs} registers, "
-                  f"{spill} spill bytes")
-        spilled = {p: s for p, (_, s) in report.items()
-                   if s and p in cuda_fps.REGISTER_TIERS}
-        if set(report) != {0, *cuda_fps.REGISTER_TIERS} or spilled:
+        for (name, points), (regs, spill) in sorted(report.items()):
+            print(f"  {name}<{points}>: {regs} registers, {spill} spill bytes")
+        spilled = {k: s for k, (_, s) in report.items()
+                   if s and k[1] in cuda_fps.REGISTER_TIERS}
+        want = {("fps_cluster_kernel", p)
+                for p in (0, *cuda_fps.REGISTER_TIERS)}
+        want.add(("fps_cluster_kernel_pruned", cuda_fps.PRUNED_POINTS))
+        if set(report) != want or spilled:
             raise AssertionError(f"FPS templates {sorted(report)}, spill "
                                  f"bytes {spilled}")
     return card
 
 
 def fps_templates(log: str) -> dict:
-    """{points a thread: (registers, spill store + load bytes)} of each
-    instance of the FPS kernel template in nvcc's -Xptxas=-v log."""
-    report, points = {}, None
+    """{(kernel, points a thread): (registers, spill store + load bytes)}
+    of each instance of the FPS kernel templates (fps_cluster_kernel and
+    B2's fps_cluster_kernel_pruned) in nvcc's -Xptxas=-v log."""
+    report, key = {}, None
     for line in log.splitlines():
         if "entry function" in line:
-            found = re.search(r"fps_cluster_kernelILi(\d+)E", line)
-            points = int(found[1]) if found else None
-            if points is not None:
-                report[points] = [0, 0]
-        elif points is not None:
+            found = re.search(r"(fps_cluster_kernel(?:_pruned)?)ILi(\d+)E",
+                              line)
+            key = (found[1], int(found[2])) if found else None
+            if key is not None:
+                report[key] = [0, 0]
+        elif key is not None:
             if found := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                   r"spill loads", line):
-                report[points][1] = int(found[1]) + int(found[2])
+                report[key][1] = int(found[1]) + int(found[2])
             elif found := re.search(r"Used (\d+) registers", line):
-                report[points][0] = int(found[1])
-    return {p: tuple(v) for p, v in report.items()}
+                report[key][0] = int(found[1])
+    return {k: tuple(v) for k, v in report.items()}
 
 
 @contextlib.contextmanager

@@ -17,7 +17,13 @@ of a request, a train step and an eval batch, and one config-#4 scene),
 on seeded clouds, at the plan that ops/cuda/fps.py chooses and then at
 each cluster size that fits the card in each register tier: each launch
 is first held equal to the plain version, then timed by CUDA events (ms
-and us a round).
+and us a round). Then B2 on the KITTI cell's scans (portbench's frozen
+generator, 122880 raw points, cropped and padded as the fit pads them):
+the pruned pass (fps_flat) and the unpruned kernel at the same plan, each
+held to the plain version first; the device ms of the pruned kernel and
+of its pre-pass (the Z-order keys, the sorts) by torch.profiler, us a
+round, and the engaged share (warp-rounds that ran their pass over all
+warp-rounds) from the kernel's counter.
 
 --ball-query times the ball-query kernel (csrc/ball_query.cu) at each
 main-path ball-query call, on the inputs recorded from one served request,
@@ -60,6 +66,7 @@ import shutil
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -82,7 +89,9 @@ from chip_smoke import (
     prepare_outdoor,
     require_equal,
 )
+from portbench.traffic import outdoor as outdoor_traffic
 from tpu3dsad_torch import ops
+from tpu3dsad_torch.data import kitti
 from tpu3dsad_torch.ops import sorted as sorted_bq
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import build
@@ -166,7 +175,47 @@ def profile_fps(card: str) -> None:
             print(f"  {str(used):40s} {ms:9.3f} ms "
                   f"{ms * 1e3 / (m - 1):7.3f} us/round  equal"
                   f"{'  <- plan(), as launched' if plans is None else ''}")
+    profile_b2(sms)
     print(f"on {card}")
+
+
+def profile_b2(sms: int, seeds=(1, 2, 3)) -> None:
+    """B2 on the KITTI cell's scans (module docstring): exact, then the
+    pruned pass's kernel and pre-pass device ms, the unpruned kernel's,
+    and the engaged share."""
+    m = EVAL_N
+    for seed in seeds:
+        scan = outdoor_traffic.outdoor_scene(np.random.default_rng(seed),
+                                             122880)
+        crop = torch.from_numpy(np.ascontiguousarray(
+            scan[kitti.range_crop(scan), :3])).cuda()
+        n = crop.shape[0]
+        cloud = crop.new_zeros(1, -(-n // 4096) * 4096, 3)
+        cloud[0, :n] = crop
+        mask = (torch.arange(cloud.shape[1], device="cuda") < n)[None]
+        first = cuda_fps.plan(1, cloud.shape[1], sms)[0]
+        want = plain_fps(cloud, m, mask=mask)
+        engaged = torch.zeros(1, dtype=torch.int64, device="cuda")
+        require_equal(f"B2 pruned seed {seed}",
+                      cuda_fps.fps_flat(cloud, m, mask, engaged=engaged), want)
+        require_equal(f"B2 unpruned seed {seed}",
+                      cuda_fps.fps_batched(cloud, m, mask, [first]), want)
+        warp_rounds = (m - 1) * first.cluster * first.threads // 32
+        pruned = device_ms(lambda: cuda_fps.fps_flat(cloud, m, mask), 5)
+        kernel = sum(v for k, v in pruned.items() if "fps_cluster" in k)
+        prepass = sum(pruned.values()) - kernel
+        unpruned = sum(device_ms(lambda: cuda_fps.fps_batched(
+            cloud, m, mask, [first]), 5).values())
+        print(f"B2 scan seed {seed}: {n} cropped of 122880 -> "
+              f"[1,{cloud.shape[1]}]->{m}, {first}: pruned kernel "
+              f"{kernel:.3f} ms ({kernel * 1e3 / (m - 1):.3f} us/round), "
+              f"pre-pass {prepass:.3f} ms, engaged "
+              f"{100 * engaged.item() / warp_rounds:.2f}% of "
+              f"{warp_rounds} warp-rounds; unpruned {unpruned:.3f} ms "
+              f"({unpruned * 1e3 / (m - 1):.3f} us/round); equal")
+        print("  pre-pass by kernel: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in pruned.items()
+            if "fps_cluster" not in k))
 
 
 def bq_shapes() -> list:

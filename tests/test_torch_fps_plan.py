@@ -1,15 +1,16 @@
 """The launch plan of the FPS kernel template (csrc/fps.cu) and a numpy
-model of its sliced reduction, on the CPU.
+model of its sliced reduction and of B2's pruned pass, on the CPU.
 
 The kernel runs only on the card, where chip_smoke.py holds it equal to
 the plain version. Here `plan` (a pure function of B, N and the SM count)
-is pinned at every main-path FPS shape, and `model_fps` repeats the
-kernel's arithmetic stage by stage: each thread's points in the order the
-kernel gives them (register tier: r*S + k*T + t; memory tier: a stride of
-T over the slice), the thread's best (order-preserving distance bits,
-index), then the warp's, the CTA's and the cluster's by "max bits, then
-min index among the holders of the max". The model must equal the
-reference's numpy oracle and the plain version pick for pick.
+is pinned at every main-path FPS shape, the pruned pass's pre-pass
+(`deal`: Z-order keys to slabs) is pinned against numpy, and
+`tests/fps_model.py::model_fps` repeats the kernel's arithmetic stage by
+stage, pruned or not. The model must equal the reference's numpy oracle
+and the plain version pick for pick; where a valid point has a NaN
+coordinate (the kernel's fminf keeps its distance, the plain version's
+torch.minimum takes the NaN in, before any pruning), the pruned model is
+held to the unpruned one.
 """
 
 import numpy as np
@@ -19,13 +20,16 @@ import torch
 # six pytest-xdist workers share 8 cores: one intra-op thread each
 torch.set_num_threads(1)
 
+from portbench.traffic import outdoor as traffic
+from fps_model import model_fps, slabs
 from tpu3dsad.ops.oracle import fps_oracle
+from tpu3dsad_torch.data import kitti
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
-from tpu3dsad_torch.ops.cuda.fps import MAX_CLUSTER, Plan, plan
+from tpu3dsad_torch.ops.cuda.fps import MAX_CLUSTER, SLAB, Plan, deal, plan
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
+from tpu3dsad_torch.ops.sorted import z_keys
 
 SMS = 132  # an H100 SXM
-NONE = np.uint32(0xFFFFFFFF)  # the index of an empty partial
 
 # (path, call) -> (B, N, first plan on 132 SMs): the 5 FPS calls of a
 # served request, a config-#3 train step and a config-#4 eval batch, and a
@@ -107,61 +111,6 @@ def test_plan_steps_down_to_smaller_clusters():
 # ------------------------------------------- numpy model of the kernel
 
 
-def _ordered(d):
-    """The kernel's order-preserving bits of float32 distances."""
-    u = np.asarray(d, np.float32).view(np.uint32)
-    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
-
-
-def _reduce(bits, idx, axis):
-    """(max bits, min index among the entries that hold it) along axis:
-    the two redux.sync reductions of a stage."""
-    top = bits.max(axis=axis)
-    held = bits == np.expand_dims(top, axis)
-    return top, np.where(held, idx, NONE).min(axis=axis)
-
-
-def model_fps(xyz, m, mask, p: Plan):
-    """One cloud's picks as fps_cluster_kernel<p.points> makes them with
-    p.cluster CTAs of p.threads threads: xyz [N, 3] float32."""
-    n = xyz.shape[0]
-    C, T, P = p
-    valid = np.ones(n, bool) if mask is None else mask.astype(bool)
-    if P:  # thread t of CTA r holds points r*S + k*T + t, k < P; S = T*P
-        g = np.arange(C * T * P).reshape(C, P, T)
-        present = np.ones(g.shape, bool)  # pads (g >= n) are -inf points
-    else:  # thread t walks j = t, t + T, ... < S; S = ceil(N / C)
-        S = -(-n // C)
-        j = np.arange(-(-S // T))[:, None] * T + np.arange(T)
-        g = np.arange(C)[:, None, None] * S + j
-        present = (j < S) & (g < n)
-    real = g < n
-    pts = np.where(real[..., None], xyz[np.where(real, g, 0)], 0)
-    pts = pts.astype(np.float32)
-    d = np.where(real & valid[np.where(real, g, 0)], np.inf, -np.inf)
-    d = d.astype(np.float32)
-    picks, last = [0], xyz[0]
-    for _ in range(1, m):
-        diff = pts - last
-        d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
-              ) + diff[..., 2] * diff[..., 2]
-        d = np.minimum(d, d2)
-        # thread: its first point of the highest bits (strict > in order)
-        bits = np.where(present, _ordered(d), 0).astype(np.uint32)
-        k = bits.argmax(axis=1)[:, None]
-        tb = np.take_along_axis(bits, k, 1)[:, 0]  # [C, T]
-        tg = np.where(tb > 0, np.take_along_axis(g, k, 1)[:, 0], NONE)
-        # warp (32 lanes), CTA (its warps), cluster (its CTAs)
-        wb, wg = _reduce(tb.reshape(C, T // 32, 32),
-                         tg.reshape(C, T // 32, 32).astype(np.uint32), 2)
-        cb, cg = _reduce(wb, wg, 1)
-        _, win = _reduce(cb, cg, 0)
-        assert win < n, "a pad or an empty CTA won"
-        picks.append(int(win))
-        last = xyz[win]  # the winner's xyz travels with its CTA's partial
-    return np.array(picks)
-
-
 def _case(kind):
     """(xyz [B, N, 3], mask or None, M, plan): the plan's real C, T, P
     unless the case forces one to leave CTAs empty."""
@@ -211,10 +160,144 @@ def test_model_of_the_sliced_reduction_equals_oracle_and_plain(kind):
                      mask=None if mask is None else torch.from_numpy(mask))
     for b in range(xyz.shape[0]):
         mb = None if mask is None else mask[b]
-        got = model_fps(xyz[b], M, mb, p)
+        got, _ = model_fps(xyz[b], M, mb, p)
         np.testing.assert_array_equal(got, fps_oracle(xyz[b], M, mb),
                                       err_msg=f"oracle b={b} {p}")
         np.testing.assert_array_equal(got, want[b].numpy(),
                                       err_msg=f"plain b={b} {p}")
     if kind == "all_masked":
         assert (want == 0).all()
+
+
+# ------------------------------------------- B2's pruned pass
+
+
+@pytest.mark.parametrize("n", [1, 511, 512, 1300, 118784])
+def test_deal_is_a_stable_z_order_sort_cut_into_ascending_slabs(n):
+    """The pre-pass's permutation, a pure function of the keys: the wrapper's
+    torch deal() equals the numpy one; every index once, the pad N after
+    them; each slab of SLAB ascending and holding the next SLAB indices of
+    the stable sort, so ties in the keys keep index order and masked points
+    (key 1 << 30) fill the last slabs."""
+    rng = np.random.default_rng(n)
+    codes = rng.integers(0, 64, n).astype(np.int32)  # many ties
+    codes[rng.random(n) < 0.3] = 1 << 30
+    got = deal(torch.from_numpy(codes)).numpy()
+    np.testing.assert_array_equal(got, slabs(codes))
+    assert got.dtype == np.int32 and len(got) == -(-n // SLAB) * SLAB
+    np.testing.assert_array_equal(np.sort(got[:n]), np.arange(n))
+    assert (got[n:] == n).all()
+    cut = got.reshape(-1, SLAB)
+    assert (np.diff(cut, axis=1) >= 0).all()
+    stable = np.argsort(codes, kind="stable")
+    for s, row in enumerate(cut):
+        np.testing.assert_array_equal(
+            row[row < n], np.sort(stable[s * SLAB:(s + 1) * SLAB]))
+
+
+def test_pruned_layout_deals_slabs_round_robin_over_the_ctas():
+    """Slab s to warp s div C of CTA s mod C, its element e to lane e mod 32
+    as the thread's point e div 32: one point of each of the 4 slabs of a
+    2-CTA plan of 2 warps, read back through the model's layout (a cloud
+    whose x is its index, no ties)."""
+    n = 2048
+    order = np.arange(n, dtype=np.int32)[::-1].copy()  # any permutation
+    p = Plan(2, 64, 16)
+    xyz = np.zeros((n, 3), np.float32)
+    xyz[:, 0] = np.arange(n)
+    picks, engaged = model_fps(xyz, 3, None, p, order)
+    np.testing.assert_array_equal(picks, fps_oracle(xyz, 3))
+    # every warp runs the first round (each holds valid points); the
+    # second's pick, x = 2047, lies in slab 0 (x 1536-2047, CTA 0's first
+    # warp) and within slab 1's largest distance (x 1024-1535, CTA 1's
+    # first warp); slabs 2 and 3 (the second warps) lie farther: skipped
+    assert engaged == 4 + 2
+
+
+def _pruned_case(kind):
+    """(xyz [N, 3], mask or None, M, plan) of one pruned-pass case; plans
+    of 4 CTAs x 4 warps (16 slabs) stand in for B2's 16 x 15 where the
+    cloud is small."""
+    rng = np.random.default_rng(23)
+    N, M, p = 6000, 200, Plan(4, 128, 16)
+    xyz = rng.uniform(-2, 2, (N, 3)).astype(np.float32)
+    mask = None
+    if kind == "scan":  # the KITTI cell's scan, cropped, in its own order
+        scan = traffic.outdoor_scene(np.random.default_rng(5), 8192,
+                                     max_objects=3)
+        xyz = np.ascontiguousarray(scan[kitti.range_crop(scan), :3])
+        M = 256
+    elif kind == "grid_ties":  # exact duplicates, split across slabs
+        xyz = np.tile(rng.integers(-3, 4, (1500, 3)), (4, 1))
+        xyz = xyz.astype(np.float32)
+        M = 96
+    elif kind == "masked_slabs":  # masked points sort last: slabs 6-11
+        mask = rng.random(N) < 0.9
+        mask[3000:] = False
+    elif kind == "nan_masked":  # NaN only where masked
+        mask = np.ones(N, bool)
+        mask[rng.choice(N, 700, replace=False)] = False
+        xyz[~mask] = np.nan
+    elif kind == "pads":  # 3 slabs of 16 warps, 436 pads in the third
+        xyz, M = xyz[:1100], 120
+    elif kind == "all_masked":
+        mask, M = np.zeros(N, bool), 16
+    elif kind == "scene":  # B2's plan at the cell's padded size
+        N, M = 118784, 24
+        xyz = rng.uniform(-40, 40, (N, 3)).astype(np.float32)
+        mask = np.ones(N, bool)
+        mask[N - 2000:] = False
+        p = plan(1, N, SMS)[0]
+    return np.ascontiguousarray(xyz), mask, M, p
+
+
+def _order(xyz, mask):
+    """The pre-pass on the CPU: the plain Z-order keys, dealt by numpy."""
+    codes, _ = z_keys(torch.from_numpy(xyz)[None],
+                      torch.from_numpy(xyz[:1])[None],
+                      None if mask is None else torch.from_numpy(mask)[None])
+    return slabs(codes[0].numpy())
+
+
+@pytest.mark.parametrize("kind", [
+    "random", "scan", "grid_ties", "masked_slabs", "nan_masked", "pads",
+    "all_masked", "scene"])
+def test_model_of_the_pruned_pass_equals_oracle_and_plain(kind):
+    xyz, mask, M, p = _pruned_case(kind)
+    assert p.points == cuda_fps.PRUNED_POINTS
+    order = _order(xyz, mask)
+    got, engaged = model_fps(xyz, M, mask, p, order)
+    want = plain_fps(torch.from_numpy(xyz)[None], M, mask=None
+                     if mask is None else torch.from_numpy(mask)[None])
+    np.testing.assert_array_equal(got, fps_oracle(xyz, M, mask))
+    np.testing.assert_array_equal(got, want[0].numpy())
+    unpruned, every = model_fps(xyz, M, mask, p)
+    np.testing.assert_array_equal(got, unpruned)
+    assert every == (M - 1) * p.cluster * p.threads // 32
+    assert engaged <= every
+    if kind == "all_masked":
+        assert engaged == 0 and (got == 0).all()
+    if kind == "scan":  # the deal is what makes the skip bite
+        _, unsorted = model_fps(xyz, M, mask, p,
+                                slabs(np.zeros(len(xyz), np.int32)))
+        print(f"scan: engaged {engaged / every:.3f} of warp-rounds, "
+              f"{unsorted / every:.3f} in the scan's own order")
+        assert engaged < unsorted / 2
+
+
+@pytest.mark.parametrize("share", [0.001, 0.05])
+def test_pruned_pass_with_nan_coordinates_equals_the_unpruned_kernel(share):
+    """Valid points with a NaN coordinate: the kernel's fminf keeps their
+    distance (the plain version's torch.minimum does not, pruned or not),
+    and the box leaves the NaN out; the pruned model equals the unpruned
+    one at the same plan and at B1's."""
+    rng = np.random.default_rng(int(share * 1000))
+    N, M, p = 6000, 150, Plan(4, 128, 16)
+    xyz = rng.uniform(-2, 2, (N, 3)).astype(np.float32)
+    hit = rng.random((N, 3)) < share / 3
+    xyz[hit] = np.nan
+    mask = rng.random(N) < 0.95
+    got, _ = model_fps(xyz, M, mask, p, _order(xyz, mask))
+    np.testing.assert_array_equal(got, model_fps(xyz, M, mask, p)[0])
+    np.testing.assert_array_equal(
+        got, model_fps(xyz, M, mask, plan(1, N, SMS)[0])[0])

@@ -24,8 +24,13 @@ toy widths, seeded weights):
     nothing is recorded.
 
 On the card (`card` tests, skipped without one): the fit at 122880 points
-equals the plain FPS's picks through B2, with its counters; the
-eval-kitti-b8 cell runs through the harness correct.
+equals the plain FPS's picks through B2, with its counters; B2's pruned
+pass equals the plain FPS bitwise on the cell's scans (3 seeds), on a scan
+in a sensor's ring order and on clouds with duplicate points and NaN
+coordinates (where a valid point's coordinate is NaN, the unpruned
+kernel's picks: the plain version takes the NaN in), and its engaged
+counter equals tests/fps_model.py's count; the eval-kitti-b8 cell runs
+through the harness correct.
 
 This file imports no JAX, so on the card it runs alone:
     python -m pytest tests/test_torch_kitti_fit.py --noconftest -m card
@@ -352,6 +357,113 @@ def test_fit_on_the_card_equals_plain_fps_at_122880(card):
     np.testing.assert_array_equal(
         kitti.device_fps(scan[crop], 16384, device=card),
         fit.picks.cpu().numpy())
+
+
+def bucketed(xyz: np.ndarray, card) -> tuple[torch.Tensor, torch.Tensor]:
+    """A cropped cloud [n, 3] padded to the fit's 4096 bucket on the card,
+    as fit_fps gives it to B2: ([1, P, 3], mask [1, P])."""
+    n = len(xyz)
+    cloud = torch.zeros(1, -(-n // 4096) * 4096, 3, device=card)
+    cloud[0, :n] = torch.from_numpy(np.ascontiguousarray(xyz[:, :3],
+                                                         np.float32))
+    return cloud, (torch.arange(cloud.shape[1], device=card) < n)[None]
+
+
+def b2_against(cloud, mask, m, want=None):
+    """B2 (pruned) on one cloud, three times, bitwise `want` (the plain
+    FPS's picks where None) and the unpruned kernel's at the same plan."""
+    from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+    from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
+
+    sms = torch.cuda.get_device_properties(cloud.device).multi_processor_count
+    first = cuda_fps.plan(1, cloud.shape[1], sms)[0]
+    assert first.points == cuda_fps.PRUNED_POINTS
+    unpruned = cuda_fps.fps_batched(cloud, m, mask, [first])
+    if want is None:
+        want = plain_fps(cloud, m, mask=mask)
+        assert torch.equal(unpruned, want)
+    for _ in range(3):  # a missed fence shows as a rare wrong pick
+        assert torch.equal(cuda_fps.fps_flat(cloud, m, mask), want)
+    return want
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_pruned_b2_equals_plain_fps_on_the_cells_scans(card, seed):
+    scan = traffic.outdoor_scene(np.random.default_rng(seed), 122880)
+    crop = scan[kitti.range_crop(scan)]
+    assert len(crop) > 65536
+    b2_against(*bucketed(crop, card), 16384)
+
+
+@pytest.mark.card
+def test_pruned_b2_equals_plain_fps_on_a_scan_in_ring_order(card):
+    """The scan's points in a spinning sensor's order (64 elevation rings,
+    each by azimuth) where the generator's are random: the deal reorders
+    either."""
+    scan = traffic.outdoor_scene(np.random.default_rng(24), 122880)
+    crop = scan[kitti.range_crop(scan)]
+    x, y, z = crop[:, 0], crop[:, 1], crop[:, 2]
+    ring = np.digitize(np.arctan2(z, np.hypot(x, y)), np.linspace(
+        -0.45, 0.1, 63))
+    crop = crop[np.lexsort((np.arctan2(y, x), ring))]
+    b2_against(*bucketed(crop, card), 16384)
+
+
+@pytest.mark.card
+def test_pruned_b2_on_duplicates_and_nan_coordinates(card):
+    """Exact duplicates (a grid repeated 10 times: ties across slabs); NaN
+    coordinates on masked points (held to plain); NaN coordinates on valid
+    points (held to the unpruned kernel: its fminf keeps such a point's
+    distance, the plain version's torch.minimum does not)."""
+    gen = torch.Generator(device=card).manual_seed(25)
+    grid = torch.randint(-6, 7, (1, 8192, 3), device=card, generator=gen)
+    dup = grid.float().repeat(1, 10, 1).contiguous()
+    b2_against(dup, None, 2048)
+    pts = torch.empty(1, 100000, 3, device=card).uniform_(-30, 30,
+                                                          generator=gen)
+    mask = torch.rand(1, 100000, device=card, generator=gen) < 0.9
+    mask[0, 0] = True  # the first pick, index 0, is a valid point
+    pts[~mask] = float("nan")
+    b2_against(pts, mask, 2048)
+    hit = torch.rand(1, 100000, 3, device=card, generator=gen) < 0.001
+    pts = torch.where(hit, float("nan"), pts.nan_to_num(0.0))
+    from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    first = cuda_fps.plan(1, 100000, sms)[0]
+    b2_against(pts, mask, 2048, cuda_fps.fps_batched(pts, 2048, mask,
+                                                     [first]))
+
+
+@pytest.mark.card
+def test_pruned_b2_engaged_counter_equals_the_model(card):
+    """On a small cloud at a forced plan of 4 CTAs x 4 warps: the card's
+    pre-pass equals the numpy deal of the plain Z-order keys, and the
+    kernel's picks and engaged warp-rounds equal tests/fps_model.py's on
+    that order."""
+    from fps_model import model_fps, slabs
+    from tpu3dsad_torch.ops.cuda import fps as cuda_fps
+    from tpu3dsad_torch.ops.sorted import z_keys
+
+    scan = traffic.outdoor_scene(np.random.default_rng(26), 8192,
+                                 max_objects=3)
+    xyz = np.ascontiguousarray(scan[kitti.range_crop(scan), :3])
+    mask = np.random.default_rng(27).random(len(xyz)) < 0.95
+    cloud = torch.from_numpy(xyz)[None].to(card)
+    valid = torch.from_numpy(mask)[None].to(card)
+    p = cuda_fps.Plan(4, 128, 16)
+    order = cuda_fps.slab_order(cloud, valid).cpu().numpy()
+    codes, _ = z_keys(torch.from_numpy(xyz)[None],
+                      torch.from_numpy(xyz[:1])[None],
+                      torch.from_numpy(mask)[None])
+    np.testing.assert_array_equal(order, slabs(codes[0].numpy()))
+    engaged = torch.zeros(1, dtype=torch.int64, device=card)
+    got = cuda_fps.fps_flat(cloud, 256, valid, [p], engaged)
+    want, count = model_fps(xyz, 256, mask, p, order)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want)
+    assert engaged.item() == count
+    assert 0 < count < 255 * 16
 
 
 def run_bench(root: Path, cell: str, seconds: int, device: str) -> dict:

@@ -136,9 +136,16 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118fps_cluster_kernelI
 ptxas info    : Function properties for _ZN12_GLOBAL__N_118fps_cluster_kernelILi16EEEvPKfPKbPfPiiiii
     16 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads
 ptxas info    : Used 168 registers, 2112 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125fps_cluster_kernel_prunedILi16EEEvPKfPKhPKiPiiiPy' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125fps_cluster_kernel_prunedILi16EEEvPKfPKhPKiPiiiPy
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, 2112 bytes smem, 408 bytes cmem[0]
 """
 
 
 def test_fps_templates_reads_registers_and_spills():
-    assert fps_templates(PTXAS_LOG) == {0: (40, 0), 16: (168, 32)}
+    assert fps_templates(PTXAS_LOG) == {
+        ("fps_cluster_kernel", 0): (40, 0),
+        ("fps_cluster_kernel", 16): (168, 32),
+        ("fps_cluster_kernel_pruned", 16): (118, 0)}
     assert fps_templates("") == {}

@@ -86,6 +86,48 @@
 // first whose B clusters the card places in one wave
 // (cudaOccupancyMaxActiveClusters), else the first it can place at all,
 // and reports which it launched.
+//
+// B2's pruned pass (fps_cluster_kernel_pruned<16>, the flat entry given an
+// `order`). Late in a run a pick lowers the running distance of a few dozen
+// of ~118k points, yet every round recomputes them all. So the flat entry
+// skips, warp by warp, the pass that provably changes nothing:
+//
+//  * The deal (the wrapper's pre-pass, ops/cuda/fps.py::slab_order): the
+//    points' Z-order keys (tpu3dsad_morton_codes; masked points last), a
+//    stable sort, cut into slabs of 32 * P = 512 points, each slab's
+//    original indices in ascending order, padded with n. Slab s goes to CTA
+//    s mod C, warp s div C; its element e to lane e mod 32 as the thread's
+//    point k = e div 32. So a warp holds a spatially compact slab, and a
+//    thread's points ascend in original index with k.
+//  * Keys stay the original indices. A point carries (original index << 13
+//    | its slot k*T + t in the CTA's slice) in a register; every stage
+//    reduces (ordered distance bits, that key), so ties go to the lowest
+//    original index, as in the plain version (the thread's first k among
+//    its equal maxima is its lowest index), the CTA stage looks the
+//    winner's xyz up by its slot, and idx gets the original index. Pads
+//    carry index n: -inf, they never outrank a real point.
+//  * Each warp keeps the fp32 box of its points whose distance is not -inf
+//    (fminf / fmaxf: a NaN coordinate stays out; an empty box is +inf /
+//    -inf) and its last (bits, key). A round first computes, warp-uniform,
+//    lb = fl(fl(gx*gx + gy*gy) + gz*gz), each g the pick's distance outside
+//    the box on its axis (fl(lo - l) below it, fl(l - hi) above, 0 inside),
+//    the same _rn operations in the order of sqdist. Where lb >= wmax, the
+//    float of the warp's cached bits (its largest running distance), the
+//    warp skips its pass and sends its cached key; else it runs the pass
+//    and refreshes the cache.
+//  * Why a skip is exact. Round-to-nearest is monotone and odd: for a point
+//    q in the box and l below it, q - l >= lo - l >= 0, so |fl(q - l)| >=
+//    fl(lo - l); above it the same with l - q >= l - hi; inside, |fl(q - l)|
+//    >= 0. Squares and sums of non-negative floats keep the order, so
+//    sqdist(q, l) >= lb >= wmax >= pd for every point whose pd is not -inf,
+//    and fminf(pd, sqdist) is pd bit for bit (distances are never -0). A
+//    point outside the box has a NaN coordinate: its sqdist is NaN, and
+//    fminf keeps pd; a -inf point keeps -inf; a NaN pick makes every sqdist
+//    NaN. So the skipped pass would have changed no distance and no key,
+//    and the picks are the unpruned kernel's, bit for bit. A NaN lb or
+//    wmax compares false: the warp runs its pass.
+//  * `engaged` (a tool's counter, null on served calls) gets each warp's
+//    count of rounds it ran its pass, one atomicAdd a warp at the end.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -173,14 +215,45 @@ __device__ __forceinline__ bool phase_done(unsigned bar, unsigned parity) {
   return done != 0;
 }
 
+// The pruned pass's point key: the original index above the point's slot
+// k * T + t in its CTA's slice (T * P <= 8192 slots; n < 2^19).
+constexpr int kSlotBits = 13;
+constexpr unsigned kSlotMask = (1u << kSlotBits) - 1;
+constexpr int kPrunedPoints = 16;  // B2's tier: a slab of 512 points a warp
+
+// The float of ordered() bits.
+__device__ __forceinline__ float unordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
+}
+
+// How far the pick l lies outside [lo, hi] on one axis, rounded as sqdist's
+// difference: fl(lo - l) below, fl(l - hi) above, 0 inside.
+__device__ __forceinline__ float gap(float l, float lo, float hi) {
+  return l < lo ? __fsub_rn(lo, l) : (l > hi ? __fsub_rn(l, hi) : 0.f);
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kAll, v, o));
+  return __shfl_sync(kAll, v, 0);  // lane 0's, bit for bit in every lane
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
+  return __shfl_sync(kAll, v, 0);
+}
+
 // One cloud per cluster; P points a thread in registers, or P = 0 for the
-// memory tier (dist is a [B, N] scratch there and unused otherwise).
-template <int P>
-__global__ void __launch_bounds__(max_threads(P))
-    fps_cluster_kernel(const float* __restrict__ xyz,
-                       const uint8_t* __restrict__ mask,
-                       float* __restrict__ dist, int* __restrict__ idx, int n,
-                       int m) {
+// memory tier (dist is a [B, N] scratch there and unused otherwise). Prune:
+// B2's pruned pass (the header's last part) for one cloud, order its slabs'
+// original indices, engaged the tool's counter or null.
+template <int P, bool Prune>
+__device__ __forceinline__ void fps_cluster(
+    const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
+    float* __restrict__ dist, int* __restrict__ idx, int n, int m,
+    const int* __restrict__ order, unsigned long long* __restrict__ engaged) {
+  static_assert(!Prune || P > 0, "the pruned pass keeps points in registers");
   extern __shared__ float4 slice_xyz[];  // register tier: the slice's xyz
   __shared__ Exchange ex;
 
@@ -202,12 +275,21 @@ __global__ void __launch_bounds__(max_threads(P))
 
   float px[P > 0 ? P : 1], py[P > 0 ? P : 1], pz[P > 0 ? P : 1],
       pd[P > 0 ? P : 1];
+  unsigned key[Prune ? P : 1];  // pruned pass: each point's key
   float* d = nullptr;
   if constexpr (P > 0) {
 #pragma unroll
     for (int k = 0; k < P; ++k) {
       const int j = k * T + t;
-      const int g = lo + j;
+      int g = lo + j;
+      if constexpr (Prune) {  // element k * 32 + lane of slab warp * C + rank
+        const int slots = (n + 32 * P - 1) / (32 * P) * (32 * P);
+        const int slab = warp * static_cast<int>(csize) + rank;
+        const int e = (slab * P + k) * 32 + lane;
+        g = e < slots ? __ldg(order + e) : n;
+        key[k] = (static_cast<unsigned>(g) << kSlotBits) |
+                 static_cast<unsigned>(j);
+      }
       float x = 0.f, y = 0.f, z = 0.f, d0 = -INFINITY;  // a pad
       if (g < n) {
         x = p[3 * g];
@@ -227,6 +309,42 @@ __global__ void __launch_bounds__(max_threads(P))
     for (int j = t; j < slice && lo + j < n; j += T)
       d[lo + j] = (valid == nullptr || valid[lo + j]) ? INFINITY : -INFINITY;
   }
+
+  // pruned pass: the warp's box and its (bits, key) before the first round
+  float box_lo[3], box_hi[3];
+  uint2 cache = make_uint2(0u, kNone);
+  unsigned rounds = 0;  // rounds this warp ran its pass
+  if constexpr (Prune) {
+    float lx0 = INFINITY, ly0 = INFINITY, lz0 = INFINITY;
+    float hx0 = -INFINITY, hy0 = -INFINITY, hz0 = -INFINITY;
+    float bd = pd[0];
+    unsigned bkey = key[0];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (pd[k] != -INFINITY) {
+        lx0 = fminf(lx0, px[k]);
+        ly0 = fminf(ly0, py[k]);
+        lz0 = fminf(lz0, pz[k]);
+        hx0 = fmaxf(hx0, px[k]);
+        hy0 = fmaxf(hy0, py[k]);
+        hz0 = fmaxf(hz0, pz[k]);
+      }
+      if (k > 0 && pd[k] > bd) {
+        bd = pd[k];
+        bkey = key[k];
+      }
+    }
+    box_lo[0] = warp_min(lx0);
+    box_lo[1] = warp_min(ly0);
+    box_lo[2] = warp_min(lz0);
+    box_hi[0] = warp_max(hx0);
+    box_hi[1] = warp_max(hy0);
+    box_hi[2] = warp_max(hz0);
+    const unsigned bu = ordered(bd);
+    const unsigned wu = __reduce_max_sync(kAll, bu);
+    cache = make_uint2(wu, __reduce_min_sync(kAll, bu == wu ? bkey : kNone));
+  }
+
   if (t == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
                  :: "r"(smem(&ex.bar[0])), "r"(1) : "memory");
@@ -246,40 +364,67 @@ __global__ void __launch_bounds__(max_threads(P))
                    :: "r"(smem(&ex.bar[par])), "r"(csize * kPartialBytes)
                    : "memory");
 
-    // the pass: this thread's best (bits, index), lowest index on ties
-    unsigned bu = 0, bg = kNone;
-    if constexpr (P > 0) {
-      float bd = 0.f;
-      int bk = 0;
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const float nd = fminf(pd[k], sqdist(px[k], py[k], pz[k], lx, ly, lz));
-        pd[k] = nd;
-        if (k == 0 || nd > bd) {
-          bd = nd;
-          bk = k;
-        }
-      }
-      bu = ordered(bd);
-      bg = static_cast<unsigned>(lo + bk * T + t);
-    } else {
-      for (int j = t; j < slice && lo + j < n; j += T) {
-        const int g = lo + j;
-        const float nd =
-            fminf(d[g], sqdist(p[3 * g], p[3 * g + 1], p[3 * g + 2], lx, ly,
-                               lz));
-        d[g] = nd;
-        const unsigned u = ordered(nd);
-        if (u > bu) {
-          bu = u;
-          bg = static_cast<unsigned>(g);
-        }
-      }
+    // pruned pass: whether the pick can lower a distance of this warp's
+    // slab (warp-uniform: the pick, the box and the cache are)
+    bool run = true;
+    if constexpr (Prune) {
+      const float gx = gap(lx, box_lo[0], box_hi[0]);
+      const float gy = gap(ly, box_lo[1], box_hi[1]);
+      const float gz = gap(lz, box_lo[2], box_hi[2]);
+      const float lb = __fadd_rn(
+          __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
+      run = !(lb >= unordered(cache.x));
     }
 
-    // warp stage
-    const unsigned wu = __reduce_max_sync(kAll, bu);
-    const unsigned wg = __reduce_min_sync(kAll, bu == wu ? bg : kNone);
+    unsigned wu, wg;
+    if (run) {
+      // the pass: this thread's best (bits, index), lowest index on ties
+      unsigned bu = 0, bg = kNone;
+      if constexpr (P > 0) {
+        float bd = 0.f;
+        int bk = 0;
+        unsigned bkey = 0;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const float nd =
+              fminf(pd[k], sqdist(px[k], py[k], pz[k], lx, ly, lz));
+          pd[k] = nd;
+          if (k == 0 || nd > bd) {
+            bd = nd;
+            if constexpr (Prune)
+              bkey = key[k];
+            else
+              bk = k;
+          }
+        }
+        bu = ordered(bd);
+        bg = Prune ? bkey : static_cast<unsigned>(lo + bk * T + t);
+      } else {
+        for (int j = t; j < slice && lo + j < n; j += T) {
+          const int g = lo + j;
+          const float nd =
+              fminf(d[g], sqdist(p[3 * g], p[3 * g + 1], p[3 * g + 2], lx, ly,
+                                 lz));
+          d[g] = nd;
+          const unsigned u = ordered(nd);
+          if (u > bu) {
+            bu = u;
+            bg = static_cast<unsigned>(g);
+          }
+        }
+      }
+
+      // warp stage
+      wu = __reduce_max_sync(kAll, bu);
+      wg = __reduce_min_sync(kAll, bu == wu ? bg : kNone);
+      if constexpr (Prune) {
+        cache = make_uint2(wu, wg);
+        ++rounds;
+      }
+    } else {  // a skipped pass changes nothing: the cached key stands
+      wu = cache.x;
+      wg = cache.y;
+    }
     if (lane == 0) ex.warp_key[par][warp] = make_uint2(wu, wg);
     __syncthreads();
 
@@ -291,7 +436,9 @@ __global__ void __launch_bounds__(max_threads(P))
       const unsigned cw = __reduce_min_sync(kAll, e.x == cu ? e.y : kNone);
       if (lane < static_cast<int>(csize)) {
         float4 w;
-        if constexpr (P > 0) {
+        if constexpr (Prune) {
+          w = slice_xyz[cw & kSlotMask];
+        } else if constexpr (P > 0) {
           w = slice_xyz[cw - lo];  // pads have slots too
         } else {
           w = cw < static_cast<unsigned>(n)
@@ -320,12 +467,37 @@ __global__ void __launch_bounds__(max_threads(P))
     lx = __uint_as_float(w.z);
     ly = __uint_as_float(w.w);
     lz = ex.tail[par][src];
-    if (leader) out[i] = static_cast<int>(win);
+    if (leader) out[i] = static_cast<int>(Prune ? win >> kSlotBits : win);
+  }
+  if constexpr (Prune) {
+    if (engaged != nullptr && lane == 0)
+      atomicAdd(engaged, static_cast<unsigned long long>(rounds));
   }
   cluster.sync();
 }
 
+template <int P>
+__global__ void __launch_bounds__(max_threads(P))
+    fps_cluster_kernel(const float* __restrict__ xyz,
+                       const uint8_t* __restrict__ mask,
+                       float* __restrict__ dist, int* __restrict__ idx, int n,
+                       int m) {
+  fps_cluster<P, false>(xyz, mask, dist, idx, n, m, nullptr, nullptr);
+}
+
+template <int P>
+__global__ void __launch_bounds__(max_threads(P))
+    fps_cluster_kernel_pruned(const float* __restrict__ xyz,
+                              const uint8_t* __restrict__ mask,
+                              const int* __restrict__ order,
+                              int* __restrict__ idx, int n, int m,
+                              unsigned long long* __restrict__ engaged) {
+  fps_cluster<P, true>(xyz, mask, nullptr, idx, n, m, order, engaged);
+}
+
 using Kernel = void (*)(const float*, const uint8_t*, float*, int*, int, int);
+using PrunedKernel = void (*)(const float*, const uint8_t*, const int*, int*,
+                              int, int, unsigned long long*);
 
 Kernel kernel_for(int points) {
   switch (points) {
@@ -338,9 +510,15 @@ Kernel kernel_for(int points) {
   }
 }
 
+PrunedKernel pruned_for(int points) {
+  return points == kPrunedPoints ? fps_cluster_kernel_pruned<kPrunedPoints>
+                                 : nullptr;
+}
+
 // Set the kernel's attributes for candidate (c, t, points) and fill the
 // launch configuration of b clusters of c CTAs.
-cudaError_t configure(Kernel kernel, int b, int c, int t, int points,
+template <typename K>
+cudaError_t configure(K kernel, int b, int c, int t, int points,
                       cudaStream_t stream, cudaLaunchAttribute* attr,
                       cudaLaunchConfig_t* config) {
   const size_t smem_bytes = sizeof(float4) * static_cast<size_t>(points) * t;
@@ -364,34 +542,23 @@ cudaError_t configure(Kernel kernel, int b, int c, int t, int points,
   return err;
 }
 
-}  // namespace
-
-// xyz [B, N, 3] f32, mask [B, N] u8 or null, dist [B, N] f32 scratch (the
-// memory tier only; may be null otherwise), idx [B, M] i32. plans: `count`
-// candidates (cluster size, threads, points a thread; 0 = memory tier) as
-// 3 * count ints, in order of preference. Launches the first that the card
-// places as B clusters in one wave, else the first it places at all, on
-// `stream`; *used gets its position (-1 if none launched). Returns
-// cudaErrorInvalidValue for a malformed candidate,
-// cudaErrorInvalidConfiguration if none can be placed, else
-// cudaGetLastError().
-extern "C" int tpu3dsad_fps(const float* xyz, const uint8_t* mask,
-                            float* dist, int* idx, int b, int n, int m,
-                            const int* plans, int count, int* used,
-                            void* stream) {
-  *used = -1;
-  if (b <= 0 || n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
+// Launch, with `args`, the kernel that pick(points) gives for the first
+// candidate whose b clusters the card places in one wave, else the first
+// it places at all (the entries' contract below).
+template <typename K, typename... Args>
+int launch(K (*pick)(int), int b, int n, bool memory_tier, const int* plans,
+           int count, int* used, void* stream, Args... args) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t config;
   int fallback = -1;
   for (int i = 0; i < count; ++i) {
     const int c = plans[3 * i], t = plans[3 * i + 1], points = plans[3 * i + 2];
-    const Kernel kernel = kernel_for(points);
+    const K kernel = pick(points);
     if (kernel == nullptr || c < 1 || c > kMaxCluster || t < 32 ||
         t > max_threads(points) || t % 32 != 0 ||
         (points > 0 && static_cast<long long>(c) * t * points < n) ||
-        (points == 0 && dist == nullptr))
+        (points == 0 && !memory_tier))
       return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = configure(kernel, b, c, t, points, s, attr, &config);
     int clusters = 0;
@@ -412,20 +579,49 @@ extern "C" int tpu3dsad_fps(const float* xyz, const uint8_t* mask,
     *used = fallback;
   }
   const int* chosen = plans + 3 * *used;
-  const Kernel kernel = kernel_for(chosen[2]);
+  const K kernel = pick(chosen[2]);
   cudaError_t err =
       configure(kernel, b, chosen[0], chosen[1], chosen[2], s, attr, &config);
-  if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&config, kernel, xyz, mask, dist, idx, n, m);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&config, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One cloud of xyz [N, 3] (B2's entry): tpu3dsad_fps at B = 1.
+}  // namespace
+
+// xyz [B, N, 3] f32, mask [B, N] u8 or null, dist [B, N] f32 scratch (the
+// memory tier only; may be null otherwise), idx [B, M] i32. plans: `count`
+// candidates (cluster size, threads, points a thread; 0 = memory tier) as
+// 3 * count ints, in order of preference. Launches the first that the card
+// places as B clusters in one wave, else the first it places at all, on
+// `stream`; *used gets its position (-1 if none launched). Returns
+// cudaErrorInvalidValue for a malformed candidate,
+// cudaErrorInvalidConfiguration if none can be placed, else
+// cudaGetLastError().
+extern "C" int tpu3dsad_fps(const float* xyz, const uint8_t* mask,
+                            float* dist, int* idx, int b, int n, int m,
+                            const int* plans, int count, int* used,
+                            void* stream) {
+  *used = -1;
+  if (b <= 0 || n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
+  return launch(kernel_for, b, n, dist != nullptr, plans, count, used, stream,
+                xyz, mask, dist, idx, n, m);
+}
+
+// One cloud of xyz [N, 3] (B2's entry). order null: tpu3dsad_fps at B = 1.
+// order [ceil(N / 512) * 512] i32, the pre-pass's slabs (the header): the
+// pruned pass, every candidate at 16 points a thread; engaged, a u64 on the
+// card or null, gets the warp-rounds that ran their pass.
 extern "C" int tpu3dsad_fps_flat(const float* xyz, const uint8_t* mask,
-                                 float* dist, int* idx, int n, int m,
-                                 const int* plans, int count, int* used,
-                                 void* stream) {
-  return tpu3dsad_fps(xyz, mask, dist, idx, 1, n, m, plans, count, used,
-                      stream);
+                                 const int* order, float* dist, int* idx,
+                                 int n, int m, const int* plans, int count,
+                                 int* used, long long* engaged, void* stream) {
+  if (order == nullptr)
+    return tpu3dsad_fps(xyz, mask, dist, idx, 1, n, m, plans, count, used,
+                        stream);
+  *used = -1;
+  if (n <= 0 || m <= 0) return static_cast<int>(cudaSuccess);
+  return launch(pruned_for, 1, n, false, plans, count, used, stream, xyz, mask,
+                order, idx, n, m,
+                reinterpret_cast<unsigned long long*>(engaged));
 }

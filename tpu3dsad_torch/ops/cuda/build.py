@@ -44,8 +44,10 @@ _SIGNATURES = {
     # cluster, threads, points a thread), their count, position of the one
     # launched (host int out), stream
     "tpu3dsad_fps": (_P, _P, _P, _P, _I, _I, _I, _PI, _I, _PI, _P),
-    # the same for one cloud, without b
-    "tpu3dsad_fps_flat": (_P, _P, _P, _P, _I, _I, _PI, _I, _PI, _P),
+    # one cloud: xyz, mask, order (the pruned pass's slabs, or null), dist,
+    # idx, n, m, plans, their count, position launched, engaged (a u64
+    # counter or null), stream
+    "tpu3dsad_fps_flat": (_P, _P, _P, _P, _P, _I, _I, _PI, _I, _PI, _P, _P),
     # xyz, mask, centers, perm, perm_c, scratch, idx, cnt, b, n, m, k, r2,
     # skip_r2, warps a block, centers a warp, shared loads, stream
     "tpu3dsad_ball_query": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -12,12 +12,19 @@ rest. The reference drops to its XLA tier above MAX_FLAT_ELEMS for lack of
 TPU VMEM; the kernel has no upper size, so the port has no third tier.
 
 `plan` chooses the launch shape, a pure function of (B, N, SM count) that
-the CPU tests pin. `launches` counts B1 launches and `flat_launches` B2
-launches made by these wrappers, so a run can show which entry its main
-path went through; `flat_points` sums the points (N, padding included)
-each B2 launch was given, which varies with a scan's crop; `last_plan` is
-the plan of the last launch of either, `last_cluster` the cluster size of
-the last B2 launch.
+the CPU tests pin. B2 at 16 points a thread (every plan() of more than
+65536 and up to 131072 points) runs the pruned pass of csrc/fps.cu: its
+pre-pass `slab_order` deals the points into spatially compact slabs of
+SLAB points, one a warp (Z-order keys, `deal`), and a warp skips each
+round whose pick provably lowers no distance in its slab; the picks are
+the unpruned kernel's, bit for bit.
+
+`launches` counts B1 launches and `flat_launches` B2 launches made by
+these wrappers, so a run can show which entry its main path went
+through; `flat_points` sums the points (N, padding included) each B2
+launch was given, which varies with a scan's crop; `last_plan` is the
+plan of the last launch of either, `last_cluster` the cluster size of the
+last B2 launch.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from tpu3dsad_torch.ops.args import check_fps
+from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import build
 from tpu3dsad_torch.ops.cuda.common import mask_arg, points_arg, ptr, stream
 
@@ -45,6 +53,9 @@ MAX_CLUSTER = 16  # the largest (non-portable) cluster on Hopper
 # across CTAs down to MIN_SLICE points a CTA (measured: PERF.md)
 MIN_THREADS = 128
 MIN_SLICE = 128
+# B2's pruned pass: the points a thread holds, and a warp's slab of them
+PRUNED_POINTS = 16
+SLAB = 32 * PRUNED_POINTS
 
 
 class Plan(NamedTuple):
@@ -111,10 +122,32 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int,
     return fps_batched(xyz, npoint, mask)
 
 
+def deal(codes: torch.Tensor) -> torch.Tensor:
+    """Z-order keys codes [N] int32 -> order [ceil(N / SLAB) * SLAB] int32:
+    the points' indices in a stable sort of the keys, cut into slabs of
+    SLAB, each slab's indices ascending, the last slab padded with N. The
+    kernel gives slab s to CTA s mod C, warp s div C, and its element e to
+    lane e mod 32 as the thread's point e div 32 (csrc/fps.cu)."""
+    n = codes.shape[0]
+    perm = torch.sort(codes, stable=True).indices.to(torch.int32)
+    order = torch.nn.functional.pad(perm, (0, -n % SLAB), value=n)
+    return torch.sort(order.view(-1, SLAB), dim=1).values.view(-1)
+
+
+def slab_order(xyz: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """The pruned pass's pre-pass for one cloud xyz [1, N, 3] on the card:
+    deal() of its Z-order keys (the sorted tier's morton_codes, masked
+    points last)."""
+    codes, _ = cuda_bq.morton_codes(xyz, xyz[:, :1], mask)
+    return deal(codes[0])
+
+
 def _launch(entry: str, xyz: torch.Tensor, npoint: int,
-            mask: torch.Tensor | None,
-            plans: Sequence[Plan] | None) -> tuple[torch.Tensor, Plan]:
-    """Launch one C entry on checked arguments; (idx, the plan used)."""
+            mask: torch.Tensor | None, plans: Sequence[Plan] | None,
+            engaged: torch.Tensor | None = None) -> tuple[torch.Tensor, Plan]:
+    """Launch one C entry on checked arguments; (idx, the plan used). The
+    flat entry takes the pruned pass where every candidate holds
+    PRUNED_POINTS points a thread; `engaged` needs it."""
     xyz = points_arg(xyz, "xyz")
     valid = mask_arg(mask, xyz)
     B, N, _ = xyz.shape
@@ -128,11 +161,22 @@ def _launch(entry: str, xyz: torch.Tensor, npoint: int,
             if any(p.points == 0 for p in plans) else None)
     flat = (ctypes.c_int * (3 * len(plans)))(*(v for p in plans for v in p))
     used = ctypes.c_int(-1)
-    batch = () if entry == "tpu3dsad_fps_flat" else (B,)
     with torch.cuda.device(xyz.device):
-        err = getattr(lib, entry)(ptr(xyz), ptr(valid), ptr(dist), ptr(idx),
-                                  *batch, N, npoint, flat, len(plans),
-                                  ctypes.byref(used), stream(xyz))
+        if entry == "tpu3dsad_fps":
+            err = lib.tpu3dsad_fps(ptr(xyz), ptr(valid), ptr(dist), ptr(idx),
+                                   B, N, npoint, flat, len(plans),
+                                   ctypes.byref(used), stream(xyz))
+        else:
+            order = (slab_order(xyz, mask)
+                     if all(p.points == PRUNED_POINTS for p in plans)
+                     else None)
+            if engaged is not None and order is None:
+                raise ValueError("engaged counts the pruned pass, which "
+                                 f"takes {PRUNED_POINTS} points a thread")
+            err = lib.tpu3dsad_fps_flat(ptr(xyz), ptr(valid), ptr(order),
+                                        ptr(dist), ptr(idx), N, npoint, flat,
+                                        len(plans), ctypes.byref(used),
+                                        ptr(engaged), stream(xyz))
     build.check(err, entry)
     return idx, plans[used.value]
 
@@ -151,14 +195,22 @@ def fps_batched(xyz: torch.Tensor, npoint: int,
 
 def fps_flat(xyz: torch.Tensor, npoint: int,
              mask: torch.Tensor | None = None,
-             plans: Sequence[Plan] | None = None) -> torch.Tensor:
-    """B2 for one cloud (B == 1) of any N; `plans` overrides plan()'s
-    candidates."""
+             plans: Sequence[Plan] | None = None,
+             engaged: torch.Tensor | None = None) -> torch.Tensor:
+    """B2 for one cloud (B == 1) of any N, pruned at PRUNED_POINTS points a
+    thread; `plans` overrides plan()'s candidates. `engaged` (a tool's
+    counter: one int64 on the card, None on served calls) gets the count of
+    warp-rounds that ran their pass added."""
     global flat_launches, flat_points, last_plan, last_cluster
     check_fps(xyz, npoint, mask)
     if xyz.shape[0] != 1:
         raise ValueError(f"fps_flat takes one cloud, got B={xyz.shape[0]}")
-    idx, last_plan = _launch("tpu3dsad_fps_flat", xyz, npoint, mask, plans)
+    if engaged is not None and (engaged.dtype != torch.int64
+                                or engaged.numel() != 1
+                                or engaged.device != xyz.device):
+        raise ValueError("engaged must be one int64 on xyz's device")
+    idx, last_plan = _launch("tpu3dsad_fps_flat", xyz, npoint, mask, plans,
+                             engaged)
     flat_launches += 1
     flat_points += xyz.shape[1]
     last_cluster = last_plan.cluster
