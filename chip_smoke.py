@@ -114,8 +114,9 @@ Phases, in order; any failure raises and the script exits nonzero:
     csrc/iou.cu) on its sweep's decoded corners within 1e-4 of the host
     evaluator (4096 pairs, float64 corners); the kernel on the inputs of
     that sweep's oriented parse (8 x 256 class-shifted boxes, the KITTI
-    cell's shape), in 3 launches exactly 0 where the footprints lie apart
-    and within 1e-6 of the plain chain on pairs at least 0.1 m across.
+    cell's shape, each row in its box's frame), in 3 launches exactly 0
+    where the footprints lie apart and within 1e-6 of the plain chain on
+    pairs at least 0.1 m across.
     Then the kernel inputs of one step with FPS sampling and one with
     density sampling, recorded: B1 and B3 equal to plain in 3 launches
     each, B5 bitwise np.add.at; one step each with FPS sampling, density
@@ -264,6 +265,20 @@ Phases, in order; any failure raises and the script exits nonzero:
     at least 0.118, half the reference's 0.2352 at that epoch. Then one
     step of the trained model on a host batch, recorded: B1 and B3 equal
     to plain in 3 launches, B5 bitwise np.add.at.
+19. 3DSSD (preset=3dssd, models/ssd3d.py). The feature-FPS kernel
+    (csrc/ffps.cu) against its plain version on the card at the
+    eval-3dssd-kitti-b16 cell's two launches (B = 16: 4096 x 67 -> 512,
+    512 x 131 -> 256), on ragged clouds, a masked tail, CTA slices wholly
+    masked, tied values, an all-masked cloud and the largest cloud 8 CTAs'
+    shared memory holds at 67 values: picks exactly equal in 3 launches
+    each. Then the model built by train_detector.build_detector with
+    seeded weights, BatchNorm calibrated on a first batch, served through
+    serving.build_inference_fn as the cell serves it (16 scans x 16384
+    points of xyz + intensity): one warm-up request, then 3 counted ones
+    from zeroed counters, 3 FPS (B1), 2 feature-FPS, 11 ball-query, 1
+    oriented-IoU and 1 NMS-walk launches a request; finite outputs of the
+    right shapes, at most 100 boxes kept a scan; one request rerun with
+    the plain ops gives the same keep and classes and launches nothing.
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch and its parse (after loading the
@@ -337,11 +352,13 @@ from tpu3dsad_torch.ops import sorted as sorted_bq
 from tpu3dsad_torch.ops.boxes import oriented_bev_iou
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import build
+from tpu3dsad_torch.ops.cuda import ffps as cuda_ffps
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
 from tpu3dsad_torch.ops.cuda import iou as cuda_iou
 from tpu3dsad_torch.ops.cuda import nms as cuda_nms
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
+from tpu3dsad_torch.ops.plain import feature_fps as plain_ffps
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.ops.plain import greedy_suppress as plain_walk
 from tpu3dsad_torch.ops.plain import oriented_bev_iou as plain_iou
@@ -400,19 +417,38 @@ STEP4 = {"fps": dict(fps=5, ball_query=7, scatter=9),
          "lineage": dict(fps=5, ball_query=5, scatter=7)}
 STEP4_ARGS = {"fps": [], "density": ["model.proposal_sampling=density"],
               "lineage": ["model.proposal_mode=lineage"]}
+# 3DSSD (preset=3dssd) served as the eval-3dssd-kitti-b16 cell serves it:
+# 16 scans of 16384 points of xyz + intensity a request
+SSD3D_B, SSD3D_N, SSD3D_REQUESTS = 16, 16384, 3
+# the kernel launches of one 3DSSD request: D-FPS at SA1, SA2 and SA3 (B1),
+# F-FPS at SA2 and SA3, 3 ball queries a level and 2 in the candidate
+# generation, one oriented IoU and one walk (tests/test_torch_smoke_checks
+# .py counts the same ops on the CPU)
+SSD3D_REQUEST = dict(fps=3, ffps=2, ball_query=11, iou=1, nms=1)
+# (name, B, N, D, npoint, kind) of the feature-FPS checks of phase 19: the
+# cell's two launches, then ragged, masked and tied clouds and the largest
+# cloud that 8 CTAs' shared memory holds at 67 values a point
+FFPS_CASES = [("sa2", 16, 4096, 67, 512, "cell"),
+              ("sa3", 16, 512, 131, 256, "cell"),
+              ("ragged", 3, 1000, 5, 100, "normal"),
+              ("tail-masked", 2, 777, 67, 200, "tail"),
+              ("slice-masked", 4, 4096, 67, 512, "slices"),
+              ("ties", 2, 600, 4, 300, "grid"),
+              ("all-masked", 1, 64, 7, 8, "all"),
+              ("largest", 1, 6768, 67, 64, "normal")]
 
 
 def counts() -> dict:
     return {"fps": cuda_fps.launches, "fps_flat": cuda_fps.flat_launches,
             "ball_query": cuda_bq.launches, "sorted": sorted_bq.launches,
             "scatter": cuda_scatter.launches, "nms": cuda_nms.launches,
-            "iou": cuda_iou.launches}
+            "iou": cuda_iou.launches, "ffps": cuda_ffps.launches}
 
 
 def reset_counts() -> None:
     cuda_fps.launches = cuda_fps.flat_launches = cuda_bq.launches = 0
     sorted_bq.launches = cuda_scatter.launches = cuda_nms.launches = 0
-    cuda_iou.launches = 0
+    cuda_iou.launches = cuda_ffps.launches = 0
 
 
 def launches(**given) -> dict:
@@ -1229,7 +1265,7 @@ def plain_keep(cfg, label: str) -> None:
         before = counts()
         with ops.use_impl(impl):
             ep, _ = step(batch)
-            keeps.append(eval_detector.parse_predictions(
+            keeps.append(parse_predictions(
                 ep, model.mean_sizes, cfg.model.num_heading_bins,
                 cfg.eval)["keep"])
         walks = counts()["nms"] - before["nms"]
@@ -1357,7 +1393,7 @@ def hostfed_runs(work: Path) -> None:
                                         for_eval=True, use_best=True)
     again = train_detector.evaluate(
         cfg_a, fresh, dataset, train_lib.make_detector_eval_step(fresh, cfg_a),
-        lambda ep: eval_detector.parse_predictions(
+        lambda ep: parse_predictions(
             ep, fresh.mean_sizes, cfg_a.model.num_heading_bins, cfg_a.eval))
     if step != TRAIN_STEPS or again != logged:
         raise AssertionError(f"use_best: step {step}, metrics {again} vs "
@@ -1521,7 +1557,7 @@ def oriented_iou_check(cfg, model) -> None:
 
     cuda_iou.oriented_bev_iou = record
     try:
-        parsed = eval_detector.parse_predictions(
+        parsed = parse_predictions(
             ep, model.mean_sizes, cfg.model.num_heading_bins, cfg.eval)
     finally:
         cuda_iou.oriented_bev_iou = kernel
@@ -1582,8 +1618,9 @@ def footprint_pairs(a: torch.Tensor, b: torch.Tensor):
 
 def iou_case(a: torch.Tensor, b: torch.Tensor) -> None:
     """The oriented IoU kernel on the inputs one oriented parse gave it
-    (phase 11's sweep batch, class-shifted as nms_oriented shifts them:
-    the eval-kitti-b8 cell's shape, B = 8, K = L = 256): COMPARES launches,
+    (phase 11's sweep batch, class-shifted as nms_oriented shifts them and
+    moved into each row box's frame: the eval-kitti-b8 cell's shape, 8 x
+    256 one-row clouds of L = 256 boxes): COMPARES launches,
     each exactly 0 where the footprints lie apart and within 1e-6 of the
     plain chain on the pairs whose footprints are both at least 0.1 m
     across (the slivers listed)."""
@@ -3718,6 +3755,105 @@ def phase_recipe(work: Path) -> None:
         scatter_case("recipe", *args, gen)
 
 
+def ffps_input(kind: str, b: int, n: int, d: int, gen):
+    """(points [b, n, d], mask [b, n] or None) of one feature-FPS case of
+    FFPS_CASES on gen's device: "cell" xyz over 40 m and ReLU features, as
+    an SA level's input; "normal" and the masked kinds standard normal
+    values; "tail" the last 300 points of each cloud masked; "slices" every
+    other 512-point block masked (whole CTA slices at SA2's plans); "grid"
+    integers 0-2 (ties everywhere); "all" every point masked."""
+    dev = gen.device
+    if kind == "cell":
+        xyz = torch.rand(b, n, 3, generator=gen, device=dev) * 40
+        feats = torch.relu(torch.randn(b, n, d - 3, generator=gen,
+                                       device=dev))
+        return torch.cat([xyz, feats], -1), None
+    if kind == "grid":
+        x = torch.randint(0, 3, (b, n, d), generator=gen, device=dev).float()
+    else:
+        x = torch.randn(b, n, d, generator=gen, device=dev)
+    at = torch.arange(n, device=dev)[None].expand(b, n)
+    mask = {"tail": at < n - 300, "slices": (at // 512) % 2 == 0,
+            "all": torch.zeros(b, n, dtype=torch.bool, device=dev)}.get(kind)
+    return x, mask
+
+
+def ssd3d_scans(seed: int):
+    """(points [B,N,3], intensity [B,N,1], mask [B,N]) on the card: 3DSSD's
+    request of SSD3D_B scans of SSD3D_N points over KITTI's front range
+    (x 0-70 m, y +-40 m, z -3-1 m); scan 1 is a quarter padding."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([0, -40, -3], [70, 40, 1],
+                      (SSD3D_B, SSD3D_N, 3)).astype(np.float32)
+    feats = rng.random((SSD3D_B, SSD3D_N, 1)).astype(np.float32)
+    mask = np.ones((SSD3D_B, SSD3D_N), bool)
+    mask[1, SSD3D_N * 3 // 4:] = False
+    return tuple(torch.from_numpy(v).cuda() for v in (pts, feats, mask))
+
+
+def phase_ssd3d() -> None:
+    """Phase 19: the feature-FPS kernel against the plain op, then 3DSSD
+    served as its cell serves it."""
+    print(f"== feature FPS kernel (csrc/ffps.cu) vs the plain op (exact "
+          f"picks, {COMPARES} launches each)")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    for name, b, n, d, m, kind in FFPS_CASES:
+        x, mask = ffps_input(kind, b, n, d, gen)
+        want = plain_ffps(x, m, mask)
+        for _ in range(COMPARES):
+            require_equal(f"ffps {name}", cuda_ffps.feature_fps(x, m, mask),
+                          want)
+        print(f"  {name:12s} [{b},{n},{d}]->{m}: launched "
+              f"{tuple(cuda_ffps.last_plan)}, equal in {COMPARES} launches")
+
+    print(f"== 3DSSD (preset=3dssd) serving 1 warm-up + {SSD3D_REQUESTS} "
+          f"requests of {SSD3D_B} scans x {SSD3D_N} points")
+    cfg = parse_cli(["preset=3dssd", f"train.batch_size={SSD3D_B}"])
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg)
+    points, feats, mask = ssd3d_scans(0)
+    with torch.no_grad():  # BatchNorm calibrated as the cell's set-up does
+        model.train()
+        model(points, feats, mask=mask, bn_momentum=0.0)
+        model.eval()
+    infer = build_inference_fn(cfg, model, model.mean_sizes,
+                               with_features=True)
+    infer(points, mask, feats)
+    batches = [ssd3d_scans(seed) for seed in range(1, SSD3D_REQUESTS + 1)]
+    reset_counts()
+    outs = [infer(p, k, f) for p, f, k in batches]
+    served = counts()
+    print(f"  launches: {served}")
+    want = launches(**{k: v * SSD3D_REQUESTS
+                       for k, v in SSD3D_REQUEST.items()})
+    if served != want:
+        raise AssertionError(f"3DSSD launches {served} != {want}")
+    P = cfg.model.ssd3d_npoints[-1][0]
+    limit = cfg.model.ssd3d_max_output
+    for out in outs:
+        for key, value in out.items():
+            if value.shape[:2] != (SSD3D_B, P):
+                raise AssertionError(f"{key}: {tuple(value.shape)}")
+            if value.is_floating_point() and not value.isfinite().all():
+                raise AssertionError(f"{key}: non-finite values")
+        if (out["keep"].sum(1) > limit).any():
+            raise AssertionError(f"more than {limit} boxes kept a scan")
+    kept = [out["keep"].sum(1).tolist() for out in outs]
+    print(f"  outputs finite, shapes ok; boxes kept a scan: {kept}")
+
+    p, f, k = batches[0]
+    with ops.use_impl("plain"):
+        plain = infer(p, k, f)
+    if counts() != served:
+        raise AssertionError("the plain rerun launched a kernel")
+    for key in ("keep", "sem_cls"):
+        require_equal(f"3DSSD {key} (kernel path vs plain path)",
+                      outs[0][key], plain[key])
+    dc = (outs[0]["center"] - plain["center"]).abs().max().item()
+    print(f"  plain-ops rerun of request 0: keep and sem_cls identical, "
+          f"center max |diff| {dc:.3g}")
+
+
 def main() -> None:
     laps, t0 = {}, time.perf_counter()
 
@@ -3775,6 +3911,8 @@ def main() -> None:
         lap("17")
         phase_recipe(work / "recipe")
         lap("18")
+        phase_ssd3d()
+        lap("19")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules

@@ -6,6 +6,7 @@ the plain version first.
     python3 profile_port.py --ball-query            # ball query per call and plan
     python3 profile_port.py --scatter               # scatter per call and plan
     python3 profile_port.py --scatter-calls PATH    # scatter calls, any tree
+    python3 profile_port.py --ffps                  # feature FPS per call and plan
     python3 profile_port.py --span-cost             # the tracer's host cost
 
 The program's spans on the benchmark cells' own traffic are read by
@@ -53,6 +54,18 @@ call and summed, its time with the host (CUDA events), the card's alone
 (with this file copied there) on the same PATH, it compares two commits'
 kernels on one card and one input.
 
+--ffps times the feature-space FPS kernel (csrc/ffps.cu, 3DSSD's F-FPS)
+at the two calls of one request of the 3DSSD cell (16 of the cell's scans
+fitted by data/kitti.py::fit_scene, the cell's configuration with seeded
+weights, BatchNorm calibrated on them as the cell's set-up does; the calls'
+inputs recorded from the served program): each at the plan that
+ops/cuda/ffps.py chooses (the first of its candidates that the card
+places in one wave) and then at every cluster size 1-8, first held
+equal to the plain version, then timed by CUDA events (ms, us a round),
+beside its bound (portbench/counts/ssd3d.py) and the plain version's ms;
+then the registers and spills of each kernel instance (nvcc's -Xptxas=-v
+report, where this process built the library).
+
 --span-cost times the tracer itself (tpu3dsad_torch/utils/trace.py): the
 host us of an empty span, off, on (a CUDA event pair), and on under a
 running profiler (a range too); then the us of making and recording one
@@ -65,6 +78,7 @@ import argparse
 import shutil
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -489,6 +503,114 @@ def profile_span_cost(card: str, spans: int = 20000) -> None:
     print(f"on {card}")
 
 
+def ffps_calls_of_a_request(seed: int = 2424000101) -> list:
+    """(points [B, N, D], npoint, mask) of each feature-FPS call of one
+    request of the 3DSSD cell, recorded from the served program."""
+    import json
+
+    from portbench import weights
+    from portbench.harness import Context
+    from tpu3dsad_torch import serving, train_lib
+    from tpu3dsad_torch.models.ssd3d import SSD3D
+    from tpu3dsad_torch.ops import library
+
+    root = Path(__file__).resolve().parent
+    config = json.loads((root / "portbench" / "configs"
+                         / "3dssd-kitti-car-16k.json").read_text())
+    w = json.loads((root / "portbench" / "workloads"
+                    / "eval-3dssd-kitti-b16.json").read_text())
+    cfg = Context.port_config(SimpleNamespace(config=config))
+    train_lib.apply_runtime_config(cfg)
+    model = SSD3D(cfg.model, device="cuda")
+    state = {n: tuple(v.shape) for n, v in model.state_dict().items()}
+    model.load_state_dict(weights.draw(state, seed, "cuda"))
+    scans, _ = outdoor_traffic.scan_pool(
+        np.random.default_rng(seed), dict(w, pool_batches=1,
+                                          check_batches=1))
+    raw = torch.from_numpy(scans[0]).cuda()
+    B, N = w["batch"], w["budget"]
+    rows = raw.new_zeros(B, N, 4)
+    mask = torch.zeros(B, N, dtype=torch.bool, device="cuda")
+    for b in range(B):
+        fit = kitti.fit_scene(raw[b], N, "cuda")
+        rows[b, :fit.rows.shape[0]] = raw[b, fit.rows]
+        mask[b] = fit.mask
+    points, feats = rows[..., :3].contiguous(), rows[..., 3:].contiguous()
+    with torch.no_grad():
+        model.train()
+        model(points, feats, mask=mask, bn_momentum=0.0)
+        model.eval()
+    infer = serving.build_inference_fn(cfg, model, model.mean_sizes,
+                                       with_features=True)
+    calls, sound = [], library.ffps
+
+    def record(p, m, k=None):
+        calls.append((p.clone(), m, None if k is None else k.clone()))
+        return sound(p, m, k)
+
+    library.ffps = record
+    try:
+        infer(points, mask, feats)
+    finally:
+        library.ffps = sound
+    return calls
+
+
+def profile_ffps(card: str) -> None:
+    """Each feature-FPS call of a 3DSSD request at plan() and at every other
+    cluster size: exact against the plain version, then ms and us a round
+    by CUDA events; its bound and the plain version's ms; the kernel
+    instances' registers and spills."""
+    from portbench.counts.ssd3d import ffps_cost
+    from portbench.counts import bound_seconds
+    from tpu3dsad_torch.ops.cuda import ffps as cuda_ffps
+    from tpu3dsad_torch.ops.plain import feature_fps as plain_ffps
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (points, m, mask) in enumerate(ffps_calls_of_a_request()):
+        b, n, d = points.shape
+        want = plain_ffps(points, m, mask)
+        plain_ms = cuda_ms(lambda: plain_ffps(points, m, mask), 1)
+        bound = 1e3 * bound_seconds([ffps_cost(
+            {"B": b, "n": n, "d": d, "m": m})])
+        require_equal(f"ffps call {i} plan()",
+                      cuda_ffps.feature_fps(points, m, mask), want)
+        chosen = cuda_ffps.last_plan
+        print(f"ffps call {i} [{b},{n},{d}]->{m}: bound {bound:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, plan() "
+              f"{len(cuda_ffps.plan(b, n, d, sms))} candidates, launched "
+              f"{chosen}")
+        for c in range(1, min(cuda_ffps.MAX_CLUSTER, n) + 1):
+            launch = cuda_ffps.plan_at(n, d, c)
+            if launch is None:
+                continue
+            try:
+                got = cuda_ffps.feature_fps(points, m, mask, plans=[launch])
+            except RuntimeError as err:  # a size the card cannot place
+                print(f"  {str(launch):58s} not launched: {err}")
+                continue
+            require_equal(f"ffps call {i} {launch}", got, want)
+            ms = cuda_ms(lambda: cuda_ffps.feature_fps(points, m, mask,
+                                                       plans=[launch]), 5)
+            print(f"  {str(launch):58s} {ms:9.4f} ms "
+                  f"{ms * 1e3 / (m - 1):7.3f} us/round  "
+                  f"{100 * bound / ms:6.2f}% of bound  equal"
+                  f"{'  <- plan(), as launched' if launch == chosen else ''}")
+    report = [ln for ln in build.ptxas_log.splitlines()
+              if "ffps_kernel" in ln or "registers" in ln or "spill" in ln]
+    entry = None
+    for ln in report:
+        if "ffps_kernel" in ln:
+            entry = ln.split("ffps_kernelI", 1)[1].split("EEEv", 1)[0]
+        elif entry is not None and ("registers" in ln or "spill" in ln):
+            print(f"  ffps_kernel<{entry}>: {ln.strip()}")
+            if "registers" in ln:
+                entry = None
+    if not build.ptxas_log:
+        print("  (the library was cached: no -Xptxas=-v report here)")
+    print(f"on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -508,6 +630,9 @@ def main() -> None:
                            "absent)")
     mode.add_argument("--span-cost", action="store_true",
                       help="time the tracer's spans")
+    mode.add_argument("--ffps", action="store_true",
+                      help="time the feature-FPS kernel per 3DSSD call and "
+                           "cluster size")
     args = ap.parse_args()
     card = phase_device()
     if args.fps:
@@ -518,6 +643,8 @@ def main() -> None:
         profile_scatter(card)
     elif args.scatter_calls:
         profile_scatter_calls(card, args.scatter_calls)
+    elif args.ffps:
+        profile_ffps(card)
     else:
         profile_span_cost(card)
 

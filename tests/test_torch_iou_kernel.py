@@ -331,7 +331,8 @@ def test_export_on_the_card_holds_one_iou_node(card):
 def test_kitti_served_program_eager_and_replayed(card, monkeypatch):
     """The served program of sadet-kitti-16k (oriented NMS) at its cell's
     batch of 8 x 16384 points: the IoU's inputs recorded in an eager call
-    and the kernel held to the plain chain on them; then the program
+    (each row in its box's frame: 8 x 256 one-row clouds against their 256
+    boxes) and the kernel held to the plain chain on them; then the program
     captured as one CUDA graph (one IoU launch at the capture, none at a
     replay) and replayed on two batches, every output bitwise the eager
     call's."""
@@ -367,7 +368,8 @@ def test_kitti_served_program_eager_and_replayed(card, monkeypatch):
         eager = [{k: v.clone() for k, v in infer(*batch).items()}
                  for batch in batches]
         monkeypatch.undo()
-        assert len(seen) == 2 and seen[0][0].shape == (B, 256, 8, 3)
+        assert len(seen) == 2 and seen[0][0].shape == (B * 256, 1, 8, 3)
+        assert seen[0][1].shape == (B * 256, 256, 8, 3)
         for a, o in seen:
             got, want = op(a, o), plain_on(a, o)
             assert torch.equal(got[apart(a, o)], torch.zeros_like(

@@ -3,7 +3,8 @@ the card (exact equality of integer tensors, the bits of float tensors,
 the host scatter the kernel is held to, a scatter's longest row, the FPS
 templates' spills in the ptxas log) and the kernel times of a profiler
 trace by which its phase 12 counts a replayed step's kernels, on the CPU
-with hand-made inputs."""
+with hand-made inputs; and what phase 19 holds 3DSSD to: its launches a
+request against the ops of a CPU serve, its feature-FPS inputs."""
 
 import numpy as np
 import pytest
@@ -13,8 +14,11 @@ import torch
 torch.set_num_threads(1)
 
 from chip_smoke import (
+    FFPS_CASES,
+    SSD3D_REQUEST,
     add_at,
     bits_differ,
+    ffps_input,
     fps_templates,
     kernel_times,
     longest_row,
@@ -149,3 +153,70 @@ def test_fps_templates_reads_registers_and_spills():
         ("fps_cluster_kernel", 16): (168, 32),
         ("fps_cluster_kernel_pruned", 16): (118, 0)}
     assert fps_templates("") == {}
+
+
+def test_ssd3d_request_launches_are_the_ops_of_a_cpu_serve():
+    """Phase 19's launches a 3DSSD request, counted here as calls of the
+    custom ops (each kernel wrapper launches once a call) in one request
+    of preset=3dssd at a small size: the same samplers, groupings and NMS
+    as at the cell's size."""
+    from tpu3dsad_torch import serving, train_lib
+    from tpu3dsad_torch.config import parse_cli
+    from tpu3dsad_torch.ops import library
+    from tpu3dsad_torch.train_detector import build_detector
+
+    cfg = parse_cli(["preset=3dssd",
+                     "model.ssd3d_npoints=((512,),(64,),(32,32))",
+                     "model.ssd3d_fps_ranges=((-1,),(-1,),(64,-1))",
+                     "data.num_points=2048"])
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg, device="cpu")
+    ops = {"fps": "fps", "ffps": "ffps", "ball_query": "ball_query",
+           "iou": "oriented_bev_iou", "nms": "greedy_suppress"}
+    calls = dict.fromkeys(ops, 0)
+    saved = {k: getattr(library, op) for k, op in ops.items()}
+
+    def counted(key):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return saved[key](*args, **kwargs)
+        return call
+
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform([0, -20, -2], [40, 20, 1],
+                                       (2, 2048, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.random((2, 2048, 1)).astype(np.float32))
+    mask = torch.ones(2, 2048, dtype=torch.bool)
+    infer = serving.build_inference_fn(cfg, model, model.mean_sizes,
+                                       with_features=True)
+    for key, op in ops.items():
+        setattr(library, op, counted(key))
+    try:
+        infer(pts, mask, feats)
+    finally:
+        for key, op in ops.items():
+            setattr(library, op, saved[key])
+    assert calls == SSD3D_REQUEST
+
+
+@pytest.mark.parametrize("case", FFPS_CASES, ids=[c[0] for c in FFPS_CASES])
+def test_ffps_input_makes_each_case(case):
+    """Phase 19's feature-FPS inputs: the shape asked for, finite values,
+    and the mask each kind names (none, a tail of 300, every other block
+    of 512, all masked)."""
+    name, b, n, d, m, kind = case
+    x, mask = ffps_input(kind, b, n, d, torch.Generator().manual_seed(0))
+    assert x.shape == (b, n, d) and x.dtype == torch.float32
+    assert torch.isfinite(x).all() and m <= n
+    at = torch.arange(n)
+    want = {"tail": at < n - 300, "slices": at // 512 % 2 == 0,
+            "all": torch.zeros(n, dtype=torch.bool)}.get(kind)
+    if want is None:
+        assert mask is None
+    else:
+        assert torch.equal(mask, want[None].expand(b, n))
+    if kind == "cell":
+        assert (x[..., :3] >= 0).all() and (x[..., :3] <= 40).all()
+        assert (x[..., 3:] >= 0).all()
+    if kind == "grid":
+        assert set(x.unique().tolist()) <= {0.0, 1.0, 2.0}

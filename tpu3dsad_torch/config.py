@@ -10,6 +10,9 @@ port nor a run on the card loads any module of the JAX package. A
 reference `Config` works in its place: the port only reads these
 attributes.
 
+The `ssd3d_*` fields of ModelConfig are the port's alone (3DSSD,
+model.name='ssd3d', has no counterpart in the reference).
+
 One default differs: `ops_fast_grouping` is False here (True in the
 reference). The reference's default fast tier is lax.approx_max_k, which
 exists only on the TPU; the port groups exactly unless asked for the
@@ -29,7 +32,7 @@ import numpy as np
 
 @dataclass(frozen=True)
 class ModelConfig:
-    name: str = "detector"  # 'detector' | 'classifier'
+    name: str = "detector"  # 'detector' | 'classifier' | 'ssd3d'
     num_classes: int = 18
     num_heading_bins: int = 12
     num_proposals: int = 256
@@ -69,6 +72,40 @@ class ModelConfig:
     # classifier only: multi-scale grouping (pointnet2_cls_msg), else SSG
     classifier_msg: bool = False
     dropout: float = 0.5  # classifier head
+    # name='ssd3d' only: 3DSSD (models/ssd3d.py), defaults mmdetection3d's
+    # configs/3dssd/3dssd_4x4_kitti-3d-car.py. Per SA level, per sampler:
+    # picks, mode ('D-FPS', 'F-FPS' or 'FS' = both, F's picks first) and
+    # the end of its index range of the level's input (-1: the last point;
+    # each range starts where the one before it ended)
+    ssd3d_point_features: int = 1  # intensity
+    ssd3d_npoints: tuple[tuple[int, ...], ...] = ((4096,), (512,),
+                                                  (256, 256))
+    ssd3d_fps_mods: tuple[tuple[str, ...], ...] = (("D-FPS",), ("FS",),
+                                                   ("F-FPS", "D-FPS"))
+    ssd3d_fps_ranges: tuple[tuple[int, ...], ...] = ((-1,), (-1,), (512, -1))
+    ssd3d_radii: tuple[tuple[float, ...], ...] = (
+        (0.2, 0.4, 0.8), (0.4, 0.8, 1.6), (1.6, 3.2, 4.8))
+    ssd3d_nsamples: tuple[tuple[int, ...], ...] = (
+        (32, 32, 64), (32, 32, 64), (32, 32, 32))
+    ssd3d_mlps: tuple[tuple[tuple[int, ...], ...], ...] = (
+        ((16, 16, 32), (16, 16, 32), (32, 32, 64)),
+        ((64, 64, 128), (64, 64, 128), (64, 96, 128)),
+        ((128, 128, 256), (128, 192, 256), (128, 256, 256)))
+    ssd3d_aggregation: tuple[int, ...] = (64, 128, 256)
+    # the vote layer's hidden widths and its offset clamp (m, per axis)
+    ssd3d_vote_channels: tuple[int, ...] = (128,)
+    ssd3d_vote_range: tuple[float, ...] = (3.0, 3.0, 2.0)
+    # candidate generation: an MSG grouping of the last level around the
+    # votes, convs with bias
+    ssd3d_cg_radii: tuple[float, ...] = (4.8, 6.4)
+    ssd3d_cg_nsamples: tuple[int, ...] = (16, 32)
+    ssd3d_cg_mlps: tuple[tuple[int, ...], ...] = ((256, 256, 512),
+                                                  (256, 512, 1024))
+    ssd3d_shared_channels: tuple[int, ...] = (512, 128)
+    ssd3d_branch_channels: tuple[int, ...] = (128,)  # class and regression
+    ssd3d_bn_eps: float = 1e-3
+    # the parse keeps the first ssd3d_max_output NMS survivors by score
+    ssd3d_max_output: int = 100
 
 
 @dataclass(frozen=True)

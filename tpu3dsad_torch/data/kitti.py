@@ -227,9 +227,18 @@ class KittiDetectionDataset:
         s, _ = pad_boxes(sizes, max_boxes)
         h, _ = pad_boxes(headings, max_boxes)
         k, _ = pad_boxes(classes, max_boxes)
+        # 3DSSD takes each point's intensity (and any further columns) as
+        # its point features
+        extra = {}
+        if self.cfg.model.name == "ssd3d":
+            F = self.cfg.model.ssd3d_point_features
+            feats = np.zeros((n_budget, F), np.float32)
+            feats[:n] = pc[:n, 3:3 + F]
+            extra["point_features"] = feats
         return {
             "points": points,
             "point_mask": pmask,
+            **extra,
             **vote_fields,
             "gt_centers": c,
             "gt_sizes": s,

@@ -1,9 +1,12 @@
 """Prediction parsing (tpu3dsad/eval/parse.py): decode -> threshold ->
-NMS on the device (`parse_predictions`), then on the host the per-scene
-lists that AP scores (`predictions_to_lists`, `parse_groundtruths`), in
-numpy."""
+NMS on the device (`parse_predictions`; 3DSSD's anchor-free boxes by
+`parse_ssd3d`; `make_parser` picks one by model.name), then on the host the
+per-scene lists that AP scores (`predictions_to_lists`,
+`parse_groundtruths`), in numpy."""
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -48,6 +51,74 @@ def parse_predictions(end_points, mean_sizes, num_heading_bins: int,
         "corners": corners,
         "keep": keep,
     }
+
+
+def parse_ssd3d(end_points, eval_cfg: EvalConfig, max_output: int):
+    """3DSSD's boxes (models/ssd3d.py) -> the parsed fields of
+    parse_predictions. A box's score (under obj_prob) is the sigmoid of its
+    largest class logit, its class that logit's; no objectness. keep [B,P]
+    marks the NMS survivors above eval.objectness_thresh, cut to the first
+    `max_output` by score (top_scores; 0 keeps them all). NMS is by the
+    oriented BEV IoU with eval.use_oriented_nms, computed row by row in the
+    row box's frame (ops/nms.py: 3DSSD's 0.1 m size floor makes slivers),
+    else by the axis-aligned hulls; class-aware with eval.cls_nms.
+    sem_prob is the one-hot of the class, so that a class-wise list scores
+    a box by its score."""
+    with trace.span("parse.decode"):
+        center, size, heading = (end_points[k]
+                                 for k in ("center", "size", "heading"))
+        logits = end_points["sem_cls_scores"]
+        score = torch.sigmoid(logits.amax(-1))
+        sem = logits.argmax(-1)
+        corners = box_corners(center, size, heading)
+        valid = end_points["proposal_mask"] & (
+            score > eval_cfg.objectness_thresh)
+    sem_cls = sem if eval_cfg.cls_nms else None
+    with trace.span("parse.nms"):
+        if eval_cfg.use_oriented_nms:
+            keep = nms_oriented(corners, score, valid, eval_cfg.nms_iou,
+                                sem_cls=sem_cls)
+        else:
+            bmin, bmax = corners_to_aabb(corners)
+            nms = nms_aabb if eval_cfg.use_3d_nms else nms_bev
+            keep = nms(bmin, bmax, score, valid, eval_cfg.nms_iou,
+                       sem_cls=sem_cls)
+        keep = top_scores(keep, score, max_output)
+    return {
+        "center": center,
+        "size": size,
+        "heading": heading,
+        "sem_cls": sem,
+        "obj_prob": score,
+        "sem_prob": torch.nn.functional.one_hot(
+            sem, logits.shape[-1]).to(score.dtype),
+        "corners": corners,
+        "keep": keep,
+    }
+
+
+def top_scores(keep, score, k: int):
+    """keep [B,P] cut to its first k boxes by score, in the walk's order (a
+    stable sort of -score: ties to the lower slot); k <= 0 keeps all."""
+    P = keep.shape[-1]
+    if k <= 0 or k >= P:
+        return keep
+    order = torch.argsort(-torch.where(keep, score, -torch.inf), dim=-1,
+                          stable=True)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(P, device=order.device).expand_as(order))
+    return keep & (rank < k)
+
+
+def make_parser(cfg, mean_sizes):
+    """parse(end_points) -> the parsed fields of the detector that
+    cfg.model.name builds (train_detector.build_detector)."""
+    if cfg.model.name == "ssd3d":
+        return functools.partial(parse_ssd3d, eval_cfg=cfg.eval,
+                                 max_output=cfg.model.ssd3d_max_output)
+    return functools.partial(parse_predictions, mean_sizes=mean_sizes,
+                             num_heading_bins=cfg.model.num_heading_bins,
+                             eval_cfg=cfg.eval)
 
 
 def predictions_to_lists(parsed, eval_cfg: EvalConfig, num_classes: int):

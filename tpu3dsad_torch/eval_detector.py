@@ -12,7 +12,10 @@ the sweep runs data-parallel over train.mesh_shape (train_detector.
 evaluate with a mesh: the same metrics; rank 0 prints).
 With model.name=classifier (preset=classifier) main evaluates the
 classifier instead (train_classifier.run_eval_classifier: val_acc and
-val_loss).
+val_loss). With model.name=ssd3d (preset=3dssd) the detector is 3DSSD,
+built by the same factory (train_detector.build_detector), fed the KITTI
+scans' intensity and parsed by its own parse; its val_loss is null (no
+3DSSD loss is ported).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import sys
 from tpu3dsad_torch import train_lib
 from tpu3dsad_torch.config import describe, parse_cli
 from tpu3dsad_torch.data import get_dataset
-from tpu3dsad_torch.eval.parse import parse_predictions
+from tpu3dsad_torch.eval.parse import make_parser
 from tpu3dsad_torch.parallel import launch
 from tpu3dsad_torch.parallel.mesh import make_mesh
 from tpu3dsad_torch.train_classifier import run_eval_classifier
@@ -46,11 +49,7 @@ def run_eval(cfg, *, device="cuda") -> dict:
               file=sys.stderr)
     mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
     eval_step = train_lib.make_detector_eval_step(model, cfg, mesh)
-
-    def parse(end_points):
-        return parse_predictions(end_points, model.mean_sizes,
-                                 cfg.model.num_heading_bins, cfg.eval)
-
+    parse = make_parser(cfg, model.mean_sizes)
     out = {"ckpt_step": step,
            **evaluate(cfg, model, dataset, eval_step, parse, mesh=mesh)}
     if mesh.rank == 0:

@@ -40,17 +40,19 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
 class SharedMLP(nn.Module):
     """Linear + BN + ReLU stack over the last axis of any [..., C] tensor.
 
-    Linear layers have no bias because BN follows (tpu3dsad/nn/mlp.py:36).
-    The reference's use_bn=False / activate_final=False variants have no
-    caller on the inference path and are not ported."""
+    Linear layers have no bias because BN follows (tpu3dsad/nn/mlp.py:36),
+    unless `bias` asks for one (3DSSD's convs that have it); `eps` is
+    BatchNorm's. The reference's use_bn=False / activate_final=False
+    variants have no caller on the inference path and are not ported."""
 
-    def __init__(self, in_channels: int, channels: Sequence[int]):
+    def __init__(self, in_channels: int, channels: Sequence[int], *,
+                 eps: float = 1e-5, bias: bool = False):
         super().__init__()
         self.n = len(channels)
         for i, ch in enumerate(channels):
             self.add_module(f"dense_{i}", nn.Linear(in_channels, ch,
-                                                    bias=False))
-            self.add_module(f"bn_{i}", MaskedBatchNorm(ch))
+                                                    bias=bias))
+            self.add_module(f"bn_{i}", MaskedBatchNorm(ch, eps))
             in_channels = ch
 
     def forward(self, x: torch.Tensor, *, mask: torch.Tensor | None = None,

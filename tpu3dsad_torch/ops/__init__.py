@@ -1,9 +1,10 @@
 """Public point-op API with kernel dispatch (tpu3dsad/ops/__init__.py).
 
-FPS, ball query and the row scatter-add each exist twice behind this API:
-a hand-written CUDA kernel (ops/cuda, the counterpart of the reference's
-impl='pallas') and its plain PyTorch version (ops/plain, the counterpart of
-impl='xla'). FPS and ball query (with the sorted tier's Morton codes) are
+FPS, feature FPS, ball query and the row scatter-add each exist twice
+behind this API: a hand-written CUDA kernel (ops/cuda, the counterpart of
+the reference's impl='pallas'; feature FPS, 3DSSD's, has none there) and
+its plain PyTorch version (ops/plain, the counterpart of impl='xla'). FPS,
+feature FPS and ball query (with the sorted tier's Morton codes) are
 reached through the custom operators of ops/library.py, so that
 torch.export keeps each call as one node. Dispatch goes by the tensor's
 device:
@@ -109,6 +110,14 @@ def furthest_point_sample(xyz, npoint, *, mask=None):
     return _library.fps(xyz.detach(), npoint, mask)
 
 
+def feature_furthest_point_sample(points, npoint, *, mask=None):
+    """points [B,N,D] -> idx [B,npoint] int32: FPS by the fp32 squared
+    distance over each point's whole vector (3DSSD's F-FPS; xyz and its
+    features), seed index 0, ties to the lowest index; mask-aware. The
+    picks are integers outside the autograd graph."""
+    return _library.ffps(points.detach(), npoint, mask)
+
+
 def _sorted_tier(xyz, nsample, exact) -> bool:
     """Whether this call takes the sorted tier; raises for 'approx'."""
     if _exact_grouping if exact is None else exact:
@@ -202,6 +211,7 @@ def query_and_group(xyz, centers, radius, nsample, *, features=None,
 
 __all__ = [
     "ball_query",
+    "feature_furthest_point_sample",
     "furthest_point_sample",
     "gather",
     "get_fast_grouping",

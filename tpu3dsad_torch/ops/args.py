@@ -1,5 +1,5 @@
-"""Shape and range checks of the FPS, ball-query, scatter, NMS-walk and
-oriented-IoU arguments.
+"""Shape and range checks of the FPS, feature FPS, ball-query, scatter,
+NMS-walk and oriented-IoU arguments.
 
 Both implementations, the plain versions and the kernel wrappers, call
 these once on entry, so each path checks its arguments exactly once.
@@ -27,6 +27,16 @@ def check_fps(xyz: torch.Tensor, npoint: int,
     _mask(mask, xyz)
     if not 0 < npoint <= xyz.shape[1]:
         raise ValueError(f"npoint={npoint} out of range for N={xyz.shape[1]}")
+
+
+def check_ffps(points: torch.Tensor, npoint: int,
+               mask: torch.Tensor | None) -> None:
+    if points.dim() != 3 or points.shape[-1] < 1:
+        raise ValueError(f"points must be [B, N, D], got {tuple(points.shape)}")
+    _mask(mask, points)
+    if not 0 < npoint <= points.shape[1]:
+        raise ValueError(
+            f"npoint={npoint} out of range for N={points.shape[1]}")
 
 
 def check_ball_query(xyz: torch.Tensor, centers: torch.Tensor, nsample: int,

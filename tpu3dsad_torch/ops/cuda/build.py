@@ -48,6 +48,10 @@ _SIGNATURES = {
     # idx, n, m, plans, their count, position launched, engaged (a u64
     # counter or null), stream
     "tpu3dsad_fps_flat": (_P, _P, _P, _P, _P, _I, _I, _PI, _I, _PI, _P, _P),
+    # feature FPS: padded points, mask, idx, b, n, float4s a row, m,
+    # candidate plans (3 host ints each: cluster, threads, points a
+    # thread), their count, position launched, stream
+    "tpu3dsad_ffps": (_P, _P, _P, _I, _I, _I, _I, _PI, _I, _PI, _P),
     # xyz, mask, centers, perm, perm_c, scratch, idx, cnt, b, n, m, k, r2,
     # skip_r2, warps a block, centers a warp, shared loads, stream
     "tpu3dsad_ball_query": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

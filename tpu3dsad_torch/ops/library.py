@@ -1,9 +1,11 @@
-"""FPS, ball query, the sorted tier's Morton codes, the NMS walk and the
-oriented BEV IoU as PyTorch custom operators (torch.library), so that an eager call and a
+"""FPS, feature FPS, ball query, the sorted tier's Morton codes, the NMS
+walk and the oriented BEV IoU as PyTorch custom operators (torch.library), so that an eager call and a
 program exported by torch.export run the same functions:
 
   * tpu3dsad_torch::fps(xyz, npoint, mask?) -> idx int32 [B, npoint]: B1,
     and B2 for one cloud of more than cuda.fps.FLAT_MIN_N points;
+  * tpu3dsad_torch::ffps(points, npoint, mask?) -> idx int32 [B, npoint]:
+    3DSSD's feature-space FPS over [B, N, D] vectors (csrc/ffps.cu);
   * tpu3dsad_torch::ball_query(xyz, centers, radius, nsample, mask?,
     perm?, perm_c?) -> (idx int32 [B, M, K], cnt int32 [B, M]): B3, and,
     given the two Z-order permutations, the sorted tier's scan (B4);
@@ -41,11 +43,13 @@ from tpu3dsad_torch.ops import plain as _plain
 from tpu3dsad_torch.ops import sorted as _sorted
 from tpu3dsad_torch.ops.args import (
     check_ball_query,
+    check_ffps,
     check_fps,
     check_iou,
     check_nms,
 )
 from tpu3dsad_torch.ops.cuda import ball_query as _cuda_bq
+from tpu3dsad_torch.ops.cuda import ffps as _cuda_ffps
 from tpu3dsad_torch.ops.cuda import fps as _cuda_fps
 from tpu3dsad_torch.ops.cuda import iou as _cuda_iou
 from tpu3dsad_torch.ops.cuda import nms as _cuda_nms
@@ -68,6 +72,19 @@ def fps(xyz: Tensor, npoint: int, mask: Optional[Tensor] = None) -> Tensor:
 def _(xyz, npoint, mask=None):
     check_fps(xyz, npoint, mask)
     return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
+
+
+@torch.library.custom_op("tpu3dsad_torch::ffps", mutates_args=())
+def ffps(points: Tensor, npoint: int, mask: Optional[Tensor] = None) -> Tensor:
+    if _kernel(points):
+        return _cuda_ffps.feature_fps(points, npoint, mask=mask)
+    return _plain.feature_fps(points, npoint, mask=mask)
+
+
+@ffps.register_fake
+def _(points, npoint, mask=None):
+    check_ffps(points, npoint, mask)
+    return points.new_empty((points.shape[0], npoint), dtype=torch.int32)
 
 
 @torch.library.custom_op("tpu3dsad_torch::ball_query", mutates_args=())

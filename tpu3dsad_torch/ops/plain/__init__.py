@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the point ops.
 
 They run on any device. The ops API sends CPU tensors here; for CUDA
-tensors FPS, ball query, the row scatter-add, the NMS walk and the
+tensors FPS, feature FPS, ball query, the row scatter-add, the NMS walk and the
 oriented BEV IoU go to their hand-written kernels unless the caller asks
 for the plain versions by name (`ops.use_impl("plain")`).
 """
 
 from tpu3dsad_torch.ops.plain.ball_query import ball_query
+from tpu3dsad_torch.ops.plain.ffps import feature_fps
 from tpu3dsad_torch.ops.plain.fps import furthest_point_sample
 from tpu3dsad_torch.ops.plain.group import gather, group_epilogue
 from tpu3dsad_torch.ops.plain.interpolate import interp_weights
@@ -17,6 +18,7 @@ from tpu3dsad_torch.ops.plain.scatter import scatter_rows
 
 __all__ = [
     "ball_query",
+    "feature_fps",
     "furthest_point_sample",
     "gather",
     "greedy_suppress",

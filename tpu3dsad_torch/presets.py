@@ -39,6 +39,23 @@ PRESETS: dict[str, list[str]] = {
         "train.lr_decay_rates=(0.3,0.3,0.3)",
         "train.num_epochs=1200",
     ],
+    # 3DSSD (models/ssd3d.py) at mmdetection3d's KITTI car setting
+    # (configs/3dssd/3dssd_4x4_kitti-3d-car.py; the model's widths are the
+    # ModelConfig ssd3d_* defaults): 16384 points of xyz + intensity, one
+    # class, its test_cfg's NMS at IoU 0.1 with a score threshold of 0,
+    # suppressing by the oriented BEV IoU; fp32 products
+    "3dssd": [
+        "model.name=ssd3d",
+        "model.num_classes=1",
+        "data.name=kitti",
+        "data.num_points=16384",
+        "data.max_boxes=16",
+        "eval.nms_iou=0.1",
+        "eval.objectness_thresh=0.0",
+        "eval.use_oriented_nms=true",
+        "eval.cls_nms=false",
+        "train.bf16_matmul=false",
+    ],
     # benchmark config #1: the PointNet++ SSG classifier, 1024-point clouds
     "classifier": [
         "model.name=classifier",

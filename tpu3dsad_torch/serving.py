@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from tpu3dsad_torch import ops  # noqa: F401  (registers the custom ops)
-from tpu3dsad_torch.eval.parse import parse_predictions
+from tpu3dsad_torch.eval.parse import make_parser
 from tpu3dsad_torch.utils import trace
 
 _EXPORT_KEYS = ("center", "size", "heading", "sem_cls", "obj_prob", "keep")
@@ -43,9 +43,10 @@ _EXPORT_KEYS = ("center", "size", "heading", "sem_cls", "obj_prob", "keep")
 
 class InferenceProgram(nn.Module):
     """forward(points [B,N,3], mask [B,N][, features [B,N,C]]) -> {key:
-    tensor} for _EXPORT_KEYS: the detector in eval mode, then
-    parse_predictions with cfg.eval. Eager serving and the export run this
-    module."""
+    tensor} for _EXPORT_KEYS: the detector in eval mode, then its parse
+    with cfg.eval (eval/parse.py::make_parser: parse_predictions, or
+    parse_ssd3d for model.name='ssd3d'). Eager serving and the export run
+    this module."""
 
     def __init__(self, cfg, model, mean_sizes):
         super().__init__()
@@ -54,14 +55,12 @@ class InferenceProgram(nn.Module):
             raise ValueError("model was built with other mean_sizes")
         self.model = model.eval()
         self.mean_sizes = mean_sizes
-        self.num_heading_bins = cfg.model.num_heading_bins
-        self.eval_cfg = cfg.eval
+        self.parse = make_parser(cfg, mean_sizes)
 
     def forward(self, points, mask, features=None):
         with trace.span("serve.program"):
             ep = self.model(points, features, mask=mask)
-            parsed = parse_predictions(ep, self.mean_sizes,
-                                       self.num_heading_bins, self.eval_cfg)
+            parsed = self.parse(ep)
             return {k: parsed[k] for k in _EXPORT_KEYS}
 
 
@@ -71,8 +70,10 @@ def build_inference_fn(cfg, model, mean_sizes, with_features: bool = False):
     built with data.use_color (the calling convention is part of the
     artifact).
 
-    cfg: a Config (cfg.model, cfg.eval); model: a SizeAdaptiveDetector
-    built from cfg.model with the same mean_sizes."""
+    cfg: a Config (cfg.model, cfg.eval); model: the detector
+    train_detector.build_detector makes of cfg (a SizeAdaptiveDetector, or
+    3DSSD, which takes its point features: with_features=True) with the
+    same mean_sizes."""
     program = InferenceProgram(cfg, model, mean_sizes)
 
     if with_features:
@@ -96,10 +97,11 @@ def export_detector(cfg, model, mean_sizes, batch_size: int, path: str, *,
     program = InferenceProgram(cfg, model, mean_sizes)
     device = next(model.parameters()).device
     n = cfg.data.num_points
+    channels = getattr(model, "point_features", 3)  # 3DSSD's, else colour
     args = (torch.zeros(batch_size, n, 3, device=device),
             torch.ones(batch_size, n, dtype=torch.bool, device=device))
     if with_features:
-        args += (torch.zeros(batch_size, n, 3, device=device),)
+        args += (torch.zeros(batch_size, n, channels, device=device),)
     with torch.no_grad():
         exported = torch.export.export(program, args, strict=False)
     # the zeros it was traced on are no part of the program (at 32 x 20480
@@ -118,6 +120,10 @@ def export_detector(cfg, model, mean_sizes, batch_size: int, path: str, *,
         # training loader used (scannet stores 0-255 rgb, trained on /256)
         "source_dataset": source_dataset,
     }
+    if with_features and channels != 3:
+        # point features that are not the 3 colour channels (3DSSD's
+        # intensity); the reference's manifest has no such key
+        manifest["feature_channels"] = channels
     with open(path + ".json", "w") as f:
         json.dump(manifest, f)
     return manifest
@@ -171,8 +177,9 @@ def prepare_scene_batch(raw: np.ndarray, manifest: dict,
 
 def _prepare_kitti(raw: np.ndarray, manifest: dict, device) -> list:
     """prepare_scene_batch of a KITTI scan: fit_scene on `device`, then
-    scene 0 of the batch; the features (columns 3-5 where the scan has
-    them) ride along with the fitted rows."""
+    scene 0 of the batch; the features (the manifest's feature_channels
+    columns from column 3, where the scan has them: colour, or 3DSSD's
+    intensity) ride along with the fitted rows."""
     from tpu3dsad_torch.data.kitti import fit_scene
 
     B, N = manifest["batch_size"], manifest["num_points"]
@@ -184,9 +191,10 @@ def _prepare_kitti(raw: np.ndarray, manifest: dict, device) -> list:
     mask[0] = fit.mask
     out = [points, mask]
     if manifest.get("with_features"):
-        features = scan.new_zeros(B, N, 3)
-        if scan.shape[1] >= 6:
-            features[0, :fit.rows.shape[0]] = scan[fit.rows, 3:6]
+        C = manifest.get("feature_channels", 3)
+        features = scan.new_zeros(B, N, C)
+        if scan.shape[1] >= 3 + C:
+            features[0, :fit.rows.shape[0]] = scan[fit.rows, 3:3 + C]
         out.append(features)
     return out
 
@@ -247,7 +255,8 @@ def _export(kv: dict, rest: list, device: str) -> dict:
         )
     manifest = export_detector(
         cfg, model, dataset.mean_sizes, cfg.train.batch_size, kv["out"],
-        with_features=cfg.data.use_color, source_dataset=cfg.data.name,
+        with_features=cfg.data.use_color or cfg.model.name == "ssd3d",
+        source_dataset=cfg.data.name,
     )
     report = {"ckpt_step": step, **manifest}
     print(json.dumps(report))

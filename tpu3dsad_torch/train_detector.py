@@ -55,6 +55,7 @@ from tpu3dsad_torch.eval.parse import (
     predictions_to_lists,
 )
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
+from tpu3dsad_torch.models.ssd3d import SSD3D
 from tpu3dsad_torch.parallel import collectives
 from tpu3dsad_torch.parallel.mesh import make_mesh, shard_batch
 from tpu3dsad_torch.utils import trace
@@ -80,8 +81,14 @@ class TrainResult:
 
 
 def build_detector(cfg, mean_sizes=None, *, device="cuda"):
-    """The detector of cfg.model, weights drawn from cfg.train.seed; with
-    data.use_color it takes the 3 colour channels as point features."""
+    """The detector of cfg.model, weights drawn from cfg.train.seed: by
+    model.name, 3DSSD ('ssd3d', models/ssd3d.py: its point features are
+    model.ssd3d_point_features channels), else the size-adaptive detector,
+    which with data.use_color takes the 3 colour channels as point
+    features. The one factory of serving, evaluation and training."""
+    if cfg.model.name == "ssd3d":
+        return SSD3D(cfg.model, mean_sizes, device=device,
+                     generator=torch.Generator().manual_seed(cfg.train.seed))
     return SizeAdaptiveDetector(
         cfg.model, mean_sizes, in_features=3 if cfg.data.use_color else 0,
         device=device,
@@ -330,8 +337,9 @@ def evaluate(cfg, model, dataset, eval_step, parse, num_batches=None,
         batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                  for k, v in mine.items()}
         end_points, metrics = eval_step(batch)
-        losses.append(float(metrics["loss"]))
-        loss_weights.append(float(scene_mask.mean()))
+        if "loss" in metrics:  # 3DSSD's eval step has no loss
+            losses.append(float(metrics["loss"]))
+            loss_weights.append(float(scene_mask.mean()))
         parsed = {k: _gathered(v, mesh).cpu().numpy()
                   for k, v in parse(end_points).items()}
         preds = predictions_to_lists(parsed, cfg.eval, cfg.model.num_classes)

@@ -500,7 +500,8 @@ def make_detector_eval_step(model, cfg, mesh=None):
     gradients, then the detection loss, which leaves out the scenes that
     batch["scene_mask"] marks as padding (tpu3dsad/train_lib.py:271-285).
     With a mesh, `batch` holds this rank's rows: end_points are its rows',
-    and the metrics are the global batch's."""
+    and the metrics are the global batch's. 3DSSD (model.name='ssd3d')
+    has no loss ported: its metrics are empty."""
     ms = model.mean_sizes
     group = data_axis(mesh)
 
@@ -510,6 +511,8 @@ def make_detector_eval_step(model, cfg, mesh=None):
         model.eval()
         end_points = model(batch["points"], batch.get("point_features"),
                            mask=batch["point_mask"])
+        if cfg.model.name == "ssd3d":
+            return end_points, {}
         with collectives.data_parallel(group):
             _, metrics = detection_loss(
                 end_points, batch, ms, cfg.model.num_heading_bins,
