@@ -167,7 +167,7 @@ Phases, in order; any failure raises and the script exits nonzero:
     of forward + decode + NMS with FPS and ball query as the custom ops
     of ops/library.py). Phase 4's server, config #5 at 32 x 20480,
     exported and loaded (the graph's op nodes 5 fps + 7 ball_query + 2
-    fp32_cross + 1 greedy_suppress), one warm-up request, then 5
+    fp32_cross + 1 greedy_suppress + 30 bn_relu), one warm-up request, then 5
     requests: the six outputs bitwise the eager program's, 5 FPS, 7
     ball-query and 1 NMS-walk launches a loaded request, no scatter. An
     export under ops_fast_grouping=true
@@ -279,6 +279,15 @@ Phases, in order; any failure raises and the script exits nonzero:
     oriented-IoU and 1 NMS-walk launches a request; finite outputs of the
     right shapes, at most 100 boxes kept a scan; one request rerun with
     the plain ops gives the same keep and classes and launches nothing.
+20. eval-mode BatchNorm + ReLU (csrc/bn_relu.cu). A served request of each
+    benchmark configuration at its cell's batch (sadet-sunrgbd-20k at 32
+    and 1, sadet-scannet-40k at 8, sadet-kitti-16k at 8, 3DSSD at 16),
+    seeded weights, BatchNorm calibrated: every layer's kernel output
+    bitwise the plain chain on the same input, one launch a BatchNorm
+    layer (30 and 41, BN_RELU_REQUEST) beside the request's other
+    launches, and every output bitwise the same request with the plain
+    chain in the kernel's place. Run it alone with python3 -c "import
+    chip_smoke as c; c.phase_device(); c.phase_bn_relu()".
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch and its parse (after loading the
@@ -348,9 +357,11 @@ from tpu3dsad_torch.eval.ap import box3d_iou_oriented
 from tpu3dsad_torch.eval.parse import parse_predictions
 from tpu3dsad_torch.models.classifier import MSG_SA1, MSG_SA2, build_classifier
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
+from tpu3dsad_torch.ops import library
 from tpu3dsad_torch.ops import sorted as sorted_bq
 from tpu3dsad_torch.ops.boxes import oriented_bev_iou
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
+from tpu3dsad_torch.ops.cuda import bn_relu as cuda_bn_relu
 from tpu3dsad_torch.ops.cuda import build
 from tpu3dsad_torch.ops.cuda import ffps as cuda_ffps
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
@@ -358,6 +369,7 @@ from tpu3dsad_torch.ops.cuda import iou as cuda_iou
 from tpu3dsad_torch.ops.cuda import nms as cuda_nms
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
+from tpu3dsad_torch.ops.plain import bn_relu as plain_bn_relu
 from tpu3dsad_torch.ops.plain import feature_fps as plain_ffps
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.ops.plain import greedy_suppress as plain_walk
@@ -425,6 +437,17 @@ SSD3D_B, SSD3D_N, SSD3D_REQUESTS = 16, 16384, 3
 # generation, one oriented IoU and one walk (tests/test_torch_smoke_checks
 # .py counts the same ops on the CPU)
 SSD3D_REQUEST = dict(fps=3, ffps=2, ball_query=11, iou=1, nms=1)
+# eval-mode BatchNorm + ReLU launches (csrc/bn_relu.cu) of one served
+# request: one a BatchNorm layer, 30 in the VoteNet detectors (SA1-4 3
+# each, FP1-2 2 each, voting 2, the radius bank's 3 x 3, the box head 2),
+# 41 in 3DSSD (tests/test_torch_bn_relu.py counts the op's calls on the CPU)
+BN_RELU_REQUEST = {"sadet": 30, "ssd3d": 41}
+# (benchmark configuration, scenes a request) of phase 20: the serving
+# cells' requests (sweep, latency, KITTI, 3DSSD) and config #3's model at
+# its batch
+BN_RELU_SERVED = [("sadet-sunrgbd-20k", 32), ("sadet-sunrgbd-20k", 1),
+                  ("sadet-scannet-40k", 8), ("sadet-kitti-16k", 8),
+                  ("3dssd-kitti-car-16k", 16)]
 # (name, B, N, D, npoint, kind) of the feature-FPS checks of phase 19: the
 # cell's two launches, then ragged, masked and tied clouds and the largest
 # cloud that 8 CTAs' shared memory holds at 67 values a point
@@ -2215,7 +2238,7 @@ SERVED = dict(fps=5, ball_query=7, nms=1)  # launches a request
 # custom-op nodes of the exported program: the kernels' and the fp32 cross
 # terms of FP1 and FP2's three_nn
 PROGRAM_OPS = {"fps": 5, "ball_query": 7, "fp32_cross": 2,
-               "greedy_suppress": 1}
+               "greedy_suppress": 1, "bn_relu": BN_RELU_REQUEST["sadet"]}
 
 
 def graph_calls(path: str) -> dict:
@@ -3854,6 +3877,106 @@ def phase_ssd3d() -> None:
           f"center max |diff| {dc:.3g}")
 
 
+def cell_config(name: str) -> Config:
+    """The port's Config of portbench/configs/<name>.json, as the
+    benchmark's harness reads it."""
+    from types import SimpleNamespace
+
+    from portbench.harness import Context
+
+    path = Path(__file__).resolve().parent / "portbench" / "configs"
+    spec = json.loads((path / f"{name}.json").read_text())
+    return Context.port_config(SimpleNamespace(config=spec))
+
+
+def served_request(cfg, b: int, seed: int):
+    """(infer, args): the model of cfg with seeded weights on the card,
+    BatchNorm calibrated on its first batch as the cells' set-up does, and
+    one request of b scenes of cfg.data.num_points points over KITTI's
+    front range (the last eighth of scene 0 padding; 3DSSD's intensity)."""
+    model = build_detector(cfg)
+    n = cfg.data.num_points
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lo = torch.tensor([0.0, -30.0, -3.0], device="cuda")
+    span = torch.tensor([60.0, 60.0, 4.0], device="cuda")
+    pts = torch.rand(b, n, 3, device="cuda", generator=gen) * span + lo
+    mask = torch.ones(b, n, dtype=torch.bool, device="cuda")
+    mask[0, n - n // 8:] = False
+    feats = cfg.model.name == "ssd3d"
+    extra = ((torch.rand(b, n, 1, device="cuda", generator=gen),)
+             if feats else ())
+    with torch.no_grad():
+        model.train()
+        model(pts, *extra, mask=mask, bn_momentum=0.0)
+        model.eval()
+    infer = build_inference_fn(cfg, model, model.mean_sizes,
+                               with_features=feats)
+    return infer, (pts, mask, *extra)
+
+
+def phase_bn_relu() -> None:
+    """Phase 20: the BatchNorm + ReLU kernel against the plain chain on
+    every layer of a served request of each configuration, the request's
+    launches, and its outputs against the request with the chain in the
+    kernel's place."""
+    print("== eval-mode BatchNorm + ReLU kernel (csrc/bn_relu.cu) vs the "
+          "plain chain, every layer of a served request (bitwise)")
+    sound = library.bn_relu
+    for name, b in BN_RELU_SERVED:
+        cfg = cell_config(name)
+        train_lib.apply_runtime_config(cfg)
+        infer, args = served_request(cfg, b, seed=20)
+        infer(*args)  # warm-up
+        torch.cuda.synchronize()
+        layers = []
+
+        def checked(*a):
+            y = sound(*a)
+            where = bits_differ(y, plain_bn_relu(*a))
+            if where:
+                raise AssertionError(f"{name} B = {b}, layer {len(layers)} "
+                                     f"{tuple(a[0].shape)}: kernel != "
+                                     f"chain {where}")
+            layers.append(a[0].numel())
+            return y
+
+        reset_counts()
+        before = cuda_bn_relu.launches
+        library.bn_relu = checked
+        try:
+            got = infer(*args)
+        finally:
+            library.bn_relu = sound
+        served = {k: v for k, v in counts().items() if v}
+        served["bn_relu"] = cuda_bn_relu.launches - before
+        want = BN_RELU_REQUEST["ssd3d" if cfg.model.name == "ssd3d"
+                               else "sadet"]
+        if served["bn_relu"] != want or len(layers) != want:
+            raise AssertionError(f"{name} B = {b}: {served['bn_relu']} "
+                                 f"launches, {len(layers)} layers, not "
+                                 f"{want}")
+        library.bn_relu = plain_bn_relu
+        try:
+            chained = infer(*args)
+        finally:
+            library.bn_relu = sound
+        if cuda_bn_relu.launches - before != want:
+            raise AssertionError("the chain's rerun launched the kernel")
+        for key, value in chained.items():
+            if value.is_floating_point():
+                where = bits_differ(got[key], value)
+                if where:
+                    raise AssertionError(f"{name} B = {b} {key}: {where}")
+            else:
+                require_equal(f"{name} B = {b} {key}", got[key], value)
+        print(f"  {name} B = {b}: launches a request {served}; every "
+              f"layer bitwise the chain ({sum(layers) / 1e6:.1f} M "
+              f"activations); outputs bitwise the chain's request")
+        del infer, args, got, chained
+        torch.cuda.empty_cache()
+    train_lib.apply_runtime_config(Config())
+
+
 def main() -> None:
     laps, t0 = {}, time.perf_counter()
 
@@ -3913,6 +4036,8 @@ def main() -> None:
         lap("18")
         phase_ssd3d()
         lap("19")
+        phase_bn_relu()
+        lap("20")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules

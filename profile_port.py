@@ -7,6 +7,7 @@ the plain version first.
     python3 profile_port.py --scatter               # scatter per call and plan
     python3 profile_port.py --scatter-calls PATH    # scatter calls, any tree
     python3 profile_port.py --ffps                  # feature FPS per call and plan
+    python3 profile_port.py --bn-relu               # BN + ReLU per layer
     python3 profile_port.py --span-cost             # the tracer's host cost
 
 The program's spans on the benchmark cells' own traffic are read by
@@ -66,6 +67,16 @@ beside its bound (portbench/counts/ssd3d.py) and the plain version's ms;
 then the registers and spills of each kernel instance (nvcc's -Xptxas=-v
 report, where this process built the library).
 
+--bn-relu times the eval-mode BatchNorm + ReLU kernel (csrc/bn_relu.cu)
+at each BatchNorm layer of one request of each serving cell (sweep B = 32,
+latency B = 1, KITTI B = 8, 3DSSD B = 16: the shapes recorded from the
+served program, chip_smoke.BN_RELU_SERVED's models), on seeded inputs of
+those shapes: first bitwise the plain chain, then the kernel's and the
+chain's ms by CUDA events beside the bound (the activation read and
+written once, the four vectors read once, at 3.35 TB/s) and the kernel's
+GB/s; each request's sums; then the kernel instances' registers and
+spills (nvcc's -Xptxas=-v report, where this process built the library).
+
 --span-cost times the tracer itself (tpu3dsad_torch/utils/trace.py): the
 host us of an empty span, off, on (a CUDA event pair), and on under a
 running profiler (a range too); then the us of making and recording one
@@ -85,6 +96,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
+    BN_RELU_REQUEST,
     BQ_SHAPES,
     EVAL_B,
     EVAL_N,
@@ -98,10 +110,12 @@ from chip_smoke import (
     capture_eval_batch,
     capture_request,
     capture_train_step,
+    cell_config,
     longest_row,
     phase_device,
     prepare_outdoor,
     require_equal,
+    served_request,
 )
 from portbench.traffic import outdoor as outdoor_traffic
 from tpu3dsad_torch import ops
@@ -611,6 +625,94 @@ def profile_ffps(card: str) -> None:
     print(f"on {card}")
 
 
+# (cell, benchmark configuration, scenes a request) timed by --bn-relu
+BN_RELU_CELLS = [("sweep", "sadet-sunrgbd-20k", 32),
+                 ("latency", "sadet-sunrgbd-20k", 1),
+                 ("kitti", "sadet-kitti-16k", 8),
+                 ("3dssd", "3dssd-kitti-car-16k", 16)]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+
+
+def bn_relu_layers(name: str, b: int) -> list:
+    """(x shape, eps) of each BatchNorm layer of one served request."""
+    from tpu3dsad_torch import train_lib
+    from tpu3dsad_torch.ops import library
+
+    cfg = cell_config(name)
+    train_lib.apply_runtime_config(cfg)
+    infer, args = served_request(cfg, b, seed=25)
+    layers, sound = [], library.bn_relu
+
+    def record(x, *rest):
+        layers.append((tuple(x.shape), rest[-1]))
+        return sound(x, *rest)
+
+    library.bn_relu = record
+    try:
+        infer(*args)
+    finally:
+        library.bn_relu = sound
+    return layers
+
+
+def profile_bn_relu(card: str) -> None:
+    """Each BatchNorm layer of a request of each serving cell: the kernel
+    bitwise the chain, then both timed, beside the bound."""
+    from tpu3dsad_torch.ops.cuda import bn_relu as cuda_bn_relu
+    from tpu3dsad_torch.ops.plain import bn_relu as plain_bn_relu
+
+    for cell, name, b in BN_RELU_CELLS:
+        layers = bn_relu_layers(name, b)
+        arch = "ssd3d" if name.startswith("3dssd") else "sadet"
+        if len(layers) != BN_RELU_REQUEST[arch]:
+            raise AssertionError(f"{cell}: {len(layers)} BatchNorm layers")
+        print(f"{cell} ({name}, B = {b}): {len(layers)} layers")
+        total = {"kernel": 0.0, "chain": 0.0, "bound": 0.0}
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        for i, (shape, eps) in enumerate(layers):
+            c = shape[-1]
+            x = torch.randn(shape, device="cuda", generator=gen)
+            vecs = [torch.randn(c, device="cuda", generator=gen)
+                    for _ in range(4)]
+            vecs[1] = vecs[1].abs()
+            where = bits_differ(cuda_bn_relu.bn_relu(x, *vecs, eps),
+                                plain_bn_relu(x, *vecs, eps))
+            if where:
+                raise AssertionError(f"{cell} layer {i} {shape}: {where}")
+            iters = max(3, min(50, int(2e9 // max(x.numel(), 1))))
+            k_ms = cuda_ms(lambda: cuda_bn_relu.bn_relu(x, *vecs, eps),
+                           iters)
+            c_ms = cuda_ms(lambda: plain_bn_relu(x, *vecs, eps), iters)
+            nbytes = 8 * x.numel() + 16 * c
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            for k, v in (("kernel", k_ms), ("chain", c_ms),
+                         ("bound", bound)):
+                total[k] += v
+            print(f"  layer {i:2d} {str(list(shape)):22s} kernel "
+                  f"{k_ms:8.4f} ms ({nbytes / k_ms / 1e6:7.1f} GB/s, "
+                  f"{100 * bound / k_ms:5.1f}% of bound {bound:.4f}) "
+                  f"chain {c_ms:8.4f} ms  bitwise")
+            del x, vecs
+        print(f"  {cell} request: kernel {total['kernel']:.3f} ms, chain "
+              f"{total['chain']:.3f} ms, bound {total['bound']:.3f} ms "
+              f"({100 * total['bound'] / total['kernel']:.1f}% of it)")
+        torch.cuda.empty_cache()
+    report = [ln.strip() for ln in build.ptxas_log.splitlines()
+              if "bn_relu_kernel" in ln or "registers" in ln
+              or "spill" in ln]
+    entry = None
+    for ln in report:
+        if "bn_relu_kernel" in ln:
+            entry = ln.split("bn_relu_kernelILi", 1)[1].split("E", 1)[0]
+        elif entry is not None:
+            print(f"  bn_relu_kernel<{entry}>: {ln}")
+            if "registers" in ln:
+                entry = None
+    if not build.ptxas_log:
+        print("  (the library was cached: no -Xptxas=-v report here)")
+    print(f"on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -633,6 +735,9 @@ def main() -> None:
     mode.add_argument("--ffps", action="store_true",
                       help="time the feature-FPS kernel per 3DSSD call and "
                            "cluster size")
+    mode.add_argument("--bn-relu", action="store_true",
+                      help="time the BatchNorm + ReLU kernel per layer of "
+                           "each serving cell's request")
     args = ap.parse_args()
     card = phase_device()
     if args.fps:
@@ -645,6 +750,8 @@ def main() -> None:
         profile_scatter_calls(card, args.scatter_calls)
     elif args.ffps:
         profile_ffps(card)
+    elif args.bn_relu:
+        profile_bn_relu(card)
     else:
         profile_span_cost(card)
 

@@ -45,6 +45,7 @@ from tpu3dsad_torch.ops import boxes as tboxes
 from tpu3dsad_torch.ops import library
 from tpu3dsad_torch.ops import sorted as tsorted
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
+from tpu3dsad_torch.ops.cuda import bn_relu as cuda_bn_relu
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
 from tpu3dsad_torch.ops.cuda import nms as cuda_nms
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
@@ -195,6 +196,19 @@ def test_exported_graph_holds_one_node_per_kernel_call(exported):
     # the plain FPS takes one argmax a pick (15 for the proposal's 16);
     # the decode's own argmaxes are a few
     assert calls["aten.argmax.default"] < 15
+
+
+def test_exported_graph_holds_one_bn_relu_node_a_layer(exported):
+    """Each BatchNorm layer's eval-mode BatchNorm and ReLU is one
+    tpu3dsad_torch.bn_relu node (26 layers in the small detector: two a
+    level): none of the chain's ops is in the graph."""
+    (_, _, _, tm, _), _, _, program, *_ = exported["points"]
+    layers = sum(type(m).__name__ == "MaskedBatchNorm" for m in tm.modules())
+    calls = Counter(str(node.target) for node in program.graph.nodes
+                    if node.op == "call_function")
+    assert calls["tpu3dsad_torch.bn_relu.default"] == layers == 26
+    for chained in ("aten.rsqrt.default", "aten.relu.default"):
+        assert calls[chained] == 0, chained
 
 
 def test_exported_graph_holds_one_walk_node(exported):
@@ -389,6 +403,9 @@ def _opcheck_cases():
                              xyz[..., 0].contiguous(), mask, 0.25)),
         "oriented_bev_iou": (library.oriented_bev_iou,
                              (corners, corners[:, :5])),
+        "bn_relu": (library.bn_relu,
+                    (xyz - 0.1, *(_t(rng.uniform(0.2, 2, 3).astype(
+                        np.float32)) for _ in range(4)), 1e-5)),
     }
 
 
@@ -406,6 +423,10 @@ def test_custom_ops_pass_opcheck(case):
     if op is library.oriented_bev_iou:
         assert torch.equal(got, ops.plain.oriented_bev_iou(*args))
         assert got.any()  # some boxes overlap
+        return
+    if op is library.bn_relu:
+        assert torch.equal(got, ops.plain.bn_relu(*args))
+        assert 0 < int((got > 0).sum()) < got.numel()  # some rows clipped
         return
     if op is library.greedy_suppress:
         assert got.dtype == torch.bool
@@ -496,13 +517,14 @@ def test_exported_program_keeps_the_distance_product_in_fp32(
 
 def test_cpu_serving_launches_no_kernel(exported):
     before = (cuda_fps.launches, cuda_bq.launches, cuda_scatter.launches,
-              tsorted.launches, cuda_nms.launches)
+              tsorted.launches, cuda_nms.launches, cuda_bn_relu.launches)
     (_, tcfg, _, tm, ms), _, _, program, *_ = exported["points"]
     pts, mask = map(_t, _scene(np.random.default_rng(8)))
     with torch.no_grad():
         program.module()(pts, mask)
     assert (cuda_fps.launches, cuda_bq.launches, cuda_scatter.launches,
-            tsorted.launches, cuda_nms.launches) == before
+            tsorted.launches, cuda_nms.launches,
+            cuda_bn_relu.launches) == before
 
 
 # ------------------------------------------------------- dump and demo

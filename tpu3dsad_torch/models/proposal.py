@@ -114,8 +114,8 @@ def _box_head(module: nn.Module, x, center_mask, bn_momentum):
     """The head of _add_box_head on the proposal features -> raw params."""
     for i in range(2):
         x = getattr(module, f"head_{i}")(x)
-        x = torch.relu(getattr(module, f"head_bn_{i}")(
-            x, mask=center_mask, momentum=bn_momentum))
+        x = getattr(module, f"head_bn_{i}")(
+            x, mask=center_mask, momentum=bn_momentum, relu=True)
     return module.head_out(x)
 
 

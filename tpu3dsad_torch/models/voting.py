@@ -27,9 +27,9 @@ class VotingModule(nn.Module):
         (vote_xyz [B,S*F,3], vote_features [B,S*F,C], vote_mask [B,S*F])."""
         B, S, C = seed_features.shape
         F = self.vote_factor
-        bn = dict(mask=mask, momentum=bn_momentum)
-        x = torch.relu(self.bn_0(self.dense_0(seed_features), **bn))
-        x = torch.relu(self.bn_1(self.dense_1(x), **bn))
+        bn = dict(mask=mask, momentum=bn_momentum, relu=True)
+        x = self.bn_0(self.dense_0(seed_features), **bn)
+        x = self.bn_1(self.dense_1(x), **bn)
         out = self.out(x).reshape(B, S, F, 3 + C)
         vote_xyz = seed_xyz[:, :, None, :] + out[..., :3]
         vote_feat = seed_features[:, :, None, :] + out[..., 3:]

@@ -60,8 +60,8 @@ class SharedMLP(nn.Module):
         """x [..., C]; mask [...] gates the BN statistics in training."""
         for i in range(self.n):
             x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x),
-                                         mask=mask, momentum=bn_momentum)
-            x = torch.relu(x)
+                                         mask=mask, momentum=bn_momentum,
+                                         relu=True)
         return x
 
 
@@ -109,8 +109,7 @@ class MLPHead(nn.Module):
         """x [B, C] -> [B, num_out]."""
         for i in range(self.n):
             x = getattr(self, f"bn_{i}")(getattr(self, f"fc_{i}")(x),
-                                         momentum=bn_momentum)
-            x = torch.relu(x)
+                                         momentum=bn_momentum, relu=True)
             if self.training:
                 x = dropout(x, self.p, generator)
         return self.out(x)

@@ -18,6 +18,13 @@ Two conventions differ from torch.nn.BatchNorm and follow the reference:
 Padded rows (mask False) contribute to neither statistic but are still
 normalised. The running buffers are updated in place by a train-mode call.
 
+`relu=True` applies the ReLU that follows every BatchNorm of the port's
+MLPs. In eval mode, where no gradient is recorded (grad mode off, or
+none of x, weight and bias needs one), the two are one op,
+`tpu3dsad_torch::bn_relu` (ops/library.py): on a CUDA tensor one launch of
+csrc/bn_relu.cu, elsewhere the same chain as below, with the same bits
+either way. Train mode, and eval mode under autograd, run the chain.
+
 Under data parallelism (parallel.collectives.data_parallel) the train-mode
 statistics are the global batch's, as the reference's one SPMD program
 computes them: the count and the masked sum are summed over the data
@@ -32,6 +39,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from tpu3dsad_torch.ops import library
 from tpu3dsad_torch.parallel.collectives import data_group, data_sum
 
 
@@ -47,8 +55,13 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, *, mask: torch.Tensor | None = None,
-                momentum: float | torch.Tensor = 0.9) -> torch.Tensor:
-        """x [..., C]; mask [...] bool (True = real row) -> normalised x."""
+                momentum: float | torch.Tensor = 0.9,
+                relu: bool = False) -> torch.Tensor:
+        """x [..., C]; mask [...] bool (True = real row) -> normalised x,
+        through ReLU if `relu`."""
+        if relu and not self.training and not self._records_grad(x):
+            return library.bn_relu(x, self.running_mean, self.running_var,
+                                   self.weight, self.bias, self.eps)
         if self.training:
             rows = x.reshape(-1, x.shape[-1])
             if data_group() is not None:
@@ -67,7 +80,13 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        y = y * self.weight + self.bias
+        return torch.relu(y) if relu else y
+
+    def _records_grad(self, x: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and (
+            x.requires_grad or self.weight.requires_grad
+            or self.bias.requires_grad)
 
 
 def _global_stats(rows: torch.Tensor, mask: torch.Tensor | None):

@@ -1,5 +1,5 @@
 """Shape and range checks of the FPS, feature FPS, ball-query, scatter,
-NMS-walk and oriented-IoU arguments.
+NMS-walk, oriented-IoU and BatchNorm + ReLU arguments.
 
 Both implementations, the plain versions and the kernel wrappers, call
 these once on entry, so each path checks its arguments exactly once.
@@ -88,3 +88,18 @@ def check_iou(corners_a: torch.Tensor, corners_b: torch.Tensor) -> None:
     if corners_a.shape[0] != corners_b.shape[0]:
         raise ValueError(f"corners_b batch {corners_b.shape[0]} != "
                          f"corners_a batch {corners_a.shape[0]}")
+
+
+def check_bn_relu(x: torch.Tensor, *vectors: torch.Tensor) -> None:
+    """x [..., C]; mean, var, weight and bias [C], all floating point."""
+    if x.dim() < 1:
+        raise ValueError("x must be [..., C], got a 0-d tensor")
+    C = x.shape[-1]
+    for name, v in zip(("mean", "var", "weight", "bias"), vectors):
+        if tuple(v.shape) != (C,):
+            raise ValueError(f"{name} must be [C] = ({C},), got "
+                             f"{tuple(v.shape)}")
+    for name, t in zip(("x", "mean", "var", "weight", "bias"),
+                       (x, *vectors)):
+        if not t.is_floating_point():
+            raise TypeError(f"{name} must be floating point, got {t.dtype}")

@@ -69,6 +69,8 @@ _SIGNATURES = {
     "tpu3dsad_nms_walk": (_P, _P, _LL, _LL, _P, _P, _I, _I, _F, _P),
     # corners_a, corners_b, iou, b, k, l, stream
     "tpu3dsad_oriented_iou": (_P, _P, _P, _I, _I, _I, _P),
+    # x, mean, var, weight, bias, eps, y, rows, c, stream
+    "tpu3dsad_bn_relu": (_P, _P, _P, _P, _P, _F, _P, _LL, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

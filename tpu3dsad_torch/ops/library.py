@@ -1,6 +1,7 @@
 """FPS, feature FPS, ball query, the sorted tier's Morton codes, the NMS
-walk and the oriented BEV IoU as PyTorch custom operators (torch.library), so that an eager call and a
-program exported by torch.export run the same functions:
+walk, the oriented BEV IoU and eval-mode BatchNorm + ReLU as PyTorch
+custom operators (torch.library), so that an eager call and a program
+exported by torch.export run the same functions:
 
   * tpu3dsad_torch::fps(xyz, npoint, mask?) -> idx int32 [B, npoint]: B1,
     and B2 for one cloud of more than cuda.fps.FLAT_MIN_N points;
@@ -16,7 +17,10 @@ program exported by torch.export run the same functions:
     (csrc/nms.cu), for every NMS flavour of ops/nms.py;
   * tpu3dsad_torch::oriented_bev_iou(corners_a, corners_b) -> iou
     [B, K, L]: the oriented BEV IoU of [B, K, 8, 3] and [B, L, 8, 3] box
-    corners (csrc/iou.cu), which oriented NMS hands to the walk.
+    corners (csrc/iou.cu), which oriented NMS hands to the walk;
+  * tpu3dsad_torch::bn_relu(x, mean, var, weight, bias, eps) -> y
+    [..., C]: eval-mode BatchNorm and ReLU of every MLP layer
+    (csrc/bn_relu.cu; nn/norm.py calls it where no gradient is recorded).
 
 Each op has one implementation that dispatches as the ops API does
 (ops._use_kernel): on a CUDA tensor it launches the kernel through its
@@ -31,7 +35,8 @@ tpu3dsad_torch.ops).
 
 The ops have no autograd formula: their outputs are integers or bools,
 or the IoU that NMS walks, and nothing differentiates through them (the
-ops API and ops/nms.py detach the inputs of the others).
+ops API and ops/nms.py detach the inputs of the others); MaskedBatchNorm
+calls bn_relu only where no gradient is recorded.
 """
 
 from typing import Optional
@@ -43,12 +48,14 @@ from tpu3dsad_torch.ops import plain as _plain
 from tpu3dsad_torch.ops import sorted as _sorted
 from tpu3dsad_torch.ops.args import (
     check_ball_query,
+    check_bn_relu,
     check_ffps,
     check_fps,
     check_iou,
     check_nms,
 )
 from tpu3dsad_torch.ops.cuda import ball_query as _cuda_bq
+from tpu3dsad_torch.ops.cuda import bn_relu as _cuda_bn_relu
 from tpu3dsad_torch.ops.cuda import ffps as _cuda_ffps
 from tpu3dsad_torch.ops.cuda import fps as _cuda_fps
 from tpu3dsad_torch.ops.cuda import iou as _cuda_iou
@@ -156,3 +163,20 @@ def oriented_bev_iou(corners_a: Tensor, corners_b: Tensor) -> Tensor:
 def _(corners_a, corners_b):
     check_iou(corners_a, corners_b)
     return corners_a.new_empty(corners_a.shape[:2] + corners_b.shape[1:2])
+
+
+@torch.library.custom_op("tpu3dsad_torch::bn_relu", mutates_args=())
+def bn_relu(x: Tensor, mean: Tensor, var: Tensor, weight: Tensor,
+            bias: Tensor, eps: float) -> Tensor:
+    if _kernel(x):
+        return _cuda_bn_relu.bn_relu(x, mean, var, weight, bias, eps)
+    return _plain.bn_relu(x, mean, var, weight, bias, eps)
+
+
+@bn_relu.register_fake
+def _(x, mean, var, weight, bias, eps):
+    check_bn_relu(x, mean, var, weight, bias)
+    dtype = x.dtype
+    for v in (mean, var, weight, bias):
+        dtype = torch.promote_types(dtype, v.dtype)
+    return x.new_empty(x.shape, dtype=dtype)

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the point ops.
 
 They run on any device. The ops API sends CPU tensors here; for CUDA
-tensors FPS, feature FPS, ball query, the row scatter-add, the NMS walk and the
-oriented BEV IoU go to their hand-written kernels unless the caller asks
-for the plain versions by name (`ops.use_impl("plain")`).
+tensors FPS, feature FPS, ball query, the row scatter-add, the NMS walk,
+the oriented BEV IoU and eval-mode BatchNorm + ReLU go to their
+hand-written kernels unless the caller asks for the plain versions by name
+(`ops.use_impl("plain")`).
 """
 
 from tpu3dsad_torch.ops.plain.ball_query import ball_query
@@ -14,10 +15,12 @@ from tpu3dsad_torch.ops.plain.interpolate import interp_weights
 from tpu3dsad_torch.ops.plain.iou import oriented_bev_iou
 from tpu3dsad_torch.ops.plain.knn import three_nn
 from tpu3dsad_torch.ops.plain.nms import greedy_suppress
+from tpu3dsad_torch.ops.plain.norm import bn_relu
 from tpu3dsad_torch.ops.plain.scatter import scatter_rows
 
 __all__ = [
     "ball_query",
+    "bn_relu",
     "feature_fps",
     "furthest_point_sample",
     "gather",
