@@ -288,6 +288,24 @@ Phases, in order; any failure raises and the script exits nonzero:
     launches, and every output bitwise the same request with the plain
     chain in the kernel's place. Run it alone with python3 -c "import
     chip_smoke as c; c.phase_device(); c.phase_bn_relu()".
+21. Group-Free 3D (preset=groupfree3d, models/groupfree.py). The box
+    point-count kernel (csrc/box_points.cu) against its plain version on
+    the card at the eval-groupfree-scannet-b16 cell's shape (16 rooms of
+    50000 points padded to 51200, 768 boxes a room) and on the edge cases
+    of BOX_POINTS_CASES (points exactly on each face, ragged and masked
+    clouds, an all-masked cloud, no point, no box, one box, the largest
+    cloud): counts exactly equal in 3 launches each. Then the model built
+    by train_detector.build_detector, BatchNorm calibrated on a first
+    batch, served through serving.build_inference_fn as the cell serves
+    it (16 rooms x 51200 points): one warm-up request, then 3 counted
+    ones from zeroed counters, 4 FPS (B1: the SA levels; KPS replaces the
+    proposal FPS), 4 ball-query, 1 box-point and 1 NMS-walk launches a
+    request (GROUPFREE_REQUEST); finite outputs of 768 boxes a room; one
+    request rerun with the plain ops gives the same keep and classes and
+    launches nothing; the 3 requests served again give every field
+    bitwise (the cell holds each request of a checked batch to one
+    reference serve). Run it alone with python3 -c "import chip_smoke as
+    c; c.phase_device(); c.phase_groupfree()".
 
 Phase 1 also records the inputs of every kernel launch of one served
 request and of one config-#4 eval batch and its parse (after loading the
@@ -362,6 +380,7 @@ from tpu3dsad_torch.ops import sorted as sorted_bq
 from tpu3dsad_torch.ops.boxes import oriented_bev_iou
 from tpu3dsad_torch.ops.cuda import ball_query as cuda_bq
 from tpu3dsad_torch.ops.cuda import bn_relu as cuda_bn_relu
+from tpu3dsad_torch.ops.cuda import box_points as cuda_box_points
 from tpu3dsad_torch.ops.cuda import build
 from tpu3dsad_torch.ops.cuda import ffps as cuda_ffps
 from tpu3dsad_torch.ops.cuda import fps as cuda_fps
@@ -370,6 +389,7 @@ from tpu3dsad_torch.ops.cuda import nms as cuda_nms
 from tpu3dsad_torch.ops.cuda import scatter as cuda_scatter
 from tpu3dsad_torch.ops.plain import ball_query as plain_bq
 from tpu3dsad_torch.ops.plain import bn_relu as plain_bn_relu
+from tpu3dsad_torch.ops.plain import box_points as plain_box_points
 from tpu3dsad_torch.ops.plain import feature_fps as plain_ffps
 from tpu3dsad_torch.ops.plain import furthest_point_sample as plain_fps
 from tpu3dsad_torch.ops.plain import greedy_suppress as plain_walk
@@ -448,6 +468,27 @@ BN_RELU_REQUEST = {"sadet": 30, "ssd3d": 41}
 BN_RELU_SERVED = [("sadet-sunrgbd-20k", 32), ("sadet-sunrgbd-20k", 1),
                   ("sadet-scannet-40k", 8), ("sadet-kitti-16k", 8),
                   ("3dssd-kitti-car-16k", 16)]
+# Group-Free 3D (preset=groupfree3d) served as the eval-groupfree-scannet-b16
+# cell serves it: 16 rooms of 50000 points padded to 51200 a request
+GROUPFREE_B, GROUPFREE_N, GROUPFREE_POINTS, GROUPFREE_REQUESTS = (
+    16, 51200, 50000, 3)
+# the kernel launches of one Group-Free request: FPS at SA1-SA4 (B1; KPS
+# picks the candidates by a sort), their 4 ball queries, the parse's one
+# point count and one walk (tests/test_torch_smoke_checks.py counts the
+# same ops on the CPU)
+GROUPFREE_REQUEST = dict(fps=4, ball_query=4, box_points=1, nms=1)
+# (name, B, N, P, kind) of the point-count checks of phase 21: the cell's
+# launch, then points on the faces, ragged and masked clouds, an
+# all-masked cloud, no point, no box, one box, and the largest cloud
+BOX_POINTS_CASES = [("cell", 16, 51200, 768, "rooms"),
+                    ("faces", 2, 300, 5, "faces"),
+                    ("ragged", 3, 1000, 37, "tail"),
+                    ("unmasked", 2, 777, 33, "none"),
+                    ("all-masked", 1, 64, 8, "all"),
+                    ("no-points", 2, 0, 5, "none"),
+                    ("no-boxes", 2, 100, 0, "tail"),
+                    ("one-box", 1, 4097, 1, "none"),
+                    ("largest", 16, 131072, 1024, "tail")]
 # (name, B, N, D, npoint, kind) of the feature-FPS checks of phase 19: the
 # cell's two launches, then ragged, masked and tied clouds and the largest
 # cloud that 8 CTAs' shared memory holds at 67 values a point
@@ -465,13 +506,14 @@ def counts() -> dict:
     return {"fps": cuda_fps.launches, "fps_flat": cuda_fps.flat_launches,
             "ball_query": cuda_bq.launches, "sorted": sorted_bq.launches,
             "scatter": cuda_scatter.launches, "nms": cuda_nms.launches,
-            "iou": cuda_iou.launches, "ffps": cuda_ffps.launches}
+            "iou": cuda_iou.launches, "ffps": cuda_ffps.launches,
+            "box_points": cuda_box_points.launches}
 
 
 def reset_counts() -> None:
     cuda_fps.launches = cuda_fps.flat_launches = cuda_bq.launches = 0
     sorted_bq.launches = cuda_scatter.launches = cuda_nms.launches = 0
-    cuda_iou.launches = cuda_ffps.launches = 0
+    cuda_iou.launches = cuda_ffps.launches = cuda_box_points.launches = 0
 
 
 def launches(**given) -> dict:
@@ -3977,6 +4019,132 @@ def phase_bn_relu() -> None:
     train_lib.apply_runtime_config(Config())
 
 
+def box_points_input(kind: str, b: int, n: int, p: int, gen):
+    """(points [b, n, 3], centers and sizes [b, p, 3], mask [b, n] or None)
+    of one point-count case of BOX_POINTS_CASES on gen's device: "rooms"
+    the cell's indoor rooms (the frozen generator's, 50000 points padded
+    to n) with boxes over the room of up to 2 m; the other kinds points
+    over [-3, 3) with boxes of -0.25 to 2.25 m (some empty by their
+    negative size); "faces" the first six points of each cloud exactly on
+    the six faces of its first box; "tail" the last quarter masked; "all"
+    every point masked."""
+    dev = gen.device
+    if kind == "rooms":
+        from portbench.traffic.indoor import indoor_scene, padded
+
+        rng = np.random.default_rng(21)
+        rooms = [padded(indoor_scene(rng, GROUPFREE_POINTS), n)
+                 for _ in range(b)]
+        pts = torch.from_numpy(np.stack([r[0] for r in rooms])).to(dev)
+        mask = torch.from_numpy(np.stack([r[1] for r in rooms])).to(dev)
+        centers = torch.rand(b, p, 3, generator=gen, device=dev) * 6 - 3
+        sizes = torch.rand(b, p, 3, generator=gen, device=dev) * 2
+        return pts, centers, sizes, mask
+    pts = torch.rand(b, n, 3, generator=gen, device=dev) * 6 - 3
+    centers = torch.rand(b, p, 3, generator=gen, device=dev) * 6 - 3
+    sizes = torch.rand(b, p, 3, generator=gen, device=dev) * 2.5 - 0.25
+    if kind == "faces":
+        half = sizes[:, 0] * 0.5
+        for i, (axis, sign) in enumerate([(0, 1), (0, -1), (1, 1), (1, -1),
+                                          (2, 1), (2, -1)]):
+            pts[:, i] = centers[:, 0]
+            pts[:, i, axis] += sign * half[:, axis]
+    at = torch.arange(n, device=dev)[None].expand(b, n)
+    mask = {"tail": at < n * 3 // 4,
+            "all": torch.zeros(b, n, dtype=torch.bool, device=dev)}.get(kind)
+    return pts, centers, sizes, mask
+
+
+def groupfree_rooms(seed: int):
+    """(points [B,N,3], mask [B,N]) on the card: a request of the cell's
+    rooms (GROUPFREE_POINTS points of the frozen generator, padded to
+    GROUPFREE_N)."""
+    from portbench.traffic.indoor import indoor_scene, padded
+
+    rng = np.random.default_rng(seed)
+    rooms = [padded(indoor_scene(rng, GROUPFREE_POINTS), GROUPFREE_N)
+             for _ in range(GROUPFREE_B)]
+    return (torch.from_numpy(np.stack([r[0] for r in rooms])).cuda(),
+            torch.from_numpy(np.stack([r[1] for r in rooms])).cuda())
+
+
+def phase_groupfree() -> None:
+    """Phase 21: the point-count kernel against the plain op, then Group-Free
+    3D served as its cell serves it."""
+    print(f"== box point-count kernel (csrc/box_points.cu) vs the plain op "
+          f"(exact counts, {COMPARES} launches each)")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for name, b, n, p, kind in BOX_POINTS_CASES:
+        pts, centers, sizes, mask = box_points_input(kind, b, n, p, gen)
+        want = plain_box_points(pts, centers, sizes, mask)
+        for _ in range(COMPARES):
+            require_equal(f"box_points {name}", cuda_box_points.box_points(
+                pts, centers, sizes, mask), want)
+        print(f"  {name:10s} [{b},{n}] x {p}: equal in {COMPARES} launches, "
+              f"{int(want.sum())} points in boxes")
+        del pts, centers, sizes, mask, want
+    torch.cuda.empty_cache()
+
+    print(f"== Group-Free 3D (preset=groupfree3d) serving 1 warm-up + "
+          f"{GROUPFREE_REQUESTS} requests of {GROUPFREE_B} rooms x "
+          f"{GROUPFREE_N} points")
+    cfg = parse_cli(["preset=groupfree3d",
+                     f"train.batch_size={GROUPFREE_B}"])
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg)
+    points, mask = groupfree_rooms(0)
+    with torch.no_grad():  # BatchNorm calibrated as the cell's set-up does
+        model.train()
+        model(points, mask=mask, bn_momentum=0.0)
+        model.eval()
+    infer = build_inference_fn(cfg, model, model.mean_sizes)
+    infer(points, mask)
+    batches = [groupfree_rooms(seed)
+               for seed in range(1, GROUPFREE_REQUESTS + 1)]
+    reset_counts()
+    outs = [infer(p, k) for p, k in batches]
+    served = counts()
+    print(f"  launches: {served}")
+    want = launches(**{k: v * GROUPFREE_REQUESTS
+                       for k, v in GROUPFREE_REQUEST.items()})
+    if served != want:
+        raise AssertionError(f"Group-Free launches {served} != {want}")
+    P = cfg.model.groupfree_stages * cfg.model.groupfree_candidates
+    for out in outs:
+        for key, value in out.items():
+            if value.shape[:2] != (GROUPFREE_B, P):
+                raise AssertionError(f"{key}: {tuple(value.shape)}")
+            if value.is_floating_point() and not value.isfinite().all():
+                raise AssertionError(f"{key}: non-finite values")
+    kept = [out["keep"].sum(1).tolist() for out in outs]
+    print(f"  outputs finite, shapes ok; boxes kept a room: {kept}")
+
+    p, k = batches[0]
+    with ops.use_impl("plain"):
+        plain = infer(p, k)
+    if counts() != served:
+        raise AssertionError("the plain rerun launched a kernel")
+    for key in ("keep", "sem_cls"):
+        require_equal(f"Group-Free {key} (kernel path vs plain path)",
+                      outs[0][key], plain[key])
+    dc = (outs[0]["center"] - plain["center"]).abs().max().item()
+    print(f"  plain-ops rerun of request 0: keep and sem_cls identical, "
+          f"center max |diff| {dc:.3g}")
+
+    again = [infer(p, k) for p, k in batches]
+    for out, want in zip(again, outs):
+        for key, value in want.items():
+            where = (bits_differ(out[key], value)
+                     if value.is_floating_point() else None)
+            if where:
+                raise AssertionError(f"served again, {key}: {where}")
+            if not value.is_floating_point():
+                require_equal(f"served again, {key}", out[key], value)
+    print(f"  the {GROUPFREE_REQUESTS} requests served again: every field "
+          f"bitwise the first serve's")
+    train_lib.apply_runtime_config(Config())
+
+
 def main() -> None:
     laps, t0 = {}, time.perf_counter()
 
@@ -4038,6 +4206,8 @@ def main() -> None:
         lap("19")
         phase_bn_relu()
         lap("20")
+        phase_groupfree()
+        lap("21")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     jax_side = [m for m in sys.modules

@@ -8,6 +8,7 @@ the plain version first.
     python3 profile_port.py --scatter-calls PATH    # scatter calls, any tree
     python3 profile_port.py --ffps                  # feature FPS per call and plan
     python3 profile_port.py --bn-relu               # BN + ReLU per layer
+    python3 profile_port.py --box-points            # the box point count
     python3 profile_port.py --span-cost             # the tracer's host cost
 
 The program's spans on the benchmark cells' own traffic are read by
@@ -76,6 +77,18 @@ chain's ms by CUDA events beside the bound (the activation read and
 written once, the four vectors read once, at 3.35 TB/s) and the kernel's
 GB/s; each request's sums; then the kernel instances' registers and
 spills (nvcc's -Xptxas=-v report, where this process built the library).
+
+--box-points times the box point-count kernel (csrc/box_points.cu, the
+Group-Free parse's non-empty filter) at the call of one request of the
+eval-groupfree-scannet-b16 cell (16 of the cell's rooms, the cell's
+configuration with seeded weights and BatchNorm calibrated on them as the
+cell's set-up does; the call's points, mask, centres and sizes recorded
+from the served program): the kernel's counts first held equal to the
+plain version's, then its ms by CUDA events beside its bound
+(portbench/counts/groupfree.py::box_points_cost: the operations' and the
+bytes' bound, the larger one named) and the plain version's ms; then the
+kernel's registers and spills (nvcc's -Xptxas=-v report, where this
+process built the library).
 
 --span-cost times the tracer itself (tpu3dsad_torch/utils/trace.py): the
 host us of an empty span, off, on (a CUDA event pair), and on under a
@@ -713,6 +726,87 @@ def profile_bn_relu(card: str) -> None:
     print(f"on {card}")
 
 
+def box_points_call(seed: int = 2426000101) -> tuple:
+    """(points, centers, sizes, mask) of the point count of one request of
+    the Group-Free cell, as its driver builds and serves it."""
+    from portbench import weights
+    from portbench.traffic.detection import class_mean_sizes
+    from portbench.traffic.indoor import sweep_pool
+    from tpu3dsad_torch import serving, train_lib
+    from tpu3dsad_torch.models.groupfree import GroupFree3D
+    from tpu3dsad_torch.ops import library
+
+    cfg = cell_config("groupfree3d-scannet-l12o256")
+    train_lib.apply_runtime_config(cfg)
+    model = GroupFree3D(cfg.model, class_mean_sizes(cfg.model.num_classes))
+    state = {n: tuple(v.shape) for n, v in model.state_dict().items()
+             if v.is_floating_point()}
+    model.load_state_dict(weights.draw(state, seed, "cuda"))
+    w = {"pool_batches": 2, "batch": 16, "points": 50000, "budget": 51200,
+         "check_batches": 1}
+    pts, masks, _ = sweep_pool(np.random.default_rng(seed), w)
+    batches = [(torch.from_numpy(pts[i]).cuda(),
+                torch.from_numpy(masks[i]).cuda()) for i in range(2)]
+    with torch.no_grad():
+        model.train()
+        model(batches[0][0], mask=batches[0][1], bn_momentum=0.0)
+        model.eval()
+    infer = serving.build_inference_fn(cfg, model, model.mean_sizes)
+    calls, sound = [], library.box_points
+
+    def record(points, centers, sizes, mask=None):
+        calls.append((points, centers, sizes, mask))
+        return sound(points, centers, sizes, mask)
+
+    library.box_points = record
+    try:
+        infer(*batches[1])
+    finally:
+        library.box_points = sound
+    if len(calls) != 1:
+        raise AssertionError(f"{len(calls)} point counts in a request")
+    return calls[0]
+
+
+def profile_box_points(card: str) -> None:
+    """The point count of a request of the Group-Free cell: the kernel
+    equal to the plain version, then both timed, beside the bound."""
+    from portbench.counts import PEAK_BYTES, PEAK_FLOPS
+    from portbench.counts.groupfree import box_points_cost
+    from tpu3dsad_torch.ops.cuda import box_points as cuda_box_points
+    from tpu3dsad_torch.ops.plain import box_points as plain_box_points
+
+    points, centers, sizes, mask = box_points_call()
+    B, N = points.shape[:2]
+    P = centers.shape[1]
+    got = cuda_box_points.box_points(points, centers, sizes, mask)
+    require_equal("box_points", got, plain_box_points(points, centers,
+                                                      sizes, mask))
+    ops_, nbytes = box_points_cost({"B": B, "n": N, "p": P})
+    bounds = {"operations": 1e3 * ops_ / PEAK_FLOPS["fp32"],
+              "bytes": 1e3 * nbytes / PEAK_BYTES}
+    which = max(bounds, key=bounds.get)
+    k_ms = cuda_ms(lambda: cuda_box_points.box_points(points, centers,
+                                                      sizes, mask), 50)
+    p_ms = cuda_ms(lambda: plain_box_points(points, centers, sizes, mask),
+                   3)
+    print(f"box_points [{B},{N}] x {P} boxes ({int(got.sum())} points in "
+          f"boxes, {int((got > 5).sum())} boxes over 5): kernel "
+          f"{k_ms:.4f} ms, {100 * bounds[which] / k_ms:.1f}% of its bound "
+          f"{bounds[which]:.4f} ms (by its {which}; operations "
+          f"{bounds['operations']:.4f}, bytes {bounds['bytes']:.4f}); plain "
+          f"{p_ms:.3f} ms; equal")
+    log = build.ptxas_log.splitlines()
+    for i, ln in enumerate(log):
+        if "box_points_kernel" in ln:
+            for line in log[i + 1:i + 4]:
+                if "registers" in line or "spill" in line:
+                    print(f"  box_points_kernel: {line.strip()}")
+    if not build.ptxas_log:
+        print("  (the library was cached: no -Xptxas=-v report here)")
+    print(f"on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -738,6 +832,9 @@ def main() -> None:
     mode.add_argument("--bn-relu", action="store_true",
                       help="time the BatchNorm + ReLU kernel per layer of "
                            "each serving cell's request")
+    mode.add_argument("--box-points", action="store_true",
+                      help="time the box point-count kernel at the "
+                           "Group-Free cell's call")
     args = ap.parse_args()
     card = phase_device()
     if args.fps:
@@ -752,6 +849,8 @@ def main() -> None:
         profile_ffps(card)
     elif args.bn_relu:
         profile_bn_relu(card)
+    elif args.box_points:
+        profile_box_points(card)
     else:
         profile_span_cost(card)
 

@@ -489,9 +489,11 @@ def test_modelnet_dataset_batches_equal_reference(shapes, points):
 
 
 def test_classifier_preset_and_config_equal_reference():
-    # every preset of the reference, and the port's own 3DSSD one
+    # every preset of the reference, and the port's own 3DSSD and
+    # Group-Free 3D ones
     assert presets.PRESETS == {**jpresets.PRESETS,
-                               "3dssd": presets.PRESETS["3dssd"]}
+                               "3dssd": presets.PRESETS["3dssd"],
+                               "groupfree3d": presets.PRESETS["groupfree3d"]}
     tcfg, jcfg = _cfgs(["preset=classifier", "model.classifier_msg=true",
                         "model.dropout=0.3", "data.name=modelnet"])
     assert tcfg == to_port(jcfg)

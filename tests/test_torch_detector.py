@@ -71,10 +71,11 @@ def to_port(ref):
                   if f.name not in PORT_ONLY})
 
 
-# the port's own fields (3DSSD's, model.name='ssd3d'), which the reference
-# has not: they keep the port's defaults
+# the port's own fields (3DSSD's, model.name='ssd3d', and Group-Free 3D's,
+# model.name='groupfree3d'), which the reference has not: they keep the
+# port's defaults
 PORT_ONLY = frozenset(f.name for f in dataclasses.fields(tconfig.ModelConfig)
-                      if f.name.startswith("ssd3d_"))
+                      if f.name.startswith(("ssd3d_", "groupfree_")))
 
 
 @pytest.fixture(scope="module")
@@ -307,8 +308,8 @@ def test_unported_options_raise(pair):
 @pytest.mark.parametrize("name", ["ModelConfig", "EvalConfig"])
 def test_port_config_defaults_equal_reference(name):
     """Every field of the port's config exists in the reference's, with
-    the same default, but 3DSSD's ssd3d_* fields, which are the port's
-    alone."""
+    the same default, but 3DSSD's ssd3d_* and Group-Free 3D's groupfree_*
+    fields, which are the port's alone."""
     port = getattr(tconfig, name)()
     ref = {"ModelConfig": ModelConfig, "EvalConfig": EvalConfig}[name]()
     for f in dataclasses.fields(port):

@@ -14,10 +14,13 @@ import torch
 torch.set_num_threads(1)
 
 from chip_smoke import (
+    BOX_POINTS_CASES,
     FFPS_CASES,
+    GROUPFREE_REQUEST,
     SSD3D_REQUEST,
     add_at,
     bits_differ,
+    box_points_input,
     ffps_input,
     fps_templates,
     kernel_times,
@@ -220,3 +223,76 @@ def test_ffps_input_makes_each_case(case):
         assert (x[..., 3:] >= 0).all()
     if kind == "grid":
         assert set(x.unique().tolist()) <= {0.0, 1.0, 2.0}
+
+
+def test_groupfree_request_launches_are_the_ops_of_a_cpu_serve():
+    """Phase 21's launches a Group-Free request, counted here as calls of
+    the custom ops in one request of preset=groupfree3d at a small size:
+    the same set abstractions, point count and walk as at the cell's
+    size, and no FPS for the candidates."""
+    from tpu3dsad_torch import serving, train_lib
+    from tpu3dsad_torch.config import parse_cli
+    from tpu3dsad_torch.ops import library
+    from tpu3dsad_torch.train_detector import build_detector
+
+    cfg = parse_cli(["preset=groupfree3d",
+                     "model.sa_npoints=(256,64,32,16)",
+                     "model.groupfree_candidates=16",
+                     "model.groupfree_layers=2", "data.num_points=1024"])
+    train_lib.apply_runtime_config(cfg)
+    model = build_detector(cfg, device="cpu")
+    ops = {"fps": "fps", "ffps": "ffps", "ball_query": "ball_query",
+           "iou": "oriented_bev_iou", "box_points": "box_points",
+           "nms": "greedy_suppress"}
+    calls = dict.fromkeys(ops, 0)
+    saved = {k: getattr(library, op) for k, op in ops.items()}
+
+    def counted(key):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return saved[key](*args, **kwargs)
+        return call
+
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform(-3, 3, (2, 1024, 3))
+                           .astype(np.float32))
+    mask = torch.ones(2, 1024, dtype=torch.bool)
+    infer = serving.build_inference_fn(cfg, model, model.mean_sizes)
+    for key, op in ops.items():
+        setattr(library, op, counted(key))
+    try:
+        out = infer(pts, mask)
+    finally:
+        for key, op in ops.items():
+            setattr(library, op, saved[key])
+    assert {k: v for k, v in calls.items() if v} == GROUPFREE_REQUEST
+    assert out["keep"].shape == (2, 48)
+
+
+@pytest.mark.parametrize("case", [c for c in BOX_POINTS_CASES
+                                  if c[2] * c[3] <= 4097],
+                         ids=lambda c: c[0])
+def test_box_points_input_makes_each_case(case):
+    """Phase 21's point-count inputs: the shapes asked for, finite values,
+    the mask each kind names, and on "faces" the first six points of each
+    cloud on the six faces of its first box, to the rounding of centre +
+    half size."""
+    name, b, n, p, kind = case
+    pts, c, s, mask = box_points_input(kind, b, n, p,
+                                       torch.Generator().manual_seed(0))
+    assert pts.shape == (b, n, 3) and c.shape == s.shape == (b, p, 3)
+    assert all(torch.isfinite(t).all() for t in (pts, c, s))
+    at = torch.arange(n)
+    want = {"tail": at < n * 3 // 4,
+            "all": torch.zeros(n, dtype=torch.bool)}.get(kind)
+    if want is None:
+        assert mask is None
+    else:
+        assert torch.equal(mask, want[None].expand(b, n))
+    if kind == "faces":
+        gap = (pts[:, :6] - c[:, :1]).abs()
+        half = (s[:, :1] * 0.5).abs().expand(b, 6, 3)
+        face = torch.eye(3, dtype=torch.bool).repeat_interleave(2, 0)
+        torch.testing.assert_close(gap[:, face], half[:, face], rtol=0,
+                                   atol=1e-6)
+        assert (gap[:, ~face] == 0).all()

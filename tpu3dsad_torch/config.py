@@ -10,8 +10,9 @@ port nor a run on the card loads any module of the JAX package. A
 reference `Config` works in its place: the port only reads these
 attributes.
 
-The `ssd3d_*` fields of ModelConfig are the port's alone (3DSSD,
-model.name='ssd3d', has no counterpart in the reference).
+The `ssd3d_*` and `groupfree_*` fields of ModelConfig are the port's alone
+(3DSSD, model.name='ssd3d', and Group-Free 3D, model.name='groupfree3d',
+have no counterpart in the reference).
 
 One default differs: `ops_fast_grouping` is False here (True in the
 reference). The reference's default fast tier is lax.approx_max_k, which
@@ -32,7 +33,8 @@ import numpy as np
 
 @dataclass(frozen=True)
 class ModelConfig:
-    name: str = "detector"  # 'detector' | 'classifier' | 'ssd3d'
+    # 'detector' | 'classifier' | 'ssd3d' | 'groupfree3d'
+    name: str = "detector"
     num_classes: int = 18
     num_heading_bins: int = 12
     num_proposals: int = 256
@@ -106,6 +108,23 @@ class ModelConfig:
     ssd3d_bn_eps: float = 1e-3
     # the parse keeps the first ssd3d_max_output NMS survivors by score
     ssd3d_max_output: int = 100
+    # name='groupfree3d' only: Group-Free 3D (models/groupfree.py), defaults
+    # mmdetection3d's configs/groupfree3d/groupfree3d_head-L12-O256_4xb8_
+    # scannet-seg.py; the backbone is the detector's (sa_*, fp_channels:
+    # preset=groupfree3d sets FP2 to 288, the decoder's width d). KPS keeps
+    # the groupfree_candidates seeds of most objectness
+    groupfree_candidates: int = 256
+    # the decoder: layers, attention heads and the FFN's hidden width
+    groupfree_layers: int = 12
+    groupfree_heads: int = 8
+    groupfree_ffn: int = 2048
+    # every box head's shared Linear + BN + ReLU widths
+    groupfree_head_channels: tuple[int, ...] = (288, 288)
+    # the parse: the boxes of the last groupfree_stages decoder stages,
+    # each kept only where more than groupfree_min_points valid input
+    # points lie in it
+    groupfree_stages: int = 3
+    groupfree_min_points: int = 5
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """Prediction parsing (tpu3dsad/eval/parse.py): decode -> threshold ->
 NMS on the device (`parse_predictions`; 3DSSD's anchor-free boxes by
-`parse_ssd3d`; `make_parser` picks one by model.name), then on the host the
-per-scene lists that AP scores (`predictions_to_lists`,
-`parse_groundtruths`), in numpy."""
+`parse_ssd3d`, Group-Free 3D's by `parse_groupfree`; `make_parser` picks
+one by model.name), then on the host the per-scene lists that AP scores
+(`predictions_to_lists`, `parse_groundtruths`), in numpy."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import functools
 import numpy as np
 import torch
 
+from tpu3dsad_torch import ops
 from tpu3dsad_torch.config import EvalConfig
 from tpu3dsad_torch.models.decode import predicted_boxes
 from tpu3dsad_torch.ops.boxes import _CORNER_SIGNS, box_corners, corners_to_aabb
@@ -97,6 +98,60 @@ def parse_ssd3d(end_points, eval_cfg: EvalConfig, max_output: int):
     }
 
 
+def parse_groupfree(end_points, eval_cfg: EvalConfig, stages: int,
+                    min_points: int):
+    """Group-Free 3D's boxes (models/groupfree.py) -> the parsed fields of
+    parse_predictions, P = stages x candidates of them (mmdet3d's
+    GroupFree3DHead.get_bboxes with prediction_stages='last_three' at
+    stages 3):
+
+      * the boxes of the last `stages` decoder stages, concatenated stage
+        after stage;
+      * obj_prob = sigmoid(objectness), sem_prob = softmax(class logits),
+        sem_cls its argmax, heading 0;
+      * a box is non-empty where more than `min_points` valid input points
+        lie in it (ops.box_points: strict faces in x and y, inclusive in
+        z; the span parse.box_points);
+      * keep [B,P]: the greedy walk over the non-empty boxes by obj_prob,
+        class-aware with eval.cls_nms, by the axis-aligned 3D IoU
+        (eval.use_3d_nms, else BEV), then obj_prob above
+        eval.objectness_thresh."""
+    with trace.span("parse.decode"):
+        B = end_points["stage_center"].shape[0]
+        center, size = (end_points[k][:, -stages:].reshape(B, -1, 3)
+                        for k in ("stage_center", "stage_size"))
+        obj_prob = torch.sigmoid(
+            end_points["stage_obj"][:, -stages:].reshape(B, -1))
+        sem_logits = end_points["stage_sem"][:, -stages:]
+        sem_prob = torch.softmax(
+            sem_logits.reshape(B, -1, sem_logits.shape[-1]), -1)
+        sem = sem_prob.argmax(-1)
+        heading = torch.zeros_like(obj_prob)
+        corners = box_corners(center, size, heading)
+        bmin, bmax = corners_to_aabb(corners)
+        proposal = end_points["proposal_mask"].repeat(1, stages)
+    with trace.span("parse.box_points"):
+        counts = ops.box_points(end_points["points"], center, size,
+                                mask=end_points["point_mask"])
+        valid = proposal & (counts > min_points)
+    sem_cls = sem if eval_cfg.cls_nms else None
+    with trace.span("parse.nms"):
+        nms = nms_aabb if eval_cfg.use_3d_nms else nms_bev
+        keep = nms(bmin, bmax, obj_prob, valid, eval_cfg.nms_iou,
+                   sem_cls=sem_cls)
+        keep = keep & (obj_prob > eval_cfg.objectness_thresh)
+    return {
+        "center": center,
+        "size": size,
+        "heading": heading,
+        "sem_cls": sem,
+        "obj_prob": obj_prob,
+        "sem_prob": sem_prob,
+        "corners": corners,
+        "keep": keep,
+    }
+
+
 def top_scores(keep, score, k: int):
     """keep [B,P] cut to its first k boxes by score, in the walk's order (a
     stable sort of -score: ties to the lower slot); k <= 0 keeps all."""
@@ -116,6 +171,10 @@ def make_parser(cfg, mean_sizes):
     if cfg.model.name == "ssd3d":
         return functools.partial(parse_ssd3d, eval_cfg=cfg.eval,
                                  max_output=cfg.model.ssd3d_max_output)
+    if cfg.model.name == "groupfree3d":
+        return functools.partial(parse_groupfree, eval_cfg=cfg.eval,
+                                 stages=cfg.model.groupfree_stages,
+                                 min_points=cfg.model.groupfree_min_points)
     return functools.partial(parse_predictions, mean_sizes=mean_sizes,
                              num_heading_bins=cfg.model.num_heading_bins,
                              eval_cfg=cfg.eval)

@@ -15,7 +15,9 @@ classifier instead (train_classifier.run_eval_classifier: val_acc and
 val_loss). With model.name=ssd3d (preset=3dssd) the detector is 3DSSD,
 built by the same factory (train_detector.build_detector), fed the KITTI
 scans' intensity and parsed by its own parse; its val_loss is null (no
-3DSSD loss is ported).
+3DSSD loss is ported). With model.name=groupfree3d (preset=groupfree3d)
+it is Group-Free 3D, from the same factory, on xyz alone, parsed by
+parse_groupfree; its val_loss is null too.
 """
 
 from __future__ import annotations

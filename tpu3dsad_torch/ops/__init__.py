@@ -150,6 +150,15 @@ def knn(query, support, k, *, support_mask=None):
     return _plain_knn(query, support, k, support_mask)
 
 
+def box_points(points, centers, sizes, *, mask=None):
+    """-> counts [B,P] int32: the valid points of points [B,N,3] inside
+    each axis-aligned box of centers and sizes [B,P,3] (strict faces in x
+    and y, an inclusive face in z: ops/plain/box_points.py); integers
+    outside the autograd graph."""
+    return _library.box_points(points.detach(), centers.detach(),
+                               sizes.detach(), mask)
+
+
 def scatter_rows(g, idx, n):
     """g [B,U,C], idx [B,U] int -> [B,n,C] fp32: out[b, idx[b,u]] += g[b,u];
     indices < 0 or >= n add nothing."""
@@ -211,6 +220,7 @@ def query_and_group(xyz, centers, radius, nsample, *, features=None,
 
 __all__ = [
     "ball_query",
+    "box_points",
     "feature_furthest_point_sample",
     "furthest_point_sample",
     "gather",

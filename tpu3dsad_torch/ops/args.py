@@ -1,5 +1,5 @@
 """Shape and range checks of the FPS, feature FPS, ball-query, scatter,
-NMS-walk, oriented-IoU and BatchNorm + ReLU arguments.
+NMS-walk, oriented-IoU, BatchNorm + ReLU and box point-count arguments.
 
 Both implementations, the plain versions and the kernel wrappers, call
 these once on entry, so each path checks its arguments exactly once.
@@ -101,5 +101,25 @@ def check_bn_relu(x: torch.Tensor, *vectors: torch.Tensor) -> None:
                              f"{tuple(v.shape)}")
     for name, t in zip(("x", "mean", "var", "weight", "bias"),
                        (x, *vectors)):
+        if not t.is_floating_point():
+            raise TypeError(f"{name} must be floating point, got {t.dtype}")
+
+
+def check_box_points(points: torch.Tensor, centers: torch.Tensor,
+                     sizes: torch.Tensor,
+                     mask: torch.Tensor | None) -> None:
+    """points [B, N, 3], centers and sizes [B, P, 3], mask [B, N]; all
+    but the mask floating point."""
+    _points(points, "points")
+    _points(centers, "centers")
+    _mask(mask, points)
+    if sizes.shape != centers.shape:
+        raise ValueError(f"sizes must be [B, P, 3] = {tuple(centers.shape)}, "
+                         f"got {tuple(sizes.shape)}")
+    if centers.shape[0] != points.shape[0]:
+        raise ValueError(f"centers batch {centers.shape[0]} != points batch "
+                         f"{points.shape[0]}")
+    for name, t in (("points", points), ("centers", centers),
+                    ("sizes", sizes)):
         if not t.is_floating_point():
             raise TypeError(f"{name} must be floating point, got {t.dtype}")

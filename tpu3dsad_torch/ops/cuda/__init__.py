@@ -5,6 +5,15 @@ Importing this package builds nothing: nvcc runs at the first launch
 anything else; each counts its launches in its module's `launches`.
 """
 
-from tpu3dsad_torch.ops.cuda import ball_query, build, fps, iou, nms, scatter
+from tpu3dsad_torch.ops.cuda import (
+    ball_query,
+    box_points,
+    build,
+    fps,
+    iou,
+    nms,
+    scatter,
+)
 
-__all__ = ["ball_query", "build", "fps", "iou", "nms", "scatter"]
+__all__ = ["ball_query", "box_points", "build", "fps", "iou", "nms",
+           "scatter"]

@@ -71,6 +71,8 @@ _SIGNATURES = {
     "tpu3dsad_oriented_iou": (_P, _P, _P, _I, _I, _I, _P),
     # x, mean, var, weight, bias, eps, y, rows, c, stream
     "tpu3dsad_bn_relu": (_P, _P, _P, _P, _P, _F, _P, _LL, _I, _P),
+    # points, mask (or null), centers, sizes, counts, b, n, p, stream
+    "tpu3dsad_box_points": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

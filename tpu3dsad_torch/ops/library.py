@@ -20,7 +20,10 @@ exported by torch.export run the same functions:
     corners (csrc/iou.cu), which oriented NMS hands to the walk;
   * tpu3dsad_torch::bn_relu(x, mean, var, weight, bias, eps) -> y
     [..., C]: eval-mode BatchNorm and ReLU of every MLP layer
-    (csrc/bn_relu.cu; nn/norm.py calls it where no gradient is recorded).
+    (csrc/bn_relu.cu; nn/norm.py calls it where no gradient is recorded);
+  * tpu3dsad_torch::box_points(points, centers, sizes, mask?) -> counts
+    int32 [B, P]: the valid points inside each axis-aligned box
+    (csrc/box_points.cu), the Group-Free parse's non-empty filter.
 
 Each op has one implementation that dispatches as the ops API does
 (ops._use_kernel): on a CUDA tensor it launches the kernel through its
@@ -49,6 +52,7 @@ from tpu3dsad_torch.ops import sorted as _sorted
 from tpu3dsad_torch.ops.args import (
     check_ball_query,
     check_bn_relu,
+    check_box_points,
     check_ffps,
     check_fps,
     check_iou,
@@ -56,6 +60,7 @@ from tpu3dsad_torch.ops.args import (
 )
 from tpu3dsad_torch.ops.cuda import ball_query as _cuda_bq
 from tpu3dsad_torch.ops.cuda import bn_relu as _cuda_bn_relu
+from tpu3dsad_torch.ops.cuda import box_points as _cuda_box_points
 from tpu3dsad_torch.ops.cuda import ffps as _cuda_ffps
 from tpu3dsad_torch.ops.cuda import fps as _cuda_fps
 from tpu3dsad_torch.ops.cuda import iou as _cuda_iou
@@ -180,3 +185,17 @@ def _(x, mean, var, weight, bias, eps):
     for v in (mean, var, weight, bias):
         dtype = torch.promote_types(dtype, v.dtype)
     return x.new_empty(x.shape, dtype=dtype)
+
+
+@torch.library.custom_op("tpu3dsad_torch::box_points", mutates_args=())
+def box_points(points: Tensor, centers: Tensor, sizes: Tensor,
+               mask: Optional[Tensor] = None) -> Tensor:
+    if _kernel(points):
+        return _cuda_box_points.box_points(points, centers, sizes, mask)
+    return _plain.box_points(points, centers, sizes, mask)
+
+
+@box_points.register_fake
+def _(points, centers, sizes, mask=None):
+    check_box_points(points, centers, sizes, mask)
+    return points.new_empty(centers.shape[:2], dtype=torch.int32)

@@ -56,6 +56,26 @@ PRESETS: dict[str, list[str]] = {
         "eval.cls_nms=false",
         "train.bf16_matmul=false",
     ],
+    # Group-Free 3D (models/groupfree.py) at mmdetection3d's ScanNet setting
+    # L12-O256 (configs/groupfree3d/groupfree3d_head-L12-O256_4xb8_scannet-
+    # seg.py; the decoder's widths are the ModelConfig groupfree_*
+    # defaults): 50000 points of xyz (51200, the 2048-multiple bucket), 18
+    # classes, the backbone's FP2 at 288, its test_cfg's class-aware 3D NMS
+    # at IoU 0.25 with a score threshold of 0; fp32 products
+    "groupfree3d": [
+        "model.name=groupfree3d",
+        "model.num_classes=18",
+        "model.fp_channels=((256,256),(256,288))",
+        "model.append_height=false",
+        "data.name=scannet",
+        "data.num_points=51200",
+        "eval.nms_iou=0.25",
+        "eval.objectness_thresh=0.0",
+        "eval.use_3d_nms=true",
+        "eval.cls_nms=true",
+        "eval.use_oriented_nms=false",
+        "train.bf16_matmul=false",
+    ],
     # benchmark config #1: the PointNet++ SSG classifier, 1024-point clouds
     "classifier": [
         "model.name=classifier",

@@ -44,9 +44,10 @@ _EXPORT_KEYS = ("center", "size", "heading", "sem_cls", "obj_prob", "keep")
 class InferenceProgram(nn.Module):
     """forward(points [B,N,3], mask [B,N][, features [B,N,C]]) -> {key:
     tensor} for _EXPORT_KEYS: the detector in eval mode, then its parse
-    with cfg.eval (eval/parse.py::make_parser: parse_predictions, or
-    parse_ssd3d for model.name='ssd3d'). Eager serving and the export run
-    this module."""
+    with cfg.eval (eval/parse.py::make_parser: parse_predictions,
+    parse_ssd3d for model.name='ssd3d', parse_groupfree for
+    model.name='groupfree3d'). Eager serving and the export run this
+    module."""
 
     def __init__(self, cfg, model, mean_sizes):
         super().__init__()
@@ -71,9 +72,9 @@ def build_inference_fn(cfg, model, mean_sizes, with_features: bool = False):
     artifact).
 
     cfg: a Config (cfg.model, cfg.eval); model: the detector
-    train_detector.build_detector makes of cfg (a SizeAdaptiveDetector, or
-    3DSSD, which takes its point features: with_features=True) with the
-    same mean_sizes."""
+    train_detector.build_detector makes of cfg (a SizeAdaptiveDetector,
+    3DSSD, which takes its point features: with_features=True, or
+    Group-Free 3D, on xyz alone) with the same mean_sizes."""
     program = InferenceProgram(cfg, model, mean_sizes)
 
     if with_features:

@@ -28,7 +28,7 @@ from tpu3dsad_torch import train_lib
 from tpu3dsad_torch.config import describe, parse_cli
 from tpu3dsad_torch.parallel.launch import ranks_from_env
 from tpu3dsad_torch.train_classifier import run_classifier
-from tpu3dsad_torch.train_detector import run_detector
+from tpu3dsad_torch.train_detector import UNTRAINED, run_detector
 
 RUNNERS = {"detector": run_detector, "classifier": run_classifier}
 
@@ -40,6 +40,8 @@ def main(argv, *, device="cuda"):
     cfg = parse_cli(argv)
     print(describe(cfg), file=sys.stderr)
     train_lib.apply_runtime_config(cfg)
+    if cfg.model.name in UNTRAINED:
+        raise SystemExit(UNTRAINED[cfg.model.name])
     runner = RUNNERS.get(cfg.model.name)
     if runner is None:
         raise SystemExit(f"unknown model.name={cfg.model.name}")

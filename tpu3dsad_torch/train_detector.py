@@ -55,6 +55,7 @@ from tpu3dsad_torch.eval.parse import (
     predictions_to_lists,
 )
 from tpu3dsad_torch.models.detector import SizeAdaptiveDetector
+from tpu3dsad_torch.models.groupfree import GroupFree3D
 from tpu3dsad_torch.models.ssd3d import SSD3D
 from tpu3dsad_torch.parallel import collectives
 from tpu3dsad_torch.parallel.mesh import make_mesh, shard_batch
@@ -80,15 +81,31 @@ class TrainResult:
     evals: list = field(default_factory=list)
 
 
+# model.name -> why the port cannot train it
+UNTRAINED = {
+    "groupfree3d": (
+        "model.name=groupfree3d has no training path in the port: "
+        "Group-Free 3D's KPS sampling loss, focal objectness loss and "
+        "per-stage box losses are not ported. It serves "
+        "(tpu3dsad_torch.serving), evaluates (tpu3dsad_torch.eval_detector) "
+        "and exports (serving.export_detector)"),
+}
+
+
 def build_detector(cfg, mean_sizes=None, *, device="cuda"):
     """The detector of cfg.model, weights drawn from cfg.train.seed: by
     model.name, 3DSSD ('ssd3d', models/ssd3d.py: its point features are
-    model.ssd3d_point_features channels), else the size-adaptive detector,
+    model.ssd3d_point_features channels), Group-Free 3D ('groupfree3d',
+    models/groupfree.py: xyz alone), else the size-adaptive detector,
     which with data.use_color takes the 3 colour channels as point
     features. The one factory of serving, evaluation and training."""
     if cfg.model.name == "ssd3d":
         return SSD3D(cfg.model, mean_sizes, device=device,
                      generator=torch.Generator().manual_seed(cfg.train.seed))
+    if cfg.model.name == "groupfree3d":
+        return GroupFree3D(
+            cfg.model, mean_sizes, device=device,
+            generator=torch.Generator().manual_seed(cfg.train.seed))
     return SizeAdaptiveDetector(
         cfg.model, mean_sizes, in_features=3 if cfg.data.use_color else 0,
         device=device,
@@ -98,7 +115,10 @@ def build_detector(cfg, mean_sizes=None, *, device="cuda"):
 def run_detector(cfg, *, device="cuda") -> TrainResult:
     """Train the detector of `cfg` (a Config) on `device`, the card unless
     the caller asks for the CPU; resume from cfg.train.ckpt_dir if it holds
-    a checkpoint."""
+    a checkpoint. Group-Free 3D (model.name='groupfree3d') is refused: its
+    losses are not ported."""
+    if cfg.model.name in UNTRAINED:
+        raise ValueError(UNTRAINED[cfg.model.name])
     if (cfg.data.name == "packed" and cfg.data.augment
             and not cfg.data.device_augment):
         raise ValueError(

@@ -500,8 +500,9 @@ def make_detector_eval_step(model, cfg, mesh=None):
     gradients, then the detection loss, which leaves out the scenes that
     batch["scene_mask"] marks as padding (tpu3dsad/train_lib.py:271-285).
     With a mesh, `batch` holds this rank's rows: end_points are its rows',
-    and the metrics are the global batch's. 3DSSD (model.name='ssd3d')
-    has no loss ported: its metrics are empty."""
+    and the metrics are the global batch's. 3DSSD (model.name='ssd3d') and
+    Group-Free 3D (model.name='groupfree3d') have no loss ported: their
+    metrics are empty."""
     ms = model.mean_sizes
     group = data_axis(mesh)
 
@@ -511,7 +512,7 @@ def make_detector_eval_step(model, cfg, mesh=None):
         model.eval()
         end_points = model(batch["points"], batch.get("point_features"),
                            mask=batch["point_mask"])
-        if cfg.model.name == "ssd3d":
+        if cfg.model.name in ("ssd3d", "groupfree3d"):
             return end_points, {}
         with collectives.data_parallel(group):
             _, metrics = detection_loss(
