@@ -26,7 +26,13 @@ the pruned pass (fps_flat) and the unpruned kernel at the same plan, each
 held to the plain version first; the device ms of the pruned kernel and
 of its pre-pass (the Z-order keys, the sorts) by torch.profiler, us a
 round, and the engaged share (warp-rounds that ran their pass over all
-warp-rounds) from the kernel's counter.
+warp-rounds) from the kernel's counter. Last, how many B2 clusters of the
+cell's plan the card runs at once (cudaOccupancyMaxActiveClusters,
+ops/cuda/fps.py::flat_clusters, which sizes the KITTI fit's side streams)
+and B2 (pre-pass and kernel) on 8 of the cell's scans by CUDA events: one
+scan alone, the 8 one after another on one stream, and the 8 each on a
+stream of its own, as fit_scene runs a batch; the overlapped picks held
+to the serial ones.
 
 --ball-query times the ball-query kernel (csrc/ball_query.cu) at each
 main-path ball-query call, on the inputs recorded from one served request,
@@ -217,7 +223,20 @@ def profile_fps(card: str) -> None:
                   f"{ms * 1e3 / (m - 1):7.3f} us/round  equal"
                   f"{'  <- plan(), as launched' if plans is None else ''}")
     profile_b2(sms)
+    profile_b2_overlap(sms)
     print(f"on {card}")
+
+
+def cell_cloud(seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One KITTI cell scan cropped and padded as the fit pads it: (cloud
+    [1, P, 3], mask [1, P]) on the card."""
+    scan = outdoor_traffic.outdoor_scene(np.random.default_rng(seed), 122880)
+    crop = torch.from_numpy(np.ascontiguousarray(
+        scan[kitti.range_crop(scan), :3])).cuda()
+    n = crop.shape[0]
+    cloud = crop.new_zeros(1, -(-n // 4096) * 4096, 3)
+    cloud[0, :n] = crop
+    return cloud, (torch.arange(cloud.shape[1], device="cuda") < n)[None]
 
 
 def profile_b2(sms: int, seeds=(1, 2, 3)) -> None:
@@ -226,14 +245,8 @@ def profile_b2(sms: int, seeds=(1, 2, 3)) -> None:
     and the engaged share."""
     m = EVAL_N
     for seed in seeds:
-        scan = outdoor_traffic.outdoor_scene(np.random.default_rng(seed),
-                                             122880)
-        crop = torch.from_numpy(np.ascontiguousarray(
-            scan[kitti.range_crop(scan), :3])).cuda()
-        n = crop.shape[0]
-        cloud = crop.new_zeros(1, -(-n // 4096) * 4096, 3)
-        cloud[0, :n] = crop
-        mask = (torch.arange(cloud.shape[1], device="cuda") < n)[None]
+        cloud, mask = cell_cloud(seed)
+        n = int(mask.sum())
         first = cuda_fps.plan(1, cloud.shape[1], sms)[0]
         want = plain_fps(cloud, m, mask=mask)
         engaged = torch.zeros(1, dtype=torch.int64, device="cuda")
@@ -257,6 +270,42 @@ def profile_b2(sms: int, seeds=(1, 2, 3)) -> None:
         print("  pre-pass by kernel: " + ", ".join(
             f"{k} {v:.4f}" for k, v in pruned.items()
             if "fps_cluster" not in k))
+
+
+def profile_b2_overlap(sms: int, scans: int = 8) -> None:
+    """B2's clusters at once, and B2 on `scans` of the cell's scans alone,
+    in series and each on its own stream (module docstring)."""
+    m = EVAL_N
+    clouds = [cell_cloud(seed) for seed in range(1, scans + 1)]
+    cloud, mask = clouds[0]
+    n = cloud.shape[1]
+    k = cuda_fps.flat_clusters(n, "cuda")
+    print(f"B2 {cuda_fps.plan(1, n, sms)[0]} at [1,{n}]: {k} clusters at "
+          f"once (cudaOccupancyMaxActiveClusters) on {sms} SMs")
+    streams = [torch.cuda.Stream() for _ in clouds]
+
+    def serial():
+        return [cuda_fps.fps_flat(c, m, v) for c, v in clouds]
+
+    def overlapped():
+        caller, out = torch.cuda.current_stream(), []
+        for s, (c, v) in zip(streams, clouds):
+            s.wait_stream(caller)
+            with torch.cuda.stream(s):
+                out.append(cuda_fps.fps_flat(c, m, v))
+        for s in streams:
+            caller.wait_stream(s)
+        return out
+
+    for i, (got, want) in enumerate(zip(overlapped(), serial())):
+        require_equal(f"B2 overlapped scan {i}", got, want)
+    alone = cuda_ms(lambda: cuda_fps.fps_flat(cloud, m, mask), 3)
+    one_stream = cuda_ms(serial, 3)
+    own_streams = cuda_ms(overlapped, 3)
+    print(f"B2 with its pre-pass: one scan alone {alone:.3f} ms; {scans} "
+          f"scans on one stream {one_stream:.3f} ms; on {scans} streams "
+          f"{own_streams:.3f} ms ({one_stream / own_streams:.2f}x, "
+          f"{own_streams / alone:.2f} scans' time alone); equal")
 
 
 def bq_shapes() -> list:

@@ -30,16 +30,24 @@ in a sensor's ring order and on clouds with duplicate points and NaN
 coordinates (where a valid point's coordinate is NaN, the unpruned
 kernel's picks: the plain version takes the NaN in), and its engaged
 counter equals tests/fps_model.py's count; the eval-kitti-b8 cell runs
-through the harness correct.
+through the harness correct. The fits of eight views of one batch on the
+card, each on a side stream from the batch's ready point, equal each
+scan's fit alone bitwise and count 7 shared ready points of 8 fits; their
+outputs stay the caller's while the side streams fit the rest of the
+batch; a write to the batch between fits takes a fresh ready point and is
+seen; the crop's count is the fit's one host synchronisation. On the CPU,
+the rule that decides when a fit shares a ready point.
 
 This file imports no JAX, so on the card it runs alone:
     python -m pytest tests/test_torch_kitti_fit.py --noconftest -m card
 """
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -145,6 +153,37 @@ def test_prepare_scene_batch_of_a_kitti_scan_is_fit_scene(with_features):
     assert not args[0][1].any() and not args[1][1].any()
     if with_features:  # a scan of xyz + intensity has no colour columns
         assert not args[2].any()
+
+
+@pytest.mark.parametrize("case", ["same", "bumped", "other", "no view",
+                                  "collected", "other stream"])
+def test_ready_point_is_shared_only_by_views_of_one_unchanged_base(case):
+    """fit_scene's rule on the card, on CPU tensors: a fit waits on the
+    ready point that the first fit of a view of the same base recorded
+    only while that base is alive, at the same version, and the caller's
+    stream is the same; every other fit takes a fresh one."""
+    raw = torch.zeros(4, 16, 4)
+    slot = kitti.Ready(weakref.ref(raw), raw._version, "caller", None)
+    base, stream = raw[1]._base, "caller"
+    if case == "bumped":
+        raw[2].add_(1.0)  # a write through another view
+    elif case == "other":
+        base = raw.clone()
+    elif case == "no view":
+        base = raw.clone()._base  # a tensor that is no view has none
+        assert base is None
+    elif case == "collected":
+        gone = torch.zeros(4, 16, 4)
+        slot = kitti.Ready(weakref.ref(gone), gone._version, "caller", None)
+        del gone
+        gc.collect()
+        assert slot.base() is None
+    elif case == "other stream":
+        stream = "another"
+    version = None if base is None else base._version
+    assert kitti.shares_ready_point(slot, base, version, stream) == (
+        case == "same")
+    assert not kitti.shares_ready_point(None, base, version, stream)
 
 
 def test_frozen_scan_generator_draws_the_programs_scans():
@@ -464,6 +503,116 @@ def test_pruned_b2_engaged_counter_equals_the_model(card):
     np.testing.assert_array_equal(got[0].cpu().numpy(), want)
     assert engaged.item() == count
     assert 0 < count < 255 * 16
+
+
+CELL_SEEDS = range(30, 38)
+
+
+@pytest.fixture(scope="module")
+def cell_batch():
+    """Eight of the KITTI cell's raw scans as one batch tensor on the card
+    [8, 122880, 4], and each one's fit alone (a scan that is no view, the
+    card synchronised after each fit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    raw = torch.from_numpy(np.stack([traffic.outdoor_scene(
+        np.random.default_rng(s), 122880) for s in CELL_SEEDS])).cuda()
+    return raw, fits_alone(raw)
+
+
+def fits_alone(raw: torch.Tensor) -> list:
+    out = []
+    for b in range(raw.shape[0]):
+        out.append(kitti.fit_scene(raw[b].clone(), 16384, raw.device))
+        torch.cuda.synchronize()
+    return out
+
+
+def assert_same_fits(got: list, want: list) -> None:
+    """rows, picks, points and mask bitwise."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.picks is not None and torch.equal(g.picks, w.picks)
+        assert torch.equal(g.rows, w.rows) and torch.equal(g.points, w.points)
+        assert torch.equal(g.mask, w.mask)
+
+
+@pytest.mark.card
+def test_fits_of_one_batch_share_its_ready_point_and_equal_each_alone(
+        cell_batch):
+    raw, want = cell_batch
+    fits, shared = kitti.fits, kitti.fits_shared
+    got = [kitti.fit_scene(raw[b], 16384, raw.device) for b in range(8)]
+    assert (kitti.fits - fits, kitti.fits_shared - shared) == (8, 7)
+    assert_same_fits(got, want)
+
+
+@pytest.mark.card
+def test_fit_outputs_outlive_the_side_streams_next_fits(cell_batch):
+    """Batches that reuse the allocator's blocks: the caller reads each
+    half's fits behind a long wait on its stream and frees them, while the
+    other half of the batch (the same ready point) is fitted on the same
+    side streams; without record_stream those fits would take the freed
+    blocks and write them before the caller read them."""
+    raw, want = cell_batch
+    kitti.fit_scene(raw[0], 16384, raw.device)  # the pool is made
+    k = len(kitti._sides[raw.device][0])
+    for rep in range(3):
+        order = [(rep + j) % 8 for j in range(2 * k)]
+        batch = raw[order]
+        read = []
+        for half in (range(k), range(k, 2 * k)):
+            got = [kitti.fit_scene(batch[j], 16384, raw.device)
+                   for j in half]
+            torch.cuda._sleep(200_000_000)  # ~0.1 s at the card's clock
+            read += [kitti.Fit(*(t.clone() for t in f)) for f in got]
+            del got
+        torch.cuda.synchronize()
+        assert_same_fits(read, [want[b] for b in order])
+
+
+@pytest.mark.card
+def test_a_write_to_the_batch_between_fits_takes_a_fresh_ready_point(
+        cell_batch):
+    raw, want = cell_batch
+    batch = raw[:3].clone()
+    fits, shared = kitti.fits, kitti.fits_shared
+    first = kitti.fit_scene(batch[0], 16384, raw.device)
+    torch.cuda._sleep(200_000_000)  # the write lands late on the stream
+    batch[1].copy_(raw[5])
+    second = kitti.fit_scene(batch[1], 16384, raw.device)
+    assert kitti.fits_shared == shared
+    third = kitti.fit_scene(batch[2], 16384, raw.device)
+    assert (kitti.fits - fits, kitti.fits_shared - shared) == (3, 1)
+    assert_same_fits([first, second, third], [want[0], want[5], want[2]])
+
+
+@pytest.mark.card
+def test_the_fit_synchronises_the_host_only_at_the_crops_read_back(
+        cell_batch, monkeypatch):
+    raw, want = cell_batch
+    kitti.fit_scene(raw[0], 16384, raw.device)  # the library, constants, pool
+    batch = raw.clone()
+    torch.cuda.synchronize()
+    nonzero, crops = torch.Tensor.nonzero, []
+
+    def read_back(self, *args, **kwargs):
+        crops.append(self.shape)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return nonzero(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(torch.Tensor, "nonzero", read_back)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [kitti.fit_scene(batch[b], 16384, raw.device)
+               for b in range(8)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(crops) == 8
+    assert_same_fits(got, want)
 
 
 def run_bench(root: Path, cell: str, seconds: int, device: str) -> dict:

@@ -625,3 +625,24 @@ extern "C" int tpu3dsad_fps_flat(const float* xyz, const uint8_t* mask,
                 order, idx, n, m,
                 reinterpret_cast<unsigned long long*>(engaged));
 }
+
+// The most clusters of the pruned pass at plan (c, t, 16) that the card runs
+// at once: the occupancy query by which the flat entry chooses a plan
+// (cudaOccupancyMaxActiveClusters); -1 on error.
+extern "C" int tpu3dsad_fps_flat_clusters(int c, int t) {
+  if (c < 1 || c > kMaxCluster || t < 32 || t > max_threads(kPrunedPoints) ||
+      t % 32 != 0)
+    return -1;
+  const PrunedKernel kernel = pruned_for(kPrunedPoints);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t config;
+  int clusters = -1;
+  if (configure(kernel, 1, c, t, kPrunedPoints, nullptr, attr, &config) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &config) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return clusters;
+}

@@ -22,11 +22,24 @@ on one device, which a server runs on each new scan
 (serving.prepare_scene_batch for a KITTI artifact). Its FPS is `fit_fps`,
 which the loader's `device_fps` runs on the cloud it cropped, so both
 take the same picks from the same kernel.
+
+On the card each fit runs on a side stream of its own, from a pool of as
+many streams as the card runs B2 clusters at once (ops/cuda/fps.py::
+flat_clusters), taken in turn. A fit waits for its input's ready point,
+not for the tail of the caller's stream: the scans of one batch are views
+of one tensor, ready as soon as its first scan was, so while nothing has
+written to that tensor since (its version counter unchanged) a fit of a
+later view waits on the event its first fit recorded, and the batch's B2
+launches overlap. The caller's stream then waits for the side stream, and
+the fit's tensors are marked as used there. `fits` counts the fits on the
+card and `fits_shared` those that waited on a shared ready point.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
+import weakref
 from glob import glob
 from typing import NamedTuple
 
@@ -42,6 +55,7 @@ from tpu3dsad_torch.data.pipeline import (
     pad_boxes,
     recover_owner,
 )
+from tpu3dsad_torch.ops.cuda import fps as cuda_fps
 from tpu3dsad_torch.utils import trace
 from tpu3dsad_torch.utils.constants import device_constant
 
@@ -94,6 +108,47 @@ def fit_fps(xyz: torch.Tensor, budget: int, bucket: int = 4096
     return ops.furthest_point_sample(cloud, budget, mask=valid)[0]
 
 
+fits = 0
+fits_shared = 0
+
+
+class Ready(NamedTuple):
+    """A batch's ready point: the event that the first fit of a view of
+    `base` at `version` recorded on the caller's `stream`."""
+
+    base: weakref.ref
+    version: int
+    stream: torch.cuda.Stream
+    event: torch.cuda.Event
+
+
+_ready: Ready | None = None
+_sides: dict = {}  # device -> (its side streams, the turn)
+
+
+def shares_ready_point(slot: Ready | None, base, version: int | None,
+                       stream) -> bool:
+    """Whether a fit of a view of `base` (None where the scan is no view of
+    a tensor on the card) at `version`, called on `stream`, may wait on
+    `slot`'s event: the same base, still alive, at the same version, on the
+    same caller's stream."""
+    return (slot is not None and base is not None and slot.base() is base
+            and slot.version == version and slot.stream == stream)
+
+
+def _side_stream(device: torch.device, rows: int,
+                 bucket: int) -> torch.cuda.Stream:
+    """The next of `device`'s side streams, the pool made at its first fit
+    as large as the B2 clusters the card runs at once for that scan's rows
+    padded to the bucket (the largest cloud its crop can leave)."""
+    if device not in _sides:
+        k = cuda_fps.flat_clusters(-(-rows // bucket) * bucket, device)
+        _sides[device] = ([torch.cuda.Stream(device) for _ in range(k)],
+                          itertools.count())
+    streams, turn = _sides[device]
+    return streams[next(turn) % len(streams)]
+
+
 def fit_scene(points, budget: int, device="cuda", *,
               bucket: int = 4096) -> Fit:
     """Fit one raw scan [N, 3+] (an array, or a tensor already on `device`)
@@ -101,7 +156,41 @@ def fit_scene(points, budget: int, device="cuda", *,
     CPU: the range crop, fit_fps of `budget` of the cropped points, the
     gather and the pad to `budget` under a False mask. Everything stays on
     the device: the crop reads its count back (the shape of what follows),
-    no pick goes to the host."""
+    no pick goes to the host. On the card the fit runs on a side stream
+    from its input's ready point (module docstring); the caller's stream
+    waits for it, the host does not."""
+    global fits, fits_shared, _ready
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _fit(points, budget, device, bucket)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    caller = torch.cuda.current_stream(device)
+    base = (points._base if isinstance(points, torch.Tensor)
+            and points.device == device else None)
+    version = None if base is None else base._version
+    if shares_ready_point(_ready, base, version, caller):
+        ready = _ready.event
+        fits_shared += 1
+    else:
+        ready = torch.cuda.Event()
+        ready.record(caller)
+        if base is not None:
+            _ready = Ready(weakref.ref(base), version, caller, ready)
+    fits += 1
+    side = _side_stream(device, len(points), bucket)
+    side.wait_event(ready)
+    with torch.cuda.stream(side):
+        fit = _fit(points, budget, device, bucket)
+    caller.wait_stream(side)
+    for t in fit:
+        if t is not None:
+            t.record_stream(caller)
+    return fit
+
+
+def _fit(points, budget: int, device, bucket: int) -> Fit:
+    """fit_scene's work on the current stream of `device`."""
     with trace.span("data.fit"):
         scan = torch.as_tensor(points).to(device)
         xyz = scan[:, :3].float()

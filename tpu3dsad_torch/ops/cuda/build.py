@@ -48,6 +48,9 @@ _SIGNATURES = {
     # idx, n, m, plans, their count, position launched, engaged (a u64
     # counter or null), stream
     "tpu3dsad_fps_flat": (_P, _P, _P, _P, _P, _I, _I, _PI, _I, _PI, _P, _P),
+    # the pruned pass's cluster size and threads: its clusters the card
+    # runs at once (-1: error)
+    "tpu3dsad_fps_flat_clusters": (_I, _I),
     # feature FPS: padded points, mask, idx, b, n, float4s a row, m,
     # candidate plans (3 host ints each: cluster, threads, points a
     # thread), their count, position launched, stream

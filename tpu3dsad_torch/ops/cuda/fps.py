@@ -24,7 +24,8 @@ these wrappers, so a run can show which entry its main path went
 through; `flat_points` sums the points (N, padding included) each B2
 launch was given, which varies with a scan's crop; `last_plan` is the
 plan of the last launch of either, `last_cluster` the cluster size of the
-last B2 launch.
+last B2 launch. `flat_clusters` is how many B2 clusters the card runs at
+once, which sizes the KITTI fit's pool of side streams (data/kitti.py).
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ MIN_SLICE = 128
 # B2's pruned pass: the points a thread holds, and a warp's slab of them
 PRUNED_POINTS = 16
 SLAB = 32 * PRUNED_POINTS
+# the largest cloud it holds: MAX_CLUSTER CTAs of its most threads
+PRUNED_MAX = MAX_CLUSTER * REGISTER_TIERS[PRUNED_POINTS] * PRUNED_POINTS
 
 
 class Plan(NamedTuple):
@@ -120,6 +123,23 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int,
     if xyz.dim() == 3 and xyz.shape[0] == 1 and xyz.shape[1] > FLAT_MIN_N:
         return fps_flat(xyz, npoint, mask)
     return fps_batched(xyz, npoint, mask)
+
+
+def flat_clusters(n: int, device) -> int:
+    """The most B2 clusters for a cloud of n points (held to the pruned
+    pass's sizes, over FLAT_MIN_N and at most PRUNED_MAX) that the card
+    runs at once: cudaOccupancyMaxActiveClusters of plan()'s first shape,
+    the query by which the flat entry chooses its plan."""
+    device = torch.device(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    first = plan(1, min(max(n, FLAT_MIN_N + 1), PRUNED_MAX), sms)[0]
+    with torch.cuda.device(device):
+        clusters = build.library().tpu3dsad_fps_flat_clusters(
+            first.cluster, first.threads)
+    if clusters < 1:
+        raise RuntimeError(f"tpu3dsad_fps_flat_clusters: no cluster of "
+                           f"{first} fits the card")
+    return clusters
 
 
 def deal(codes: torch.Tensor) -> torch.Tensor:
